@@ -1,0 +1,1 @@
+"""Flash attention forward: CUDA kernel (``csrc/flash_fwd.cu``), wrapper and plain version."""

@@ -1,0 +1,144 @@
+"""The port's flash attention against ``repro``'s oracle and Pallas kernel.
+
+On the CPU the wrapper takes the plain version, so these tests hold the
+plain version to ``repro.kernels.flash_attention.ref.attention`` and to
+``flash_attention_pallas`` in interpret mode over every ``FLASH_CASES`` row
+of ``test_kernels.py``, at that row's tolerance.  The CUDA kernel itself is
+held to the plain version by the ``gpu``-marked test (and by chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ref as jax_ref
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro_torch.kernels.flash_attention import ops, ref
+from test_kernels import FLASH_CASES
+
+_TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+# the slice's head width (GPT-2.7B), not a power of two
+CASES = FLASH_CASES + [
+    (128, 128, 80, True, None, 64, 64, jnp.float32, 2e-6),
+    (96, 96, 80, True, None, 32, 32, jnp.bfloat16, 2e-2),
+]
+
+
+def _qkv(B, T, S, H, K, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _both(arrs, jdtype):
+    j = [jnp.asarray(a, jdtype) for a in arrs]
+    t = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(_TORCH[jdtype]) for x in j]
+    return j, t
+
+
+@pytest.mark.parametrize("T,S,hd,causal,window,bq,bk,dtype,tol", CASES)
+def test_plain_matches_reference_and_pallas(T, S, hd, causal, window, bq, bk, dtype, tol):
+    B, H = 2, 3
+    (jq, jk, jv), (q, k, v) = _both(_qkv(B, T, S, H, H, hd), dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    got = got.float().numpy()
+    want = np.asarray(jax_ref.attention(jq, jk, jv, causal=causal, window=window), np.float32)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+    flat = lambda x: x.transpose(0, 2, 1, 3).reshape(B * H, x.shape[1], hd)  # noqa: E731
+    pallas = flash_attention_pallas(
+        flat(jq), flat(jk), flat(jv), causal=causal, window=window,
+        block_q=bq, block_k=bk, interpret=True,
+    )
+    pallas = np.asarray(pallas, np.float32).reshape(B, H, T, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+
+
+# T < S and native GQA are held to ref.attention only: flash_attention_pallas
+# places query i at position i (kernel.py:67) where the oracle places it at
+# i + S - T (ref.py:25), so the two agree only at T == S; and the Pallas
+# wrapper takes GQA pre-repeated.
+REF_ONLY = [
+    # (B, T, S, H, K, hd, causal, window)
+    (2, 5, 17, 4, 4, 32, True, None),
+    (1, 24, 40, 4, 4, 80, True, 12),
+    (2, 16, 16, 6, 2, 32, True, None),
+    (1, 9, 30, 8, 2, 80, False, None),
+]
+
+
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal,window", REF_ONLY)
+def test_plain_matches_reference_t_lt_s_and_gqa(B, T, S, H, K, hd, causal, window):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(B, T, S, H, K, hd, seed=1), jnp.float32)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window).numpy()
+    rep = H // K
+    want = jax_ref.attention(
+        jq, jnp.repeat(jk, rep, axis=2), jnp.repeat(jv, rep, axis=2), causal=causal, window=window
+    )
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-6, rtol=2e-6)
+
+
+REFUSALS = [
+    # (name, q shape, k shape, dtype, kwargs, error)
+    ("float64", (1, 8, 4, 32), (1, 8, 4, 32), torch.float64, {}, TypeError),
+    ("int", (1, 8, 4, 32), (1, 8, 4, 32), torch.int32, {}, TypeError),
+    ("h_not_multiple_of_k", (1, 8, 6, 32), (1, 8, 4, 32), torch.float32, {}, ValueError),
+    ("head_dim_mismatch", (1, 8, 4, 32), (1, 8, 4, 64), torch.float32, {}, ValueError),
+    ("batch_mismatch", (2, 8, 4, 32), (1, 8, 4, 32), torch.float32, {}, ValueError),
+    ("causal_t_gt_s", (1, 9, 4, 32), (1, 8, 4, 32), torch.float32, {}, ValueError),
+    ("window_zero", (1, 8, 4, 32), (1, 8, 4, 32), torch.float32, {"window": 0}, ValueError),
+    ("three_dims", (8, 4, 32), (8, 4, 32), torch.float32, {}, ValueError),
+]
+
+
+@pytest.mark.parametrize("name,qs,ks,dtype,kw,err", REFUSALS, ids=[r[0] for r in REFUSALS])
+def test_wrapper_refuses(name, qs, ks, dtype, kw, err):
+    before = ops.launches
+    with pytest.raises(err):
+        ops.flash_attention(
+            torch.zeros(qs, dtype=dtype), torch.zeros(ks, dtype=dtype), torch.zeros(ks, dtype=dtype), **kw
+        )
+    assert ops.launches == before
+
+
+def test_wrapper_refuses_strided_head_dim():
+    q = torch.zeros(1, 8, 4, 64)[..., ::2]
+    k = torch.zeros(1, 8, 4, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k, k)
+
+
+def test_cpu_takes_plain_version_without_counting_a_launch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 32))
+    before = ops.launches
+    out = ops.flash_attention(q, k, v)
+    assert ops.launches == before
+    torch.testing.assert_close(out, ref.attention(q, k, v), rtol=0, atol=0)
+
+
+GPU_CASES = [
+    # (B, T, S, H, K, hd, dtype, causal, window, tol)
+    (1, 333, 333, 32, 32, 80, torch.bfloat16, True, None, 2e-2),
+    (1, 100, 333, 8, 8, 80, torch.float32, True, None, 2e-5),
+    (2, 200, 200, 8, 2, 64, torch.float16, True, 64, 2e-2),
+    (1, 130, 130, 4, 4, 128, torch.bfloat16, False, None, 2e-2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,S,H,K,hd,dtype,causal,window,tol", GPU_CASES)
+def test_kernel_matches_plain_on_card(B, T, S, H, K, hd, dtype, causal, window, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(B, T, S, H, K, hd))
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
