@@ -8,9 +8,9 @@ keys and list indices joined by ``/``), e.g. ``embed/table`` or
 dictionary is the caller's work.
 
 The reference stacks its repeating block of layers into ``[n_blocks, ...]``
-leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every block)
-after an unstacked ``prefix/<i>/...``; the port keeps one entry per layer
-under ``layers/<i>/...``.  :func:`params_from_repro` unstacks and
+leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every block;
+its ``prefix`` group of irregular leading layers is empty for the dense
+family); the port keeps one entry per layer under ``layers/<i>/...``.  :func:`params_from_repro` unstacks and
 :func:`params_to_repro` stacks back, bitwise.
 """
 
@@ -41,10 +41,8 @@ def _set(tree: dict, path: list[str], value) -> None:
     node[path[-1]] = value
 
 
-def _layer_index(st, group: str, idx: int, block: int) -> int:
-    if group == "prefix":
-        return idx
-    return len(st.prefix) + block * len(st.pattern) + idx
+def _layer_index(st, idx: int, block: int) -> int:
+    return block * len(st.pattern) + idx
 
 
 def flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -68,16 +66,14 @@ def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=N
     layers: dict[int, dict] = {}
     for key, arr in flat.items():
         parts = key.split("/")
-        if parts[0] in ("prefix", "blocks"):
+        if parts[0] == "blocks":
             idx, rest = int(parts[1]), parts[2:]
-            if parts[0] == "prefix":
-                _set(layers.setdefault(idx, {}), rest, _tensor(arr, device))
-                continue
             if np.shape(arr)[0] != st.n_blocks:
                 raise ValueError(f"{key}: {np.shape(arr)[0]} stacked blocks, the config has {st.n_blocks}")
             for n in range(st.n_blocks):
-                g = _layer_index(st, "blocks", idx, n)
-                _set(layers.setdefault(g, {}), rest, _tensor(arr[n], device))
+                _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(arr[n], device))
+        elif parts[0] == "prefix":
+            raise ValueError(f"{key}: the dense family has no prefix layers")
         else:
             _set(tree, parts, _tensor(arr, device))
     if sorted(layers) != list(range(st.num_layers)):
@@ -94,13 +90,8 @@ def params_to_repro(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
     for key, t in flatten({k: v for k, v in params.items() if k != "layers"}).items():
         out[key] = t.detach().cpu().numpy()
     layers = params["layers"]
-    for i in range(len(st.prefix)):
-        for key, t in flatten(layers[i]).items():
-            out[f"prefix/{i}/{key}"] = t.detach().cpu().numpy()
     for j in range(len(st.pattern)):
-        per_block = [
-            flatten(layers[_layer_index(st, "blocks", j, n)]) for n in range(st.n_blocks)
-        ]
+        per_block = [flatten(layers[_layer_index(st, j, n)]) for n in range(st.n_blocks)]
         for key in per_block[0]:
             out[f"blocks/{j}/{key}"] = np.stack(
                 [b[key].detach().cpu().numpy() for b in per_block]
@@ -124,15 +115,10 @@ def cache_from_repro(
     for key, arr in flat.items():
         parts = key.split("/")
         group, idx, rest = parts[0], int(parts[1]), parts[2:]
-        if group not in ("prefix", "blocks"):
+        if group != "blocks":
             raise ValueError(f"unexpected cache key {key!r}")
         arr = np.asarray(arr)
-        blocks = range(1) if group == "prefix" else range(st.n_blocks)
-        for n in blocks:
-            if group == "prefix":
-                rows = arr[:, 0] if slot_major else arr
-            else:
-                rows = arr[:, n, 0] if slot_major else arr[n]
-            g = _layer_index(st, group, idx, n)
-            _set(layers.setdefault(g, {}), rest, _tensor(rows, device))
+        for n in range(st.n_blocks):
+            rows = arr[:, n, 0] if slot_major else arr[n]
+            _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(rows, device))
     return {"layers": [layers[i] for i in range(st.num_layers)]}

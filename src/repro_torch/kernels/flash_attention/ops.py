@@ -84,12 +84,13 @@ def _check(q, k, v, causal: bool, window: int | None) -> None:
         raise ValueError("the head dimension of q/k/v must be contiguous")
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int | None = None, scale=None):
-    """q [B,T,H,hd]; k, v [B,S,K,hd] -> [B,T,H,hd] in q's type."""
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
+    """q [B,T,H,hd]; k, v [B,S,K,hd] -> [B,T,H,hd] in q's type; scores
+    scaled by 1/sqrt(hd)."""
     global launches
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return _ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+        return _ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, T, H, hd = q.shape
@@ -98,7 +99,6 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None, sca
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535 rows")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
@@ -110,7 +110,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None, sca
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            float(scale), int(causal), int(window or 0), stream,
+            1.0 / math.sqrt(hd), int(causal), int(window or 0), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: {err_str(err).decode()} ({err})")

@@ -14,24 +14,30 @@ import math
 
 import torch
 
-__all__ = ["attention"]
+__all__ = ["attention", "causal_window_mask"]
 
 
-def attention(q, k, v, causal: bool = True, window: int | None = None, scale=None):
-    B, T, H, hd = q.shape
-    S, K = k.shape[1], k.shape[2]
-    r = H // K
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, T, K, r, hd).float()
-    logits = torch.einsum("btkrh,bskh->bkrts", qg, k.float()) * scale
-    q_pos = torch.arange(T, device=q.device)[:, None] + (S - T)
-    k_pos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+def causal_window_mask(T: int, S: int, causal: bool, window: int | None, device=None):
+    """[T, S] boolean mask of the key positions each query sees.  Query i
+    sits at ``i + S - T``: causal keeps ``k_pos <= q_pos``, a window keeps
+    ``k_pos > q_pos - window`` (the reference's ``_causal_window_mask``)."""
+    q_pos = torch.arange(T, device=device)[:, None] + (S - T)
+    k_pos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
-    logits = logits.masked_fill(~mask, -1e30)
+    return mask
+
+
+def attention(q, k, v, causal: bool = True, window: int | None = None):
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    r = H // K
+    qg = q.reshape(B, T, K, r, hd).float()
+    logits = torch.einsum("btkrh,bskh->bkrts", qg, k.float()) * (1.0 / math.sqrt(hd))
+    logits = logits.masked_fill(~causal_window_mask(T, S, causal, window, q.device), -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrts,bskh->btkrh", probs.to(v.dtype), v)
     return out.reshape(B, T, H, hd)

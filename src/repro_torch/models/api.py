@@ -7,9 +7,8 @@
 * ``decode_fn(params, cfg, cache, index, batch)``   -> (logits [B,1,V], cache)
 
 Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
-decode), as in the reference.  The text families are served; the dense one
-is ported, MoE/SSM/hybrid raise from the layer code, and enc-dec/VLM raise
-here.  Caches are updated in place.
+decode), as in the reference.  The dense family is ported; every other family
+raises ``NotImplementedError`` here.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, check_ported
 
 __all__ = [
     "init_params",
@@ -36,17 +35,9 @@ __all__ = [
 _MATRIX_LEAVES = ("w", "table", "head")
 
 
-def _text_only(cfg: ModelConfig) -> None:
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it comes with a later slice "
-            "(ROADMAP.md, queue 1, 'other families')"
-        )
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Parameters in ``cfg.param_dtype`` drawn on ``device`` (default cuda)."""
-    _text_only(cfg)
+    check_ported(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return tf.init_decoder(gen, cfg)
 
@@ -68,7 +59,7 @@ def cast_for_serving(params, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
-    _text_only(cfg)
+    check_ported(cfg)
     return tf.init_decode_cache(cfg, batch_size, max_len, resolve_device(device))
 
 
@@ -77,7 +68,7 @@ def prefill_with_cache(
     *, plain_attention: bool = False,
 ):
     """Fused prefill that also fills the decode cache in one pass."""
-    _text_only(cfg)
+    check_ported(cfg)
     return tf.prefill_with_cache(
         params, cfg, cache, batch["tokens"], plain_attention=plain_attention
     )
@@ -85,5 +76,5 @@ def prefill_with_cache(
 
 def decode_fn(params, cfg: ModelConfig, cache, index, batch: Mapping[str, torch.Tensor]):
     """One decode step; ``index`` is one position or a [B] vector of them."""
-    _text_only(cfg)
+    check_ported(cfg)
     return tf.decode_step(params, cfg, cache, index, batch["tokens"])

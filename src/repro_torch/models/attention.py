@@ -6,7 +6,8 @@ Port of the serving side of ``repro/models/attention.py``:
   decode KV cache.  Its attention goes through
   :func:`repro_torch.kernels.flash_attention.ops.flash_attention`: the CUDA
   kernel for a CUDA tensor, the plain version for a CPU tensor.  At T == S
-  that is the function ``sdpa`` computes under ``_causal_window_mask``.
+  that is the function the reference's ``sdpa`` computes under its
+  ``_causal_window_mask`` (``ref.causal_window_mask`` here).
 * ``attn_decode`` -- one-token decode against the cache, with a per-row
   position vector ``[B]``: the reference's ``vmap`` of single-slot decode
   written out as a batch dimension (per-row RoPE position, cache slot and
@@ -24,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_rope, dense, dense_init, rope_frequencies
 
@@ -53,39 +55,23 @@ def _merge_heads(x):
     return x.reshape(*x.shape[:-2], -1)
 
 
-def sdpa(q, k, v, mask=None, scale: float | None = None):
-    """Grouped-query scaled-dot-product attention.
+def sdpa(q, k, v, mask):
+    """Grouped-query scaled-dot-product attention (the decode path).
 
-    q: [B,T,H,hd]; k, v: [B,S,K,hd] with H = K*r.  Scores in fp32 (the
-    reference's ``preferred_element_type``), masked with -1e30; the
-    probabilities are cast to v's type before the second product.
+    q: [B,T,H,hd]; k, v: [B,S,K,hd] with H = K*r; mask broadcastable over
+    [B,K,r,T,S].  Scores in fp32 (the reference's ``preferred_element_type``),
+    masked with -1e30; the probabilities are cast to v's type before the
+    second product.
     """
     B, T, H, hd = q.shape
     K = k.shape[2]
     r = H // K
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, T, K, r, hd).float()
-    logits = torch.einsum("btkrh,bskh->bkrts", qg, k.float()) * scale
-    if mask is not None:
-        # mask comes in as [..., T, S] broadcastable over [B,K,r,T,S]
-        while mask.ndim < logits.ndim:
-            mask = mask[:, None]
-        logits = logits.masked_fill(~mask, -1e30)
+    logits = torch.einsum("btkrh,bskh->bkrts", qg, k.float()) * (1.0 / math.sqrt(hd))
+    logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrts,bskh->btkrh", probs.to(v.dtype), v)
     return out.reshape(B, T, H, hd)
-
-
-def _causal_window_mask(T: int, S: int, window: int | None, causal: bool, device=None):
-    """[1,1,T,S] boolean mask; S >= T positions are aligned at the end."""
-    q_pos = torch.arange(T, device=device)[:, None] + (S - T)
-    k_pos = torch.arange(S, device=device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
-    return mask[None, None]
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
@@ -115,16 +101,15 @@ def attn_prefill(p, x, cache, cfg: ModelConfig, *, window: int | None = None, pl
     x: [B, T, d].  Returns (out [B, T, d], cache) with the cache in exactly
     the state T successive :func:`attn_decode` calls at positions ``0..T-1``
     would leave it: slots ``i % L`` hold the last ``min(T, L)`` tokens'
-    projections.  ``plain_attention`` computes the attention as the
-    reference does, with ``sdpa`` under ``_causal_window_mask``, instead of
-    the kernel; it exists for the on-card comparison and the serving path
-    never sets it.
+    projections.  ``plain_attention`` computes the attention with the
+    kernel's plain version (:func:`ref.attention`) on any device; it exists
+    for the on-card comparison and the serving path never sets it.
     """
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
     if plain_attention:
-        out = sdpa(q, k, v, _causal_window_mask(T, T, window, causal=True, device=x.device))
+        out = flash_ref.attention(q, k, v, causal=True, window=window)
     else:
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
     L = cache["k"].shape[1]
@@ -153,5 +138,5 @@ def attn_decode(p, x, cache, index, cfg: ModelConfig, *, window: int | None = No
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     # valid slots: for a ring buffer every slot < min(index+1, L) is valid
     valid = torch.arange(L, device=x.device)[None, :] < torch.clamp(index + 1, max=L)[:, None]
-    out = sdpa(q, cache["k"], cache["v"], mask=valid[:, None, None, None, :])
+    out = sdpa(q, cache["k"], cache["v"], valid[:, None, None, None, :])
     return dense(p["wo"], _merge_heads(out), cfg), cache

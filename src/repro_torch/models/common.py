@@ -1,11 +1,12 @@
 """Model configuration and per-layer structure description.
 
-Port of ``repro/models/common.py`` with ``torch`` dtypes in place of
-``jnp`` ones.  One :class:`ModelConfig` describes every architecture family in the assigned
-pool (dense / MoE / SSM / hybrid / enc-dec audio / VLM).  ``layer_specs``
-expands it into a per-layer recipe (attention vs mamba, MoE vs dense FFN,
-sliding window vs global) that the assembly code in
-:mod:`repro_torch.models.transformer` consumes uniformly.
+Port of ``repro/models/common.py`` for the dense decoder-only family, with
+``torch`` dtypes in place of ``jnp`` ones.  :class:`ModelConfig` holds only
+the fields the port reads; the MoE, SSM, encoder-decoder and multimodal
+fields of the reference arrive with the slices that read them, and
+:func:`check_ported` refuses those families until then.  ``layer_specs``
+expands a config into a per-layer recipe (the sliding window of each layer)
+that :mod:`repro_torch.models.transformer` consumes.
 """
 
 from __future__ import annotations
@@ -15,13 +16,13 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "active_param_count"]
+__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "check_ported"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
+    family: str  # only "dense" is ported (see check_ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,54 +41,10 @@ class ModelConfig:
     # pattern of window sizes cycled over layers; overrides attn_window.
     # e.g. gemma3: (1024, 1024, 1024, 1024, 1024, None) = 5 local : 1 global
     window_pattern: tuple[int | None, ...] = ()
-    mrope: bool = False  # Qwen2-VL multimodal rotary (3 position streams)
-    mrope_sections: tuple[int, int, int] = (16, 24, 24)  # per-head-dim halves
-
-    # MoE
-    num_experts: int = 0
-    num_experts_per_tok: int = 0
-    moe_d_ff: int = 0  # per-expert hidden size (0 -> d_ff)
-    moe_every: int = 1  # a layer is MoE iff (layer_idx % moe_every == moe_offset)
-    moe_offset: int = 0
-    first_k_dense: int = 0  # kimi-k2: leading dense layers before the MoE stack
-    n_shared_experts: int = 0  # kimi-style always-on shared expert(s)
-    router_scoring: str = "softmax"  # softmax | sigmoid (kimi)
-    capacity_factor: float = 1.25
-
-    # SSM (Mamba2 / SSD)
-    ssm_state: int = 0  # N
-    ssm_heads: int = 0  # H (0 -> d_model // ssm_head_dim)
-    ssm_head_dim: int = 64  # P
-    ssm_conv_width: int = 4
-    ssm_chunk: int = 64
-    ssm_expand: int = 2
-    # hybrid interleave: a layer is attention iff (idx % attn_every == attn_offset)
-    attn_every: int = 1  # 1 -> all attention; jamba: 8 with attn_offset 4
-    attn_offset: int = 0
-
-    # encoder-decoder
-    encoder_layers: int = 0
-    # modality frontend stub: embeddings arrive pre-computed
-    frontend: str | None = None  # None | "audio" | "vision"
 
     # numerics
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
-    max_seq_len: int = 131_072
-
-    # remat each scanned block during backward (bounds live activations to
-    # one block + the block-boundary hiddens; the zero3 strategy needs this
-    # instead of whole-loss checkpointing, which would hold every block's
-    # residuals at once)
-    remat_blocks: bool = False
-
-    # distribution: PartitionSpec-style anchor for the hidden stream
-    # [B, T, d], e.g. (("pod", "data"), None, None).  Applied at block
-    # boundaries via with_sharding_constraint when set; None = no anchor
-    # (single-device paths).  Without an anchor, GSPMD propagation is free
-    # to replicate the batch against sharded weights (observed: 14-16x
-    # flops inflation on the dry-run roofline).
-    act_sharding: tuple | None = None
 
     # ---------------------------------------------------------------
 
@@ -103,134 +60,57 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.hd
 
-    @property
-    def expert_ff(self) -> int:
-        return self.moe_d_ff or self.d_ff
-
-    @property
-    def n_ssm_heads(self) -> int:
-        if self.ssm_heads:
-            return self.ssm_heads
-        return (self.d_model * self.ssm_expand) // self.ssm_head_dim
-
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+#: the later slice that brings each family of the reference (ROADMAP.md, queue 1)
+_UNPORTED = {
+    "moe": "the MoE layer (models/moe.py)",
+    "ssm": "the Mamba2 layer (models/mamba.py, kernel K2)",
+    "hybrid": "the Mamba2 layer (models/mamba.py, kernel K2)",
+    "encdec": "the encoder-decoder family",
+    "audio": "the encoder-decoder family",
+    "vlm": "the vision-language family",
+}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense family."""
+    if cfg.family != "dense":
+        what = _UNPORTED.get(cfg.family, f"family {cfg.family!r}")
+        raise NotImplementedError(
+            f"{what} is not ported yet: it comes with a later slice (ROADMAP.md, queue 1, "
+            "'other families')"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     index: int
-    kind: str  # "attn" | "mamba"
-    moe: bool
     window: int | None  # sliding window size, None = full/global
 
 
-def layer_specs(cfg: ModelConfig, num_layers: int | None = None) -> list[LayerSpec]:
-    n = num_layers if num_layers is not None else cfg.num_layers
+def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
     specs = []
-    for i in range(n):
-        if cfg.family == "ssm":
-            kind = "mamba"
-        elif cfg.family == "hybrid":
-            kind = "attn" if (i % cfg.attn_every) == cfg.attn_offset else "mamba"
-        else:
-            kind = "attn"
-        moe = (
-            bool(cfg.num_experts)
-            and (i % cfg.moe_every) == cfg.moe_offset
-            and i >= cfg.first_k_dense
-        )
-        if kind != "attn":
-            window = None
-        elif cfg.window_pattern:
+    for i in range(cfg.num_layers):
+        if cfg.window_pattern:
             window = cfg.window_pattern[i % len(cfg.window_pattern)]
         else:
             window = cfg.attn_window
-        specs.append(LayerSpec(index=i, kind=kind, moe=moe, window=window))
+        specs.append(LayerSpec(index=i, window=window))
     return specs
 
 
-# ---------------------------------------------------------------------------
-# Parameter accounting (drives the memory model and MODEL_FLOPS)
-# ---------------------------------------------------------------------------
-
-
-def _layer_params(cfg: ModelConfig, spec: LayerSpec) -> tuple[float, float]:
-    """(total, active) parameter count of one layer (no embeddings)."""
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of the dense decoder, counted as the reference counts them:
+    3·d per layer and d for the final norm, whatever the norm's kind."""
+    check_ported(cfg)
     d = cfg.d_model
-    total = active = 0.0
-    if spec.kind == "attn":
-        qkv = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
-        if cfg.qkv_bias:
-            qkv += cfg.q_dim + 2 * cfg.kv_dim
-        total += qkv + 2 * d  # + norms
-        active += qkv + 2 * d
-    else:  # mamba2 (G=1 B/C group, matching models.mamba)
-        d_in = d * cfg.ssm_expand
-        H, N = cfg.n_ssm_heads, cfg.ssm_state
-        inner = (
-            d * (2 * d_in + 2 * N + H)  # in_proj -> z, x, B, C, dt
-            + cfg.ssm_conv_width * (d_in + 2 * N)  # depthwise conv over x, B, C
-            + 3 * H  # dt_bias, A_log, D
-            + d_in  # gate norm
-            + d_in * d  # out_proj
-        )
-        total += inner + d
-        active += inner + d
-    if spec.moe:
-        e_ff = cfg.expert_ff
-        per_expert = 3 * d * e_ff  # SwiGLU: gate, up, down
-        total += cfg.num_experts * per_expert + d * cfg.num_experts  # + router
-        active += cfg.num_experts_per_tok * per_expert + d * cfg.num_experts
-        if cfg.n_shared_experts:
-            shared = cfg.n_shared_experts * per_expert
-            total += shared
-            active += shared
-        total += d
-        active += d
-    else:
-        mult = 3 if cfg.mlp_act == "swiglu" else 2
-        total += mult * d * cfg.d_ff + d
-        active += mult * d * cfg.d_ff + d
-    return total, active
-
-
-def param_count(cfg: ModelConfig) -> float:
-    total = cfg.vocab_size * cfg.d_model  # embedding
-    if not cfg.tie_embeddings:
-        total += cfg.vocab_size * cfg.d_model  # lm head
-    for spec in layer_specs(cfg):
-        total += _layer_params(cfg, spec)[0]
-    if cfg.encoder_layers:
-        enc_cfg = cfg.replace(num_experts=0, family="dense", window_pattern=(), attn_every=1)
-        for spec in layer_specs(enc_cfg, cfg.encoder_layers):
-            total += _layer_params(enc_cfg, spec)[0]
-            # cross-attention block in each decoder layer
-        d = cfg.d_model
-        total += cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + d)
-    total += cfg.d_model  # final norm
-    return total
-
-
-def active_param_count(cfg: ModelConfig) -> float:
-    """Parameters touched per token (MoE: only routed experts) — for 6·N·D."""
-    total = cfg.vocab_size * cfg.d_model
-    if not cfg.tie_embeddings:
-        total += cfg.vocab_size * cfg.d_model
-    for spec in layer_specs(cfg):
-        total += _layer_params(cfg, spec)[1]
-    if cfg.encoder_layers:
-        enc_cfg = cfg.replace(num_experts=0, family="dense", window_pattern=(), attn_every=1)
-        for spec in layer_specs(enc_cfg, cfg.encoder_layers):
-            total += _layer_params(enc_cfg, spec)[1]
-        d = cfg.d_model
-        total += cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + d)
-    total += cfg.d_model
-    return total
-
-
-def human(n: float) -> str:
-    for unit, div in (("T", 1e12), ("B", 1e9), ("M", 1e6), ("K", 1e3)):
-        if abs(n) >= div:
-            return f"{n / div:.2f}{unit}"
-    return f"{n:.0f}"
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    if cfg.qkv_bias:
+        attn += cfg.q_dim + 2 * cfg.kv_dim
+    mult = 3 if cfg.mlp_act == "swiglu" else 2
+    layer = attn + mult * d * cfg.d_ff + 3 * d
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return embed + cfg.num_layers * layer + d

@@ -5,10 +5,12 @@ stacks the repeating block of layers into ``[n_blocks, ...]`` leaves for
 ``lax.scan``; PyTorch runs eagerly, so here the layers are a plain list in
 model order (``params["layers"][i]`` is layer ``i``) and the weight bridge
 unstacks.  :func:`structure` is kept because the bridge maps the reference's
-``prefix``/``blocks`` keys through it.
+``blocks`` keys through it.  The dense family has no irregular leading
+layers, so the reference's ``prefix`` group is always empty here.
 
 MoE and Mamba layers, the training forward and the encoder-decoder family
-come with later slices and raise ``NotImplementedError`` here.
+come with later slices; :func:`repro_torch.models.common.check_ported`
+refuses them.
 """
 
 from __future__ import annotations
@@ -44,46 +46,24 @@ __all__ = [
 ]
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice (ROADMAP.md, queue 1, "
-        "'other families')"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class Structure:
-    prefix: tuple[LayerSpec, ...]  # irregular leading layers
     pattern: tuple[LayerSpec, ...]  # repeating block
     n_blocks: int
 
     @property
     def num_layers(self) -> int:
-        return len(self.prefix) + len(self.pattern) * self.n_blocks
+        return len(self.pattern) * self.n_blocks
 
 
-def _sig(s: LayerSpec) -> tuple:
-    return (s.kind, s.moe, s.window)
-
-
-def structure(cfg: ModelConfig, num_layers: int | None = None, prefix_len: int | None = None) -> Structure:
-    specs = layer_specs(cfg, num_layers)
-    if prefix_len is None:
-        prefix_len = getattr(cfg, "first_k_dense", 0) or 0
-    body = specs[prefix_len:]
-    n = len(body)
-    sigs = [_sig(s) for s in body]
+def structure(cfg: ModelConfig) -> Structure:
+    """The shortest repeating block of layer windows, as the reference stacks it."""
+    specs = layer_specs(cfg)
+    n = len(specs)
     for p in range(1, n + 1):
-        if n % p == 0 and all(sigs[i] == sigs[i % p] for i in range(n)):
-            return Structure(tuple(specs[:prefix_len]), tuple(body[:p]), n // p)
-    return Structure(tuple(specs[:prefix_len]), tuple(body), 1)
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise _unported("the Mamba2 layer (models/mamba.py, kernel K2)")
-    if spec.moe:
-        raise _unported("the MoE layer (models/moe.py)")
+        if n % p == 0 and all(specs[i].window == specs[i % p].window for i in range(n)):
+            return Structure(tuple(specs[:p]), n // p)
+    return Structure(tuple(specs), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -91,8 +71,7 @@ def _check_spec(spec: LayerSpec) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
-    _check_spec(spec)
+def init_layer(gen: torch.Generator, cfg: ModelConfig):
     p: dict[str, Any] = {"ln1": norm_init(cfg.d_model, cfg, gen.device)}
     p["attn"] = attn.attn_init(gen, cfg)
     if cfg.d_ff > 0:
@@ -108,7 +87,6 @@ def _ffn(p, x, cfg: ModelConfig):
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device=None):
-    _check_spec(spec)
     return {"kv": attn.init_kv_cache(cfg, batch, max_len, window=spec.window, device=device)}
 
 
@@ -136,7 +114,7 @@ def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
 
 def init_decoder(gen: torch.Generator, cfg: ModelConfig):
     params: dict[str, Any] = {"embed": embedding_init(gen, cfg)}
-    params["layers"] = [init_layer(gen, cfg, spec) for spec in layer_specs(cfg)]
+    params["layers"] = [init_layer(gen, cfg) for _ in range(cfg.num_layers)]
     params["final_norm"] = norm_init(cfg.d_model, cfg, gen.device)
     return params
 

@@ -46,8 +46,6 @@ class ServeEngine:
     ) -> None:
         """``params``: a parameter tree on ``device`` (e.g. from the weight
         bridge); without one, weights are drawn from ``seed``."""
-        if cfg.family in ("encdec", "vlm"):
-            raise NotImplementedError(f"serving does not support family {cfg.family!r}")
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len

@@ -18,9 +18,11 @@ from repro.checkpoint.io import _path_str
 from repro.configs.gpt import GPT_CONFIGS as JAX_GPT
 from repro.models import api as jax_api
 from repro.models import layers as jax_layers
+from repro.models.common import param_count as jax_param_count
 from repro_torch import bridge
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.models import api, layers
+from repro_torch.models.common import param_count
 
 SMALL = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -192,14 +194,17 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_params(tcfg.replace(family="encdec"), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
-        api.init_params(tcfg.replace(family="moe", num_experts=4, num_experts_per_tok=2), device="cpu")
+        api.init_params(tcfg.replace(family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="Mamba2"):
         api.init_cache(tcfg.replace(family="ssm"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="Mamba2"):
+        api.init_cache(tcfg.replace(family="hybrid"), 1, 8, device="cpu")
 
 
 def test_plain_attention_prefill_matches_flash_path():
-    """``plain_attention`` (the reference's sdpa under the causal mask) and
-    the flash wrapper (its plain version on the CPU) give one function."""
+    """``plain_attention`` (the kernel's plain version, called directly) and
+    the flash wrapper (which dispatches a CPU tensor to that plain version)
+    give one function, and fill the cache alike."""
     _, tcfg = _cfgs()
     params = api.init_params(tcfg, seed=5, device="cpu")
     tokens = torch.tensor(np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 10)))
@@ -208,5 +213,30 @@ def test_plain_attention_prefill_matches_flash_path():
         cache = api.init_cache(tcfg, 2, 16, device="cpu")
         logits, cache = api.prefill_with_cache(params, tcfg, cache, {"tokens": tokens}, plain_attention=plain)
         out.append((logits, cache["layers"][1]["kv"]["k"]))
-    torch.testing.assert_close(out[0][0], out[1][0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[0][0], out[1][0], atol=0, rtol=0)
     torch.testing.assert_close(out[0][1], out[1][1], atol=0, rtol=0)
+
+
+PARAM_COUNT_CASES = [
+    (name, extra)
+    for name in JAX_GPT
+    for extra in ({}, {"mlp_act": "swiglu", "norm": "rmsnorm", "qkv_bias": True, "tie_embeddings": False})
+]
+
+
+@pytest.mark.parametrize(
+    "name,extra", PARAM_COUNT_CASES, ids=[f"{n}-{'variant' if e else 'table1'}" for n, e in PARAM_COUNT_CASES]
+)
+def test_param_count_matches_reference(name, extra):
+    """The port's param_count equals the reference's for each Table-1 GPT
+    and for a SwiGLU / RMSNorm / qkv-bias / untied variant of it."""
+    want = jax_param_count(JAX_GPT[name].replace(**extra))
+    assert param_count(GPT_CONFIGS[name].replace(**extra)) == want
+
+
+def test_param_count_of_gpt_2_7b_and_unported_family():
+    # ~2.65 B parameters: 32 layers of ~78.7 M plus the tied 50 257 x 2560 table
+    n = param_count(GPT_CONFIGS["GPT-2.7B"])
+    assert 2.6e9 < n < 2.7e9
+    with pytest.raises(NotImplementedError, match="MoE"):
+        param_count(GPT_CONFIGS["GPT-2.7B"].replace(family="moe"))
