@@ -5,18 +5,27 @@
 
 Phases, in order (any failure exits non-zero, and no result line is printed):
 
-1. device   the card's name and power limit, as nvidia-smi reports them
-2. build    nvcc builds the CUDA kernels from the sources in this checkout
-3. kernels  each kernel against its plain PyTorch version on the card, at the
-            serving shapes and at the edge cases, then timed beside the plain
-            version and the PyTorch library call (yardstick only)
-4. model    a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps through
-            the kernel and through the plain attention; logits and greedy
-            tokens agree
-5. serve    GPT-2.7B at full width and depth served through
-            ``repro_torch.launch.serve_decode``: 16 requests over 8 slots on
-            an M=4 x b=2 grid; every request completes, no NaN, and the
-            flash kernel ran once per layer per prefill
+1. device       the card's name and power limit, as nvidia-smi reports them
+2. build        nvcc builds the CUDA kernels (K1 flash attention, K2 SSD scan)
+                from the sources in this checkout, one nvcc per source, in
+                parallel
+3. kernels      each kernel against its plain PyTorch version on the card, at
+                the main paths' shapes and at the edge cases, then timed
+                beside the plain version and the PyTorch library call
+                (yardstick only; K2 has none)
+4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
+                through K1 and through the plain attention; logits and greedy
+                tokens agree
+5. train-model  a 2-layer, full-width mamba2-780m: loss and gradients of one
+                micro-batch through K2 and through the plain SSD agree
+6. serve        GPT-2.7B at full width and depth served through
+                ``repro_torch.launch.serve_decode``: 16 requests over 8 slots
+                on an M=4 x b=2 grid; every request completes, no NaN, and K1
+                ran once per layer per prefill
+7. train        mamba2-780m at full width and depth trained through
+                ``repro_torch.launch.train``: 6 steps of batch 8 x 1024 tokens
+                in M=2 micro-batches; K2 ran once per layer per micro-batch,
+                and the loss is finite and falls, with finite gradient norms
 
 The line before the last is a JSON object with every kernel's figures; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -25,6 +34,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
@@ -36,7 +46,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "model", "serve")
+PHASES = ("device", "build", "kernels", "model", "train-model", "serve", "train")
 
 #: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
@@ -78,6 +88,42 @@ FLASH_CASES = [
 ]
 TIMED_CASE = "gpt2.7b_t512"
 
+#: K2 vs plain version, as ||out - want|| / ||want||.  Both sides compute in
+#: fp32 from the same inputs.  fp32 out: they differ in summation order
+#: only, over up to 2N + Q = 320 terms per output, each off by about an ulp
+#: (unit roundoff 6.0e-8): 2e-5.  bf16 out: both sides round their fp32
+#: results to bf16 once, so they differ by one bf16 ulp where the fp32
+#: values straddle a rounding boundary and agree elsewhere: under one unit
+#: roundoff, 3.9e-3.
+SSD_REL_TOL = {torch.bfloat16: 3.9e-3, torch.float32: 2e-5}
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (name, B, T, H, P, N, Q, x dtype, B/C dtype); "mamba2-780m_train" is one
+# micro-batch of the train phase, with x/B/C as strided views of a conv
+# output and dt, A as the model draws them at init; the "ssd_cases" rows are
+# tests/test_kernels.py::SSD_CASES
+SSD_KERNEL_CASES = [
+    ("mamba2-780m_train", 4, 1024, 48, 64, 128, 64, _BF16, _BF16),
+    ("mamba2-780m_fp32", 1, 512, 16, 64, 128, 64, _F32, _F32),
+    ("mamba2-smoke_bf16", 4, 128, 16, 32, 32, 8, _BF16, _BF16),
+    ("mamba2-smoke_fp32", 4, 128, 16, 32, 32, 8, _F32, _F32),
+    ("ssd_cases_0", 2, 32, 4, 16, 8, 8, _F32, _F32),
+    ("ssd_cases_1", 1, 64, 2, 32, 16, 16, _F32, _F32),
+    ("ssd_cases_2", 2, 64, 4, 64, 128, 32, _F32, _F32),
+    ("ssd_cases_3", 2, 32, 4, 16, 8, 8, _BF16, _F32),
+    ("ssd_cases_4", 1, 16, 8, 8, 4, 16, _F32, _F32),
+]
+SSD_TIMED_CASE = "mamba2-780m_train"
+#: train-model check, K2 vs plain SSD, 2 bf16 layers at full width.  The
+#: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL);
+#: that perturbs everything downstream by a relative ~4e-3 at most, and the
+#: mean over 4,096 tokens averages it out of the loss.  Loss: relative 1e-3.
+#: Gradients (one global ||g_k - g_p|| / ||g_p|| over every leaf): 2e-2,
+#: five bf16 unit roundoffs.
+TRAIN_MODEL_LOSS_TOL = 1e-3
+TRAIN_MODEL_GRAD_TOL = 2e-2
+#: the train phase: mamba2-780m, batch 8 x 1024 tokens in M = 2 micro-batches
+TRAIN_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=2, lr=1e-3, warmup=2)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -104,13 +150,17 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    b = build.build(ops.SOURCE)
-    ops._kernel()  # load and bind it
-    log(f"build {os.path.relpath(b.source, ROOT)}: {b.seconds:.1f} s")
-    for line in b.ptxas_lines():
-        log(f"  {line}")
+    mods = (flash_ops, ssd_ops)
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
+        builds = list(pool.map(build.build, [m.SOURCE for m in mods]))
+    for m, b in zip(mods, builds):
+        m._kernel()  # load and bind it
+        log(f"build {os.path.relpath(b.source, ROOT)}: {b.seconds:.1f} s")
+        for line in b.ptxas_lines():
+            log(f"  {line}")
 
 
 def _qkv(B, T, S, H, K, hd, dtype, seed=0):
@@ -144,7 +194,7 @@ def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, st
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels() -> dict:
+def _flash_kernels() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
 
     timed = None
@@ -194,6 +244,88 @@ def phase_kernels() -> dict:
     }
 
 
+def _ssd_inputs(B, T, H, P, N, x_dtype, bc_dtype, seed=0):
+    """x/B/C as strided views of one conv output [B, T, H*P + 2N] (as
+    ``mamba_train`` passes them); dt in the init range [0.001, 0.1] and
+    A = -(1..H), as ``mamba_init`` draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    conv = torch.randn((B, T, H * P + 2 * N), generator=g, device="cuda")
+    xs, bcs = conv.to(x_dtype), conv.to(bc_dtype)  # one tensor when the types agree
+    x = xs[..., : H * P].reshape(B, T, H, P)
+    Bm = bcs[..., H * P : H * P + N].reshape(B, T, 1, N)
+    Cm = bcs[..., H * P + N :].reshape(B, T, 1, N)
+    dt = 0.001 + 0.099 * torch.rand((B, T, H), generator=g, device="cuda")
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype) -> tuple[float, str]:
+    """max(bytes / HBM rate, FLOPs / peak): x, dt, A, B, C read once and y
+    written once; per (b, h, chunk) the causal triangle of C B^T and of
+    S w, plus C h^T and the state update, 2 FLOP per MAC, at the peak of
+    x's type."""
+    xb, bcb = torch.finfo(x_dtype).bits / 8, torch.finfo(bc_dtype).bits / 8
+    nbytes = 2 * B * T * H * P * xb + 4 * B * T * H + 2 * B * T * N * bcb + 4 * H
+    tri = Q * (Q + 1) / 2
+    flops = B * H * (T // Q) * 2.0 * (tri * N + tri * P + 2 * Q * P * N)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FLOPS[x_dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ssd_kernels() -> dict:
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    timed = None
+    for name, B, T, H, P, N, Q, x_dtype, bc_dtype in SSD_KERNEL_CASES:
+        x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, x_dtype, bc_dtype)
+        out = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
+        torch.cuda.synchronize()
+        want = ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
+        torch.cuda.synchronize()
+        diff = out.float() - want.float()
+        err = float(diff.abs().max())
+        rel = float(diff.norm() / want.float().norm())
+        rel_tol = SSD_REL_TOL[x_dtype]
+        ok = bool(torch.isfinite(out).all()) and rel <= rel_tol
+        log(f"ssd {name:18s} B={B} T={T} H={H} P={P} N={N} Q={Q} x {str(x_dtype).split('.')[-1]} "
+            f"B/C {str(bc_dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
+            f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"SSD kernel disagrees with its plain version on {name}")
+        if name == SSD_TIMED_CASE:
+            timed = (B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err)
+
+    B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err = timed
+    ms = _time_ms(lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q))
+    plain_ms = _time_ms(lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q), iters=5)
+    bound_ms, bound_by = _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype)
+    log(f"ssd timing at {SSD_TIMED_CASE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"no library call, bound {bound_ms:.4f} ms ({bound_by})")
+    # what one layer's SSD costs a training step: K2 forward, then the
+    # backward that recomputes and differentiates the plain version
+    inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    gy = torch.randn(x.shape, device="cuda").to(x.dtype)
+    train_ms = _time_ms(lambda: torch.autograd.grad(ops.ssd_chunked(*inputs, chunk=Q), inputs, gy), iters=5)
+    log(f"ssd forward (K2) + backward (plain recompute) at {SSD_TIMED_CASE}: {train_ms:.4f} ms")
+    return {
+        "name": "ssd_chunked_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:65",
+        "launches": None,  # filled from the train phase (the main path)
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the chunked SSD
+    }
+
+
+def phase_kernels() -> dict:
+    return {"flash": _flash_kernels(), "ssd": _ssd_kernels()}
+
+
 def phase_model() -> None:
     from repro_torch.configs.gpt import GPT_CONFIGS
     from repro_torch.models import api
@@ -238,6 +370,85 @@ def phase_model() -> None:
             log(f"  greedy disagreement at step {i} within tolerance (gap {gap:.3e})")
     del params
     torch.cuda.empty_cache()
+
+
+def phase_train_model() -> None:
+    from unittest import mock
+
+    from repro_torch.configs.mamba2_780m import FULL
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models import api
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = FULL.replace(num_layers=2)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    micro_batch = TRAIN_ARGS["batch"] // TRAIN_ARGS["microbatches"]
+    b = SyntheticTextDataset(cfg.vocab_size, TRAIN_ARGS["seq"], micro_batch).batch_at(0, "cuda")
+    batch = {"tokens": b.tokens, "labels": b.labels}
+
+    def loss_and_grads():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = api.loss_fn(leaves, cfg, batch)
+        grads = torch.autograd.grad(loss, list(flatten(leaves).values()))
+        torch.cuda.synchronize()
+        return float(loss.detach()), [g.float() for g in grads]
+
+    n0 = ops.launches
+    loss_k, grads_k = loss_and_grads()
+    if ops.launches - n0 != cfg.num_layers:
+        raise AssertionError(f"K2 ran {ops.launches - n0} times in a {cfg.num_layers}-layer forward")
+    with mock.patch.object(ops, "ssd_chunked", ref.ssd_chunked):  # the plain SSD, under autograd
+        loss_p, grads_p = loss_and_grads()
+    finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k + grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    num = math.sqrt(sum(float((a - b).square().sum()) for a, b in zip(grads_k, grads_p)))
+    den = math.sqrt(sum(float(b.square().sum()) for b in grads_p))
+    grad_rel = num / den
+    log(f"train-model mamba2-780m (2 layers, d_model {cfg.d_model}, bf16), one micro-batch "
+        f"{micro_batch} x {TRAIN_ARGS['seq']}: loss K2 {loss_k:.6f} plain {loss_p:.6f} "
+        f"(rel {loss_rel:.3e} <= {TRAIN_MODEL_LOSS_TOL:g}), gradients rel_norm_err {grad_rel:.3e} "
+        f"(<= {TRAIN_MODEL_GRAD_TOL:g}), finite {finite}")
+    if not finite or loss_rel > TRAIN_MODEL_LOSS_TOL or grad_rel > TRAIN_MODEL_GRAD_TOL:
+        raise AssertionError("loss or gradients through K2 disagree with the plain SSD")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def phase_train() -> int:
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "train.json")
+        argv = ["--arch", "mamba2-780m", "--seed", "0", "--log-every", "1", "--device", "cuda", "--out", out]
+        for k, v in TRAIN_ARGS.items():
+            argv += [f"--{k}", str(v)]
+        ops.launches = 0
+        rc = train.main(argv)
+        launches = ops.launches
+        with open(out) as f:
+            s = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"train exited {rc}")
+    want = s["num_layers"] * s["microbatches"] * s["steps"]
+    log(f"train mamba2-780m ({s['num_layers']} layers, d_model {s['d_model']}, "
+        f"{s['param_count']:,} parameters): {s['steps']} steps of {s['batch']} x {s['seq']} in "
+        f"M={s['microbatches']}; loss {s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}; step p50 "
+        f"{s['step_ms_p50']:.1f} ms (first {s['step_ms'][0]:.1f} ms), "
+        f"{s['tokens_per_second']:,.0f} tokens/s, max_memory_allocated "
+        f"{s['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  losses {[round(v, 4) for v in s['losses']]}")
+    log(f"  grad norms {[round(v, 4) for v in s['grad_norms']]}")
+    log(f"SSD launches on the training path: {launches} "
+        f"({s['num_layers']} layers x {s['microbatches']} micro-batches x {s['steps']} steps = {want})")
+    if launches != want or s["ssd_launches"] != want:
+        raise AssertionError("the training path did not run K2 once per layer per micro-batch")
+    if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
+        raise AssertionError("non-finite loss or gradient norm")
+    if not s["losses"][-1] < s["losses"][0]:
+        raise AssertionError("the loss did not fall")
+    return launches
 
 
 def phase_serve() -> int:
@@ -285,7 +496,7 @@ def main(argv=None) -> int:
     device = phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    kernel = None
+    kernels = {}
     for name in PHASES[1:]:
         if name not in only:
             continue
@@ -294,18 +505,24 @@ def main(argv=None) -> int:
         if name == "build":
             phase_build()
         elif name == "kernels":
-            kernel = phase_kernels()
+            kernels = phase_kernels()
         elif name == "model":
             phase_model()
+        elif name == "train-model":
+            phase_train_model()
         elif name == "serve":
             launches = phase_serve()
-            if kernel is not None:
-                kernel["launches"] = launches
+            if kernels:
+                kernels["flash"]["launches"] = launches
+        elif name == "train":
+            launches = phase_train()
+            if kernels:
+                kernels["ssd"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):
         return 0  # a partial run prints no result
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernels["flash"], kernels["ssd"]]}))
     log(device["smi"])
     log(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0

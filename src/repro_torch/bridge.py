@@ -8,10 +8,12 @@ keys and list indices joined by ``/``), e.g. ``embed/table`` or
 dictionary is the caller's work.
 
 The reference stacks its repeating block of layers into ``[n_blocks, ...]``
-leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every block;
-its ``prefix`` group of irregular leading layers is empty for the dense
-family); the port keeps one entry per layer under ``layers/<i>/...``.  :func:`params_from_repro` unstacks and
-:func:`params_to_repro` stacks back, bitwise.
+leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every block,
+e.g. ``blocks/0/attn/wq/w`` or ``blocks/0/mamba/A_log``; its ``prefix``
+group of irregular leading layers is empty for the ported families); the
+port keeps one entry per layer under ``layers/<i>/...``.
+:func:`params_from_repro` unstacks and :func:`params_to_repro` stacks back,
+bitwise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import structure
+from repro_torch.tree import flatten
 
 __all__ = ["flatten", "params_from_repro", "params_to_repro", "cache_from_repro"]
 
@@ -45,20 +48,6 @@ def _layer_index(st, idx: int, block: int) -> int:
     return block * len(st.pattern) + idx
 
 
-def flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """``{path: tensor}`` of a port tree (dicts and lists), ``/``-joined."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
-
-
 def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=None) -> dict:
     """The port's parameter tree from ``repro``'s flattened parameters."""
     st = structure(cfg)
@@ -73,7 +62,7 @@ def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=N
             for n in range(st.n_blocks):
                 _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(arr[n], device))
         elif parts[0] == "prefix":
-            raise ValueError(f"{key}: the dense family has no prefix layers")
+            raise ValueError(f"{key}: the ported families have no prefix layers")
         else:
             _set(tree, parts, _tensor(arr, device))
     if sorted(layers) != list(range(st.num_layers)):

@@ -1,0 +1,47 @@
+"""Mamba2-780M: attention-free SSD (state-space duality) [arXiv:2405.21060].
+
+Port of ``repro/configs/mamba2_780m.py``: 48 layers, d_model 1536,
+ssm_state 128, head_dim 64, expand 2, vocab 50 280, tied embeddings.  No
+attention and no FFN: the Mamba2 block is the whole layer.  ``OPTIMIZER`` is
+the optimizer the reference's ``ArchSpec`` names for it.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.common import ModelConfig
+
+__all__ = ["FULL", "SMOKE", "OPTIMIZER"]
+
+FULL = ModelConfig(
+    name="mamba2-780m",
+    family="ssm",
+    num_layers=48,
+    d_model=1536,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50_280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_conv_width=4,
+    ssm_chunk=64,
+    ssm_expand=2,
+    tie_embeddings=True,
+)
+
+SMOKE = ModelConfig(
+    name="mamba2-smoke",
+    family="ssm",
+    num_layers=2,
+    d_model=256,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=1024,
+    ssm_state=32,
+    ssm_head_dim=32,
+    ssm_chunk=8,
+    tie_embeddings=True,
+)
+
+OPTIMIZER = "adamw"

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.device import resolve_device
+from repro_torch.launch.profiling import device_profile
 from repro_torch.serve import ArrivalProcess, InFlight, Request, ServeEngine, ServeRuntime
 
 __all__ = ["TINY", "build_config", "serve", "main"]
@@ -43,32 +44,6 @@ def build_config(args):
     if args.tiny:
         cfg = cfg.replace(**TINY)
     return cfg
-
-
-def _device_profile(fn, device) -> dict:
-    """Device time of the kernels ``fn`` launches, traced by ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        fn()
-    # device-side events only: a CPU op's own device time repeats its kernels'
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {
-        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
-        "flash_ms": sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3,
-        "top": [
-            {"name": e.key, "ms": e.self_device_time_total / 1e3, "count": e.count}
-            for e in events[:6]
-        ],
-    }
 
 
 def _where_time_goes(engine, prompt_len: int) -> dict:
@@ -91,7 +66,7 @@ def _where_time_goes(engine, prompt_len: int) -> dict:
         t0 = time.perf_counter()
         run()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        prof = _device_profile(run, engine.device)
+        prof = device_profile(run, engine.device, {"flash": "flash_fwd"})
         out[name] = {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
     engine.outputs.pop(-1)
     return out

@@ -1,13 +1,15 @@
-"""Model API of the serving slice, after ``repro/models/api.py``.
+"""Model API of the ported slices, after ``repro/models/api.py``.
 
 * ``init_params(cfg, seed, device)``   -- weights from a seeded ``torch.Generator``
+* ``loss_fn(params, cfg, batch)``      -> (loss, metrics), the training loss
 * ``cast_for_serving(params, cfg)``    -- matrices and the embedding table to ``cfg.dtype``
 * ``init_cache(cfg, batch, max_len, device)``
 * ``prefill_with_cache(params, cfg, cache, batch)`` -> (logits [B,1,V], cache)
 * ``decode_fn(params, cfg, cache, index, batch)``   -> (logits [B,1,V], cache)
 
 Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
-decode), as in the reference.  The dense family is ported; every other family
+decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense
+family serves and the SSM family trains; every other family and path
 raises ``NotImplementedError`` here.  Caches are updated in place.
 """
 
@@ -23,6 +25,7 @@ from repro_torch.models.common import ModelConfig, check_ported
 
 __all__ = [
     "init_params",
+    "loss_fn",
     "cast_for_serving",
     "init_cache",
     "prefill_with_cache",
@@ -37,9 +40,15 @@ _MATRIX_LEAVES = ("w", "table", "head")
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Parameters in ``cfg.param_dtype`` drawn on ``device`` (default cuda)."""
-    check_ported(cfg)
+    check_ported(cfg, "serve", "train")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return tf.init_decoder(gen, cfg)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
+    """Mean next-token loss of a text batch (``tokens``, ``labels`` [B,T])."""
+    check_ported(cfg, "train")
+    return tf.decoder_loss(params, cfg, batch["tokens"], labels=batch["labels"])
 
 
 def cast_for_serving(params, cfg: ModelConfig):
@@ -59,7 +68,7 @@ def cast_for_serving(params, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
-    check_ported(cfg)
+    check_ported(cfg, "serve")
     return tf.init_decode_cache(cfg, batch_size, max_len, resolve_device(device))
 
 
@@ -68,7 +77,7 @@ def prefill_with_cache(
     *, plain_attention: bool = False,
 ):
     """Fused prefill that also fills the decode cache in one pass."""
-    check_ported(cfg)
+    check_ported(cfg, "serve")
     return tf.prefill_with_cache(
         params, cfg, cache, batch["tokens"], plain_attention=plain_attention
     )
@@ -76,5 +85,5 @@ def prefill_with_cache(
 
 def decode_fn(params, cfg: ModelConfig, cache, index, batch: Mapping[str, torch.Tensor]):
     """One decode step; ``index`` is one position or a [B] vector of them."""
-    check_ported(cfg)
+    check_ported(cfg, "serve")
     return tf.decode_step(params, cfg, cache, index, batch["tokens"])

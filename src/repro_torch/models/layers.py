@@ -9,8 +9,7 @@ pure over tensors, as in the reference: parameters may be held in
 
 Initialisers draw from an explicit ``torch.Generator`` on the target device;
 they cannot reproduce ``jax.random``, so parity tests bridge the reference's
-weights instead.  The training-side ``cross_entropy_loss``, M-RoPE and the
-sharding anchor come with later slices.
+weights instead.  M-RoPE and the sharding anchor come with later slices.
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ __all__ = [
     "unembed",
     "rope_frequencies",
     "apply_rope",
+    "cross_entropy_loss",
 ]
 
 
@@ -174,3 +174,20 @@ def _rotate(x, cos, sin):
 
 def apply_rope(x, cos, sin):
     return _rotate(x, cos, sin).to(x.dtype)
+
+
+# -- loss -------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean token cross-entropy in fp32, optional z-loss, optional mask."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * logz.square()
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -1,6 +1,7 @@
-"""Model assembly for the decoder-only dense family: init, prefill, decode.
+"""Model assembly for the decoder-only families: init, training forward and
+loss (SSM family), prefill and decode (dense family).
 
-Port of the serving side of ``repro/models/transformer.py``.  The reference
+Port of ``repro/models/transformer.py``.  The reference
 stacks the repeating block of layers into ``[n_blocks, ...]`` leaves for
 ``lax.scan``; PyTorch runs eagerly, so here the layers are a plain list in
 model order (``params["layers"][i]`` is layer ``i``) and the weight bridge
@@ -21,8 +22,10 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import LayerSpec, ModelConfig, layer_specs
 from repro_torch.models.layers import (
+    cross_entropy_loss,
     embed,
     embedding_init,
     mlp,
@@ -36,14 +39,22 @@ __all__ = [
     "Structure",
     "structure",
     "init_layer",
+    "apply_layer_train",
     "init_decoder",
+    "decoder_forward",
+    "decoder_loss",
     "init_layer_cache",
     "init_decode_cache",
     "apply_layer_prefill",
     "apply_layer_decode",
     "prefill_with_cache",
     "decode_step",
+    "MOE_AUX_WEIGHT",
+    "MOE_Z_WEIGHT",
 ]
+
+MOE_AUX_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +68,12 @@ class Structure:
 
 
 def structure(cfg: ModelConfig) -> Structure:
-    """The shortest repeating block of layer windows, as the reference stacks it."""
+    """The shortest repeating block of layer kinds and windows, as the reference stacks it."""
     specs = layer_specs(cfg)
+    sigs = [(s.kind, s.window) for s in specs]
     n = len(specs)
     for p in range(1, n + 1):
-        if n % p == 0 and all(specs[i].window == specs[i % p].window for i in range(n)):
+        if n % p == 0 and all(sigs[i] == sigs[i % p] for i in range(n)):
             return Structure(tuple(specs[:p]), n // p)
     return Structure(tuple(specs), 1)
 
@@ -71,9 +83,12 @@ def structure(cfg: ModelConfig) -> Structure:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig):
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
     p: dict[str, Any] = {"ln1": norm_init(cfg.d_model, cfg, gen.device)}
-    p["attn"] = attn.attn_init(gen, cfg)
+    if spec.kind == "attn":
+        p["attn"] = attn.attn_init(gen, cfg)
+    else:
+        p["mamba"] = mamba_mod.mamba_init(gen, cfg)
     if cfg.d_ff > 0:
         p["ln2"] = norm_init(cfg.d_model, cfg, gen.device)
         p["mlp"] = mlp_init(gen, cfg)
@@ -84,6 +99,19 @@ def _ffn(p, x, cfg: ModelConfig):
     if "mlp" in p:
         return mlp(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
     return torch.zeros_like(x)
+
+
+def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """Full-sequence training forward of one layer.  Returns (x, aux), aux
+    the MoE load-balance and router-z terms (zeros: no ported layer routes)."""
+    if spec.kind == "attn":
+        raise NotImplementedError(
+            "training the attention layer (attn_train) comes with the dense training slice "
+            "(ROADMAP.md, queue 1)"
+        )
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + mamba_mod.mamba_train(p["mamba"], norm_apply(p["ln1"], x, cfg), cfg)
+    return x + _ffn(p, x, cfg), (zero, zero)
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device=None):
@@ -114,9 +142,31 @@ def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
 
 def init_decoder(gen: torch.Generator, cfg: ModelConfig):
     params: dict[str, Any] = {"embed": embedding_init(gen, cfg)}
-    params["layers"] = [init_layer(gen, cfg) for _ in range(cfg.num_layers)]
+    params["layers"] = [init_layer(gen, cfg, spec) for spec in layer_specs(cfg)]
     params["final_norm"] = norm_init(cfg.d_model, cfg, gen.device)
     return params
+
+
+def decoder_forward(params, cfg: ModelConfig, tokens):
+    """Full-sequence forward.  tokens [B, T] -> (logits [B, T, V], aux metrics)."""
+    x = embed(params["embed"], tokens, cfg)
+    aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["layers"], layer_specs(cfg)):
+        x, (lb, z) = apply_layer_train(p, x, cfg, spec)
+        aux_lb, aux_z = aux_lb + lb, aux_z + z
+    x = norm_apply(params["final_norm"], x, cfg)
+    logits = unembed(params["embed"], x, cfg)
+    return logits, {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
+
+
+def decoder_loss(params, cfg: ModelConfig, tokens, labels):
+    """(total loss, metrics): mean token cross-entropy plus the weighted MoE
+    terms; metrics ``ce_loss``, ``moe_load_balance``, ``moe_router_z``."""
+    logits, aux = decoder_forward(params, cfg, tokens)
+    loss = cross_entropy_loss(logits, labels)
+    total = loss + MOE_AUX_WEIGHT * aux["moe_load_balance"] + MOE_Z_WEIGHT * aux["moe_router_z"]
+    return total, {"ce_loss": loss, **aux}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

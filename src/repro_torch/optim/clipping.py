@@ -1,0 +1,24 @@
+"""Gradient clipping utilities (port of ``repro/optim/clipping.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import flatten, tree_map
+
+__all__ = ["global_norm", "clip_by_global_norm"]
+
+
+def global_norm(tree) -> torch.Tensor:
+    leaves = list(flatten(tree).values())
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """Scale gradients so their global norm is at most ``max_norm``.
+    Returns (clipped tree, norm before clipping)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm

@@ -1,0 +1,51 @@
+"""Optimizer facade: name -> (init, update) with clipping and a schedule.
+
+Port of ``repro/optim/optimizer.py``.  ``make_optimizer("adamw", schedule)``
+returns an :class:`Optimizer` whose ``update(params, grads, state)`` clips
+the gradients by their global norm, takes the rate from the schedule at the
+state's step and applies the update.  Adafactor comes with the MoE slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.optim.clipping import clip_by_global_norm
+from repro_torch.optim.schedules import Schedule, constant_schedule
+
+__all__ = ["Optimizer", "make_optimizer"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    name: str
+    init: Callable[[Any], Any]
+    update: Callable[..., tuple]  # (params, grads, state) -> (params, state, metrics)
+    schedule: Schedule
+
+
+def make_optimizer(
+    name: str = "adamw",
+    schedule: Schedule | None = None,
+    max_grad_norm: float | None = 1.0,
+    **hyper,
+) -> Optimizer:
+    schedule = schedule or constant_schedule(3e-4)
+    if name != "adamw":
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet: Adafactor comes with the MoE slice "
+            "(ROADMAP.md, queue 1)"
+        )
+
+    def update(params, grads, state):
+        lr = schedule(state.step)
+        metrics = {"lr": lr}
+        if max_grad_norm is not None:
+            grads, norm = clip_by_global_norm(grads, max_grad_norm)
+            metrics["grad_norm"] = norm
+        new_params, new_state = adamw_update(params, grads, state, lr, **hyper)
+        return new_params, new_state, metrics
+
+    return Optimizer(name=name, init=adamw_init, update=update, schedule=schedule)

@@ -1,0 +1,82 @@
+"""Step factories: the gradient-accumulated train step and the eval step.
+
+Port of ``repro/training/steps.py:55-85``.  Both take a
+``loss_fn(params, batch) -> (loss, metrics)`` over a dict batch.
+``make_train_step(..., num_microbatches=M)`` cuts the batch into M equal
+micro-batches along its first axis and runs them one after another (the
+reference's ``lax.scan``), summing fp32 gradients; the step's loss and
+gradients are the means over the micro-batches, which equal the
+global-batch ones when the micro-batches are equal-sized.
+
+Gradients are taken with ``torch.autograd.grad`` with respect to detached
+copies of the parameter leaves, so the parameters themselves never carry
+autograd state; the optimizer then updates them in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.optim import Optimizer
+from repro_torch.training.state import TrainState
+from repro_torch.tree import flatten, tree_map
+
+__all__ = ["make_train_step", "make_eval_step"]
+
+LossFn = Callable[[Any, Mapping[str, torch.Tensor]], tuple[torch.Tensor, dict]]
+
+
+def _microbatches(batch: Mapping[str, torch.Tensor], M: int) -> list[dict]:
+    """[B, ...] -> M dicts of [B/M, ...] views."""
+    for name, x in batch.items():
+        if x.shape[0] % M:
+            raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not split into {M} micro-batches")
+    return [{k: v.chunk(M)[i] for k, v in batch.items()} for i in range(M)]
+
+
+def _grads_of(loss_fn: LossFn, params, batch):
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, metrics = loss_fn(leaves, batch)
+    grads = iter(torch.autograd.grad(loss, list(flatten(leaves).values())))
+    return loss.detach(), metrics, tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(loss_fn: LossFn, optimizer: Optimizer, num_microbatches: int = 1):
+    """Returns ``step(state, batch) -> (state, metrics)``; the state is
+    updated in place and returned."""
+    M = num_microbatches
+
+    def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        if M == 1:
+            loss, metrics, grads = _grads_of(loss_fn, state.params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            loss_sum, grad_sum = None, None
+            for mb in _microbatches(batch, M):
+                loss, _, grads = _grads_of(loss_fn, state.params, mb)
+                if grad_sum is None:  # an fp32 copy: the sum is ours to add into
+                    loss_sum = loss
+                    grad_sum = tree_map(lambda g: g.to(torch.float32, copy=True), grads)
+                else:
+                    loss_sum = loss_sum + loss
+                    tree_map(lambda s, g: s.add_(g), grad_sum, grads)
+                del grads
+            loss = loss_sum / M
+            grads = tree_map(lambda g: g / M, grad_sum)
+            metrics = {}
+        params, opt_state, opt_metrics = optimizer.update(state.params, grads, state.opt_state)
+        state.step, state.params, state.opt_state = state.step + 1, params, opt_state
+        return state, {"loss": loss, **metrics, **opt_metrics}
+
+    return step
+
+
+def make_eval_step(loss_fn: LossFn):
+    @torch.no_grad()
+    def step(params, batch):
+        loss, metrics = loss_fn(params, batch)
+        return {"loss": loss, **metrics}
+
+    return step

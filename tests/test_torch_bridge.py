@@ -12,9 +12,11 @@ import torch
 
 from repro.checkpoint.io import _path_str
 from repro.configs.gpt import GPT_CONFIGS as JAX_GPT
+from repro.configs.mamba2_780m import SMOKE as JAX_MAMBA_SMOKE
 from repro.models import api as jax_api
 from repro_torch import bridge
 from repro_torch.configs.gpt import GPT_CONFIGS
+from repro_torch.configs.mamba2_780m import SMOKE as MAMBA_SMOKE
 from repro_torch.models import api
 
 SMALL = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
@@ -65,6 +67,27 @@ def test_params_unstack_into_model_order(name, kw):
     ours = bridge.flatten(api.init_params(tcfg, seed=0, device="cpu"))
     mine = bridge.flatten(params)
     assert {k: tuple(v.shape) for k, v in ours.items()} == {k: tuple(v.shape) for k, v in mine.items()}
+
+
+def test_mamba_params_round_trip_is_bitwise():
+    """mamba2-smoke: ``blocks/0/mamba/*`` (one layer per block, 2 blocks)
+    unstacks into ``layers/<i>/mamba/*`` and stacks back, bitwise."""
+    flat = _flat(jax_api.init_params(jax.random.PRNGKey(0), JAX_MAMBA_SMOKE))
+    params = bridge.params_from_repro(flat, MAMBA_SMOKE, device="cpu")
+    assert len(params["layers"]) == MAMBA_SMOKE.num_layers
+    for i, layer in enumerate(params["layers"]):
+        for name, t in layer["mamba"].items():
+            np.testing.assert_array_equal(t.numpy(), flat[f"blocks/0/mamba/{name}"][i])
+    back = bridge.params_to_repro(params, MAMBA_SMOKE)
+    assert sorted(back) == sorted(flat) and any("/mamba/A_log" in k for k in flat)
+    for key, arr in flat.items():
+        assert back[key].dtype == arr.dtype and back[key].shape == arr.shape, key
+        np.testing.assert_array_equal(back[key].view(np.uint32), arr.view(np.uint32), err_msg=key)
+    # the port's own initialiser makes the same tree shape
+    ours = bridge.flatten(api.init_params(MAMBA_SMOKE, seed=0, device="cpu"))
+    assert {k: tuple(v.shape) for k, v in ours.items()} == {
+        k: tuple(v.shape) for k, v in bridge.flatten(params).items()
+    }
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.configs.gpt import GPT_CONFIGS
-from repro_torch.launch import serve_decode
+from repro_torch.data import SyntheticTextDataset
+from repro_torch.launch import serve_decode, train
 from repro_torch.models import api
 from repro_torch.serve import ServeEngine
 
@@ -32,7 +33,8 @@ def _port_modules() -> list[str]:
 
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.flash_attention.ops" in mods and len(mods) >= 20
+    assert "repro_torch.kernels.flash_attention.ops" in mods and "repro_torch.kernels.ssd_scan.ops" in mods
+    assert "repro_torch.launch.train" in mods and len(mods) >= 35
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -82,6 +84,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         api.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_decode.main(["--tiny", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticTextDataset(64, 8, 2).batch_at(0)
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):

@@ -22,6 +22,7 @@ from repro.models.common import param_count as jax_param_count
 from repro_torch import bridge
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.models import api, layers
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import param_count
 
 SMALL = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
@@ -189,16 +190,35 @@ def test_cast_for_serving_keeps_norms_and_biases_in_param_dtype():
     assert any(k.endswith("/b") for k in flat)
 
 
-def test_unported_families_raise():
+UNPORTED = [
+    # (call, family, message): each family raises on each path it lacks
+    ("init_params", "encdec", "ROADMAP"),
+    ("init_params", "moe", "MoE"),
+    ("init_cache", "ssm", "Mamba2"),
+    ("init_cache", "hybrid", "Mamba2"),
+    ("prefill_with_cache", "ssm", "Mamba2"),
+    ("decode_fn", "ssm", "Mamba2"),
+    ("loss_fn", "dense", "dense training"),
+    ("loss_fn", "hybrid", "hybrid"),
+    ("decoder_forward", "dense", "attn_train"),
+]
+
+
+@pytest.mark.parametrize("call,family,match", UNPORTED, ids=[f"{c}-{f}" for c, f, _ in UNPORTED])
+def test_unported_families_raise(call, family, match):
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(tcfg.replace(family="encdec"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        api.init_params(tcfg.replace(family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        api.init_cache(tcfg.replace(family="ssm"), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        api.init_cache(tcfg.replace(family="hybrid"), 1, 8, device="cpu")
+    cfg = tcfg.replace(family=family)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    calls = {
+        "init_params": lambda: api.init_params(cfg, device="cpu"),
+        "init_cache": lambda: api.init_cache(cfg, 1, 8, device="cpu"),
+        "prefill_with_cache": lambda: api.prefill_with_cache({}, cfg, {}, {"tokens": tokens}),
+        "decode_fn": lambda: api.decode_fn({}, cfg, {}, 0, {"tokens": tokens}),
+        "loss_fn": lambda: api.loss_fn({}, cfg, {"tokens": tokens, "labels": tokens}),
+        "decoder_forward": lambda: tf.decoder_forward(api.init_params(cfg, device="cpu"), cfg, tokens),
+    }
+    with pytest.raises(NotImplementedError, match=match):
+        calls[call]()
 
 
 def test_plain_attention_prefill_matches_flash_path():
