@@ -10,9 +10,11 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 from the sources in this checkout, one nvcc per source, in
                 parallel
 3. kernels      each kernel against its plain PyTorch version on the card, at
-                the main paths' shapes and at the edge cases, then timed
+                the main paths' shapes and at the edge cases (each case logs
+                the route it took: "mma", tensor cores, or "fma"), then timed
                 beside the plain version and the PyTorch library call
-                (yardstick only; K2 has none)
+                (yardstick only; K2 has none); K1 at all three serving
+                lengths
 4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
                 through K1 and through the plain attention; logits and greedy
                 tokens agree
@@ -38,6 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -52,11 +55,12 @@ PHASES = ("device", "build", "kernels", "model", "train-model", "serve", "train"
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
-#: kernel vs plain version, as allclose(atol=tol, rtol=tol).  bf16/fp16: the
-#: FLASH_CASES tolerance of repro's kernel tests (one output rounding plus
-#: P rounded to the input type at another point of the softmax).  fp32: both
-#: sides compute in fp32 and differ only in summation order and exp, a few
-#: ulp of the fp32 output.
+#: kernel vs plain version, as allclose(atol=tol, rtol=tol).  bf16/fp16 (the
+#: mma route): the FLASH_CASES tolerance of repro's kernel tests (one output
+#: rounding plus P rounded to the input type at another point of the
+#: softmax; the tensor cores multiply the same 16-bit operands exactly and
+#: sum in fp32).  fp32 (the fma route): both sides compute in fp32 and
+#: differ only in summation order and exp, a few ulp of the fp32 output.
 TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 #: kernel vs plain version, as ||out - want|| / ||want|| over the whole
 #: output.  The allclose above lets a small |out| row (most rows at T = 512
@@ -85,16 +89,22 @@ FLASH_CASES = [
     ("hd64", 1, 333, 333, 16, 16, 64, torch.bfloat16, True, None),
     ("hd96", 1, 333, 333, 16, 16, 96, torch.bfloat16, True, None),
     ("hd128", 1, 333, 333, 16, 16, 128, torch.bfloat16, True, None),
+    ("fp16_window", 1, 333, 333, 8, 8, 80, torch.float16, True, 100),
 ]
 TIMED_CASE = "gpt2.7b_t512"
+#: serving lengths K1 is timed at, each beside SDPA and its bound
+TIMED_SERVING = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512")
 
-#: K2 vs plain version, as ||out - want|| / ||want||.  Both sides compute in
-#: fp32 from the same inputs.  fp32 out: they differ in summation order
-#: only, over up to 2N + Q = 320 terms per output, each off by about an ulp
-#: (unit roundoff 6.0e-8): 2e-5.  bf16 out: both sides round their fp32
-#: results to bf16 once, so they differ by one bf16 ulp where the fp32
-#: values straddle a rounding boundary and agree elsewhere: under one unit
-#: roundoff, 3.9e-3.
+#: K2 vs plain version, as ||out - want|| / ||want||.  fp32 out (the fma
+#: route, fp32 throughout): the two differ in summation order only, over up
+#: to 2N + Q = 320 terms per output, each off by about an ulp (unit roundoff
+#: 6.0e-8): 2e-5.  bf16 out: both sides round their results to bf16 once,
+#: so they differ by one bf16 ulp where the results straddle a rounding
+#: boundary and agree elsewhere: under one unit roundoff, 3.9e-3.  The mma
+#: route rounds the fp32 operands of three products to TF32 (2^-11
+#: relative, under the bf16 output's 2^-9), which moves its fp32 result by
+#: ~3e-4 and so more values across a bf16 boundary: ~1.1e-3 by the CPU
+#: emulation in tests/test_torch_ssd_scan.py.
 SSD_REL_TOL = {torch.bfloat16: 3.9e-3, torch.float32: 2e-5}
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (name, B, T, H, P, N, Q, x dtype, B/C dtype); "mamba2-780m_train" is one
@@ -111,12 +121,18 @@ SSD_KERNEL_CASES = [
     ("ssd_cases_2", 2, 64, 4, 64, 128, 32, _F32, _F32),
     ("ssd_cases_3", 2, 32, 4, 16, 8, 8, _BF16, _F32),
     ("ssd_cases_4", 1, 16, 8, 8, 4, 16, _F32, _F32),
+    # the mma route's edges: two chunks, two P slices a head; the (64, 128,
+    # 32) row in bf16; x bf16 with B/C fp32 at the training shape (fma route)
+    ("mamba2-780m_t128", 2, 128, 8, 64, 128, 64, _BF16, _BF16),
+    ("ssd_cases_2_bf16", 2, 64, 4, 64, 128, 32, _BF16, _BF16),
+    ("mamba2-780m_mixed", 1, 128, 4, 64, 128, 64, _BF16, _F32),
 ]
 SSD_TIMED_CASE = "mamba2-780m_train"
 #: train-model check, K2 vs plain SSD, 2 bf16 layers at full width.  The
-#: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL);
-#: that perturbs everything downstream by a relative ~4e-3 at most, and the
-#: mean over 4,096 tokens averages it out of the loss.  Loss: relative 1e-3.
+#: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL; on
+#: the mma route in more of them); that perturbs everything downstream by a
+#: relative ~4e-3 at most, and the mean over 4,096 tokens averages it out of
+#: the loss.  Loss: relative 1e-3.
 #: Gradients (one global ||g_k - g_p|| / ||g_p|| over every leaf): 2e-2,
 #: five bf16 unit roundoffs.
 TRAIN_MODEL_LOSS_TOL = 1e-3
@@ -161,6 +177,30 @@ def phase_build() -> None:
         log(f"build {os.path.relpath(b.source, ROOT)}: {b.seconds:.1f} s")
         for line in b.ptxas_lines():
             log(f"  {line}")
+        for name, n in _hmma_counts(b.library).items():
+            log(f"  HMMA {n:5d}  {name}")
+
+
+def _hmma_counts(library) -> dict:
+    """Tensor-core instructions (HMMA) per kernel in the built library's SASS,
+    where the toolkit has cuobjdump; empty otherwise."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  (no cuobjdump: HMMA counts not shown)")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if os.path.exists(filt) and counts:
+        names = subprocess.run([filt], input="\n".join(counts), capture_output=True, text=True).stdout.split("\n")
+        counts = {(n.strip() or k): counts[k] for k, n in zip(counts, names)}
+    return counts
 
 
 def _qkv(B, T, S, H, K, hd, dtype, seed=0):
@@ -183,6 +223,24 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: the summed device time of the kernels that
+    ``iters`` calls launch, traced by torch.profiler, over ``iters``.  Unlike
+    _time_ms it leaves out the host's share of a call."""
+    from repro_torch.launch.profiling import device_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    return device_profile(run, torch.device("cuda"), {})["device_ms"] / iters
+
+
 def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, str]:
     """max(bytes / HBM rate, FLOPs / peak) for the pairs this mask keeps."""
     from repro_torch.kernels.flash_attention import ref
@@ -197,7 +255,7 @@ def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, st
 def _flash_kernels() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
 
-    timed = None
+    timed = {}
     for name, B, T, S, H, K, hd, dtype, causal, window in FLASH_CASES:
         q, k, v = _qkv(B, T, S, H, K, hd, dtype)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -211,24 +269,32 @@ def _flash_kernels() -> dict:
         excess = float((diff.abs() - tol * want.float().abs()).max())
         ok = bool(torch.isfinite(out).all()) and excess <= tol and rel <= rel_tol
         log(f"flash {name:14s} B={B} T={T} S={S} H={H} K={K} hd={hd} "
-            f"{str(dtype).split('.')[-1]} causal={causal} window={window}: "
+            f"{str(dtype).split('.')[-1]} causal={causal} window={window} route {ops.route(dtype)}: "
             f"max_abs_err {err:.3e} (allclose atol=rtol={tol:g}), "
             f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version on {name}")
-        if name == TIMED_CASE:
-            timed = (B, T, S, H, K, hd, dtype, causal, window, q, k, v, err)
+        if name in TIMED_SERVING:
+            timed[name] = (B, T, S, H, K, hd, dtype, causal, window, q, k, v, err)
 
-    B, T, S, H, K, hd, dtype, causal, window, q, k, v, err = timed
-    ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
-    plain_ms = _time_ms(lambda: ref.attention(q, k, v, causal=causal, window=window))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = _time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    )
-    bound_ms, bound_by = _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window)
-    log(f"flash timing at {TIMED_CASE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # device time from the profiler (the kernel's own time); per-call wall
+    # time from CUDA events around back-to-back calls, which includes the
+    # host's share of each call where the host is the slower side
+    times = {}
+    for name in TIMED_SERVING:
+        B, T, S, H, K, hd, dtype, causal, window, q, k, v, err = timed[name]
+        flash = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        plain = lambda: ref.attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
+        ms, plain_ms, library_ms = _device_ms(flash), _device_ms(plain), _device_ms(sdpa)
+        call_ms, sdpa_call_ms = _time_ms(flash), _time_ms(sdpa)
+        bound_ms, bound_by = _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window)
+        log(f"flash timing at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+            f"(device time); per call {call_ms:.4f} ms, sdpa {sdpa_call_ms:.4f} ms (events); "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
+        times[name] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
+    err, ms, plain_ms, library_ms, bound_ms, bound_by = times[TIMED_CASE]
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -287,8 +353,9 @@ def _ssd_kernels() -> dict:
         rel = float(diff.norm() / want.float().norm())
         rel_tol = SSD_REL_TOL[x_dtype]
         ok = bool(torch.isfinite(out).all()) and rel <= rel_tol
+        path = ops.route(x_dtype, bc_dtype, P, N, Q)
         log(f"ssd {name:18s} B={B} T={T} H={H} P={P} N={N} Q={Q} x {str(x_dtype).split('.')[-1]} "
-            f"B/C {str(bc_dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
+            f"B/C {str(bc_dtype).split('.')[-1]} route {path}: max_abs_err {err:.3e}, "
             f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"SSD kernel disagrees with its plain version on {name}")
@@ -296,11 +363,13 @@ def _ssd_kernels() -> dict:
             timed = (B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err)
 
     B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err = timed
-    ms = _time_ms(lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q))
-    plain_ms = _time_ms(lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q), iters=5)
+    ssd = lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
+    plain = lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
+    ms, plain_ms = _device_ms(ssd), _device_ms(plain, iters=5)
+    call_ms = _time_ms(ssd)
     bound_ms, bound_by = _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype)
-    log(f"ssd timing at {SSD_TIMED_CASE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"no library call, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"ssd timing at {SSD_TIMED_CASE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device time); "
+        f"per call {call_ms:.4f} ms (events); no library call, bound {bound_ms:.4f} ms ({bound_by})")
     # what one layer's SSD costs a training step: K2 forward, then the
     # backward that recomputes and differentiates the plain version
     inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]

@@ -4,7 +4,14 @@ Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``
 (and its wrapper ``ops.py::flash_attention``) with the hand-written CUDA
 kernel in ``csrc/flash_fwd.cu``, built for ``sm_90a`` at first use.
 
-* A CUDA tensor launches the kernel; a refused or failed launch raises.
+* A CUDA tensor launches the kernel on the route :func:`route` picks from
+  the dtype alone: ``"mma"`` (tensor cores, cp.async) for bf16 and fp16,
+  ``"fma"`` (fp32 FMAs) for fp32.  The mma route copies rows with 16-byte
+  ``cp.async``, so :func:`repro_torch.kernels.check_cp_async` refuses
+  q/k/v whose pointer or row strides are not 16-byte aligned with a
+  ``ValueError`` naming the tensor; such inputs are never sent to the
+  other route.  A refused or
+  failed launch raises.
 * A CPU tensor takes the plain version in :mod:`.ref`.  Nothing falls back
   from the kernel to the plain version.
 * ``launches`` counts kernel launches, so a run can show that its path went
@@ -13,7 +20,9 @@ kernel in ``csrc/flash_fwd.cu``, built for ``sm_90a`` at first use.
 What bounds the kernel on this card, and what its design does about it, is
 in the note at the top of the CUDA source: at the serving shapes the bound
 is the bytes of q/k/v/o; the kernel reads them once through strides (no
-transpose, no GQA repeat, no pad copies) and skips fully masked tiles.
+transpose, no GQA repeat, no pad copies) and skips fully masked tiles;
+the mma route keeps both products on the tensor cores and overlaps the
+next key tile's copy with the current tile's compute.
 Forward only, as in the reference.
 """
 
@@ -26,14 +35,16 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import check_cp_async
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["flash_attention", "SOURCE", "HEAD_DIMS", "launches"]
+__all__ = ["flash_attention", "route", "SOURCE", "HEAD_DIMS", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 #: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, and 128
 HEAD_DIMS = (64, 80, 96, 128)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_ROUTES = {"fma": 0, "mma": 1}
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -48,7 +59,7 @@ def _kernel():
         fn = lib.repro_flash_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
@@ -84,6 +95,14 @@ def _check(q, k, v, causal: bool, window: int | None) -> None:
         raise ValueError("the head dimension of q/k/v must be contiguous")
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel route for q/k/v of ``dtype``: ``"mma"`` (tensor cores) for
+    bf16 and fp16, ``"fma"`` for fp32, whose tolerance TF32 would break."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes {list(_DTYPES)}, not {dtype}")
+    return "fma" if dtype == torch.float32 else "mma"
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     """q [B,T,H,hd]; k, v [B,S,K,hd] -> [B,T,H,hd] in q's type; scores
     scaled by 1/sqrt(hd)."""
@@ -99,13 +118,17 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535 rows")
+    path = route(q.dtype)
+    if path == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], hd, B, T, S, H, K,
+            _DTYPES[q.dtype], _ROUTES[path], hd, B, T, S, H, K,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -113,6 +136,6 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
             1.0 / math.sqrt(hd), int(causal), int(window or 0), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {err_str(err).decode()} ({err})")
+        raise RuntimeError(f"flash_fwd ({path} route) launch failed: {err_str(err).decode()} ({err})")
     launches += 1
     return out

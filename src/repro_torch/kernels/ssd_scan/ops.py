@@ -4,7 +4,16 @@ Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_chunked_pallas`` (and its
 wrapper ``ops.py::ssd_chunked``) with the hand-written CUDA kernel in
 ``csrc/ssd_fwd.cu``, built for ``sm_90a`` at first use.
 
-* A CUDA tensor launches the kernel; a refused or failed launch raises.
+* A CUDA tensor launches the kernel on the route :func:`route` picks from
+  the dtypes and (P, N, chunk) alone: ``"mma"`` (tensor cores, cp.async,
+  P split across blocks in slices of :data:`P_SLICE`) for bf16 x with bf16
+  B/C, P a multiple of the slice and N and chunk multiples of 16
+  (mamba2-780m), ``"fma"`` (fp32 FMAs) for the rest: fp32 x, mixed types,
+  mamba2-smoke's chunk 8.  The mma route copies
+  rows with 16-byte ``cp.async``, so :func:`repro_torch.kernels.check_cp_async`
+  refuses x/Bm/Cm whose pointer or row strides are not 16-byte aligned with
+  a ``ValueError`` naming the tensor; such inputs are never sent to the
+  other route.  A refused or failed launch raises.
 * A CPU tensor takes the plain version, :func:`.ref.ssd_chunked`.  Nothing
   falls back from the kernel to the plain version.
 * ``launches`` counts kernel launches, so a run can show that its path went
@@ -31,15 +40,19 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import check_cp_async
 from repro_torch.kernels.ssd_scan import ref as _ref
 
-__all__ = ["ssd_chunked", "SOURCE", "SHAPES", "launches"]
+__all__ = ["ssd_chunked", "route", "P_SLICE", "SOURCE", "SHAPES", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
 #: (P, N, Q) the kernel is instantiated for: mamba2-780m, mamba2-smoke and
 #: the rows of the reference's kernel tests (tests/test_kernels.py::SSD_CASES)
 SHAPES = ((64, 128, 64), (32, 32, 8), (16, 8, 8), (32, 16, 16), (64, 128, 32), (8, 4, 16))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"fma": 0, "mma": 1}
+#: P columns one block of the mma route owns (mamba2-780m: 2 blocks a head)
+P_SLICE = 32
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -54,7 +67,7 @@ def _kernel():
         fn = lib.repro_ssd_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 8
+            + [ctypes.c_int] * 10
             + [ctypes.c_longlong] * 14
             + [ctypes.c_void_p]
         )
@@ -98,25 +111,39 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
 
 
+def route(x_dtype: torch.dtype, bc_dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """The kernel route: ``"mma"`` (tensor cores) for bf16 x and bf16 B/C
+    with P a multiple of :data:`P_SLICE`, N and chunk multiples of 16 and
+    chunk <= 64; ``"fma"`` for every other case (fp32 x, whose tolerance
+    TF32 would break; mixed types; mamba2-smoke's chunk 8)."""
+    bf16 = x_dtype == torch.bfloat16 and bc_dtype == torch.bfloat16
+    tiles = P % P_SLICE == 0 and N % 16 == 0 and chunk % 16 == 0 and chunk <= 64
+    return "mma" if bf16 and tiles else "fma"
+
+
 def _launch(x, dt, A, Bm, Cm, chunk: int):
     global launches
     Bm, Cm = _group(Bm, "Bm"), _group(Cm, "Cm")
     B, T, H, P = x.shape
     N = Bm.shape[-1]
+    path = route(x.dtype, Bm.dtype, P, N, chunk)
+    if path == "mma":
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
     fn, err_str = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            _DTYPES[x.dtype], _DTYPES[Bm.dtype], P, N, chunk, B, T, H,
+            _DTYPES[x.dtype], _DTYPES[Bm.dtype], _ROUTES[path], P_SLICE, P, N, chunk, B, T, H,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2), A.stride(0),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
             y.stride(0), y.stride(1), y.stride(2), stream,
         )
     if err != 0:
-        raise RuntimeError(f"ssd_fwd launch failed: {err_str(err).decode()} ({err})")
+        raise RuntimeError(f"ssd_fwd ({path} route) launch failed: {err_str(err).decode()} ({err})")
     launches += 1
     return y
 

@@ -14,6 +14,7 @@ import torch
 
 from repro.kernels.flash_attention import ref as jax_ref
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro_torch.kernels import check_cp_async
 from repro_torch.kernels.flash_attention import ops, ref
 from test_kernels import FLASH_CASES
 
@@ -120,12 +121,62 @@ def test_cpu_takes_plain_version_without_counting_a_launch():
     torch.testing.assert_close(out, ref.attention(q, k, v), rtol=0, atol=0)
 
 
+ROUTES = [
+    # (dtype, route): the serving path's bf16 (and fp16) on the tensor cores,
+    # fp32 on the FMA kernel
+    (torch.bfloat16, "mma"),
+    (torch.float16, "mma"),
+    (torch.float32, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype,want", ROUTES)
+def test_route_is_chosen_by_dtype(dtype, want):
+    assert ops.route(dtype) == want
+
+
+def test_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        ops.route(torch.float64)
+
+
+def _serving_qkv(B=1, T=512, H=32, hd=80, dtype=torch.bfloat16):
+    """q/k/v as the serving path makes them: separate projections split into
+    heads, [B, T, H, hd] each."""
+    return [torch.zeros((B, T, H * hd), dtype=dtype).reshape(B, T, H, hd) for _ in range(3)]
+
+
+def test_serving_layout_meets_the_cp_async_alignment():
+    for name, t in zip("qkv", _serving_qkv()):
+        check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+
+
+MISALIGNED = [
+    # (case, view, message): a pointer 2 bytes past an aligned one; a time
+    # stride of 4 x 81 bf16 elements (648 bytes)
+    ("pointer", lambda: torch.zeros((1, 8, 4, 81), dtype=torch.bfloat16)[..., 1:], "pointer"),
+    ("stride", lambda: torch.zeros((1, 8, 4, 81), dtype=torch.bfloat16)[..., :80], "stride 324 of dim 1"),
+]
+
+
+@pytest.mark.parametrize("case,view,match", MISALIGNED, ids=[m[0] for m in MISALIGNED])
+def test_misaligned_view_raises_naming_the_tensor(case, view, match):
+    t = view()
+    with pytest.raises(ValueError, match=f"^k: .*{match}"):
+        check_cp_async("k", t.data_ptr(), t.shape, t.stride(), t.element_size())
+
+
 GPU_CASES = [
     # (B, T, S, H, K, hd, dtype, causal, window, tol)
     (1, 333, 333, 32, 32, 80, torch.bfloat16, True, None, 2e-2),
     (1, 100, 333, 8, 8, 80, torch.float32, True, None, 2e-5),
     (2, 200, 200, 8, 2, 64, torch.float16, True, 64, 2e-2),
     (1, 130, 130, 4, 4, 128, torch.bfloat16, False, None, 2e-2),
+    # the mma route's edges: a ragged T of 333 at hd 96, fp16 with a window,
+    # T < S
+    (1, 333, 333, 16, 16, 96, torch.bfloat16, True, None, 2e-2),
+    (1, 333, 333, 8, 8, 80, torch.float16, True, 100, 2e-2),
+    (1, 100, 333, 8, 8, 80, torch.bfloat16, True, None, 2e-2),
 ]
 
 
@@ -136,6 +187,7 @@ def test_kernel_matches_plain_on_card(B, T, S, H, K, hd, dtype, causal, window, 
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(B, T, S, H, K, hd))
+    assert ops.route(dtype) == ("fma" if dtype == torch.float32 else "mma")
     before = ops.launches
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()

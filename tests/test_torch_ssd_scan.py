@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels.ssd_scan import ref as jax_ref
 from repro.kernels.ssd_scan.kernel import ssd_chunked_pallas
+from repro_torch.kernels import check_cp_async
 from repro_torch.kernels.ssd_scan import ops, ref
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -167,12 +168,129 @@ def test_wrapper_refuses(name, inputs, chunk, err, match):
     assert ops.launches == before
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+ROUTES = [
+    # (name, x dtype, B/C dtype, P, N, chunk, route)
+    ("mamba2-780m_bf16", _BF16, _BF16, 64, 128, 64, "mma"),
+    ("ssd_cases_2_bf16", _BF16, _BF16, 64, 128, 32, "mma"),
+    ("mamba2-780m_fp32", _F32, _F32, 64, 128, 64, "fma"),
+    ("mamba2-780m_mixed", _BF16, _F32, 64, 128, 64, "fma"),
+    ("mamba2-smoke_bf16", _BF16, _BF16, 32, 32, 8, "fma"),
+    ("mamba2-smoke_fp32", _F32, _F32, 32, 32, 8, "fma"),
+    ("ssd_cases_3", _BF16, _F32, 16, 8, 8, "fma"),
+]
+
+
+@pytest.mark.parametrize("name,x_dtype,bc_dtype,P,N,chunk,want", ROUTES, ids=[r[0] for r in ROUTES])
+def test_route_is_chosen_by_dtype_and_shape(name, x_dtype, bc_dtype, P, N, chunk, want):
+    assert ops.route(x_dtype, bc_dtype, P, N, chunk) == want
+
+
+def test_p_slice_splits_mamba2_780m_heads_in_two():
+    assert 64 % ops.P_SLICE == 0 and 64 // ops.P_SLICE == 2
+
+
+def _conv_views(B=2, T=64, H=48, P=64, N=128, width=None, offset=0):
+    """x/B/C as mamba_train passes them: views at element offsets 0, H*P and
+    H*P + N of a bf16 conv output [B, T, H*P + 2N] (``width`` and ``offset``
+    break the alignment on purpose)."""
+    width = width or H * P + 2 * N
+    conv = torch.zeros((B, T, width + offset), dtype=torch.bfloat16)[..., offset:]
+    x = conv[..., : H * P].reshape(B, T, H, P)
+    Bm = conv[..., H * P : H * P + N].reshape(B, T, 1, N)
+    Cm = conv[..., H * P + N : H * P + 2 * N].reshape(B, T, 1, N)
+    return {"x": x, "Bm": Bm, "Cm": Cm}
+
+
+def test_mamba_layout_meets_the_cp_async_alignment():
+    for name, t in _conv_views().items():
+        check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+
+
+MISALIGNED = [
+    # (case, views, tensor, message): every view 2 bytes past an aligned
+    # pointer; a conv row of 3329 elements (6658 bytes) between time steps
+    ("pointer", dict(offset=1), "x", "pointer"),
+    ("row_stride", dict(width=48 * 64 + 2 * 128 + 1), "x", "stride 3329 of dim 1"),
+]
+
+
+@pytest.mark.parametrize("case,kw,name,match", MISALIGNED, ids=[m[0] for m in MISALIGNED])
+def test_misaligned_view_raises_naming_the_tensor(case, kw, name, match):
+    t = _conv_views(**kw)[name]
+    with pytest.raises(ValueError, match=f"^{name}: .*{match}"):
+        check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+
+
+def _tf32(t):
+    """fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 of the 23 mantissa bits."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mma_route_emulation(x, dt, A, Bm, Cm, chunk):
+    """The arithmetic of the mma route of ``ssd_fwd.cu``, chunk by chunk:
+    C B^T exact in fp32 (products of bf16 values), S = (C B^T) o L in fp32,
+    then S w, C h^T and the state update with their fp32 operands rounded
+    to TF32 (C and B are bf16, so exact in TF32) and fp32 sums; y in x's
+    type."""
+    x32, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    Bsz, T, H, P = x.shape
+    Q = chunk
+    y = torch.empty((Bsz, T, H, P))
+    h = torch.zeros((Bsz, H, P, Bf.shape[-1]))
+    upper = ~torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    for c in range(T // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        cum = torch.cumsum(dt[:, sl] * A, dim=1)  # [B, Q, H]
+        w = dt[:, sl, :, None] * x32[:, sl]  # [B, Q, H, P]
+        cb = Cf[:, sl] @ Bf[:, sl].transpose(1, 2)  # [B, Q, Q]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        S = cb[..., None] * torch.exp(seg.masked_fill(upper[None, :, :, None], float("-inf")))
+        intra = torch.einsum("bijh,bjhp->bihp", _tf32(S), _tf32(w))
+        inter = torch.einsum("bin,bhpn->bihp", Cf[:, sl], _tf32(h)) * torch.exp(cum)[..., None]
+        y[:, sl] = intra + inter
+        din = torch.exp(cum[:, -1:] - cum)[..., None]  # exp(cum_last - cum_j)
+        h = h * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", _tf32(w * din), Bf[:, sl]
+        )
+    return y.to(x.dtype)
+
+
+def test_tf32_emulation_error_is_under_half_the_bf16_limit():
+    """Predicts the mma route's error on the card.  At mamba2-780m's
+    (P, N, Q) = (64, 128, 64), its 48 heads with A = -(1..48) and dt in the
+    init range [0.001, 0.1] (``mamba_init``), T 256: the emulated route's y
+    (bf16) is within half of ``chip_smoke.SSD_REL_TOL[bf16]`` = 3.9e-3 of
+    the plain version's, in relative norm; so is its fp32 result, before
+    the output rounding, which TF32 alone moves by ~3e-4."""
+    B, T, H, P, N, Q = 1, 256, 48, 64, 128, 64
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B, T, H, P)).astype(np.float32)).bfloat16()
+    Bm = torch.from_numpy(rng.standard_normal((B, T, N)).astype(np.float32)).bfloat16()
+    Cm = torch.from_numpy(rng.standard_normal((B, T, N)).astype(np.float32)).bfloat16()
+    dt = torch.from_numpy((0.001 + 0.099 * rng.random((B, T, H))).astype(np.float32))
+    A = -torch.arange(1, H + 1, dtype=torch.float32)
+    assert ops.route(x.dtype, Bm.dtype, P, N, Q) == "mma"
+    limit = 3.9e-3 / 2
+    for xs, bs, cs in ((x, Bm, Cm), (x.float(), Bm.float(), Cm.float())):
+        got = _mma_route_emulation(xs, dt, A, bs, cs, Q).float()
+        want = ref.ssd_chunked(xs, dt, A, bs, cs, chunk=Q).float()
+        assert float((got - want).norm() / want.norm()) < limit
+
+
 GPU_CASES = [
     # (B, T, H, P, N, chunk, x dtype, B/C dtype, rel-norm tolerance: see chip_smoke.SSD_REL_TOL)
     (4, 1024, 48, 64, 128, 64, torch.bfloat16, torch.bfloat16, 3.9e-3),  # mamba2-780m micro-batch
     (2, 128, 16, 32, 32, 8, torch.float32, torch.float32, 2e-5),  # mamba2-smoke
     (2, 32, 4, 16, 8, 8, torch.bfloat16, torch.float32, 3.9e-3),
     (1, 16, 8, 8, 4, 16, torch.float32, torch.float32, 2e-5),
+    # the mma route's edges: two chunks (T 128), two P slices a head; the
+    # (64, 128, 32) row; x bf16 with B/C fp32 at mamba2-780m's shape (fma route)
+    (2, 128, 8, 64, 128, 64, torch.bfloat16, torch.bfloat16, 3.9e-3),
+    (2, 64, 4, 64, 128, 32, torch.bfloat16, torch.bfloat16, 3.9e-3),
+    (1, 128, 4, 64, 128, 64, torch.bfloat16, torch.float32, 3.9e-3),
 ]
 
 
@@ -183,6 +301,8 @@ def test_kernel_matches_plain_on_card(B, T, H, P, N, chunk, x_dtype, bc_dtype, t
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     x, dt, A, Bm, Cm = (torch.from_numpy(a).to("cuda") for a in _inputs(B, T, H, P, N))
     x, Bm, Cm = x.to(x_dtype), Bm.to(bc_dtype), Cm.to(bc_dtype)
+    bf16 = x_dtype == bc_dtype == torch.bfloat16
+    assert ops.route(x_dtype, bc_dtype, P, N, chunk) == ("mma" if bf16 and chunk % 16 == 0 else "fma")
     before = ops.launches
     out = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
