@@ -28,9 +28,22 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 ``repro_torch.launch.train``: 6 steps of batch 8 x 1024 tokens
                 in M=2 micro-batches; K2 ran once per layer per micro-batch,
                 and the loss is finite and falls, with finite gradient norms
+8. pipeline-model
+                a 4-layer, full-width GPT-2.7B in S=2 stages, M=4 micro-batches
+                of 1 x 512 tokens: the reference pipeline engine's loss and
+                gradients under kfkb k=1, kfkb k=2, zb_h1 (saved residuals)
+                and interleaved (v=2) against autograd of the unpipelined
+                ``full_loss``; the K1 path against the plain attention; K1
+                launches in the kfkb runs equal M*L*(2S-1)/S
+9. pipeline     GPT-2.7B at full width and depth trained through
+                ``repro_torch.launch.train.run_pipeline``: S=4 stages under
+                kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
+                one profiled step; the loss is finite and falls, and K1 ran
+                M*L*(2S-1)/S = 448 times a step
 
-The line before the last is a JSON object with every kernel's figures; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with every kernel's figures (K1's
+also per main path: serving and pipeline training, each at its own shape);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "model", "train-model", "serve", "train")
+PHASES = ("device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline")
 
 #: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
@@ -75,11 +88,13 @@ REL_TOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 2e-6}
 MODEL_TOL = 5e-2
 
 # (name, B, T, S, H, K, hd, dtype, causal, window); the first three are the
-# serving shapes of GPT-2.7B prefill (333 tests the ragged tile edge)
+# serving shapes of GPT-2.7B prefill (333 tests the ragged tile edge), the
+# fourth one micro-batch of the pipeline phase
 FLASH_CASES = [
     ("gpt2.7b_t128", 1, 128, 128, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t333", 1, 333, 333, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t512", 1, 512, 512, 32, 32, 80, torch.bfloat16, True, None),
+    ("gpt2.7b_train_t1024", 1, 1024, 1024, 32, 32, 80, torch.bfloat16, True, None),
     ("fp32", 1, 333, 333, 8, 8, 80, torch.float32, True, None),
     ("fp16", 2, 200, 200, 8, 8, 80, torch.float16, True, None),
     ("t_lt_s", 1, 100, 333, 32, 32, 80, torch.bfloat16, True, None),
@@ -92,8 +107,10 @@ FLASH_CASES = [
     ("fp16_window", 1, 333, 333, 8, 8, 80, torch.float16, True, 100),
 ]
 TIMED_CASE = "gpt2.7b_t512"
-#: serving lengths K1 is timed at, each beside SDPA and its bound
-TIMED_SERVING = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512")
+#: K1's shape on each main path: the longest serving prefill, one pipeline micro-batch
+PATH_CASES = {"serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024"}
+#: the lengths K1 is timed at, each beside SDPA and its bound
+TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024")
 
 #: K2 vs plain version, as ||out - want|| / ||want||.  fp32 out (the fma
 #: route, fp32 throughout): the two differ in summation order only, over up
@@ -139,6 +156,32 @@ TRAIN_MODEL_LOSS_TOL = 1e-3
 TRAIN_MODEL_GRAD_TOL = 2e-2
 #: the train phase: mamba2-780m, batch 8 x 1024 tokens in M = 2 micro-batches
 TRAIN_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=2, lr=1e-3, warmup=2)
+#: pipeline-model check, the engine against autograd of the unpipelined
+#: full_loss, both through K1 and in bf16: the same operations on the same
+#: bf16 values, so the two differ only in the order of fp32 accumulation
+#: over micro-batches (the gradients) and stages.  Loss: relative 1e-3;
+#: gradients, one global ||g_e - g_o|| / ||g_o|| over every leaf: 1e-3.
+PIPE_ENGINE_LOSS_TOL = 1e-3
+PIPE_ENGINE_GRAD_TOL = 1e-3
+#: pipeline-model check, the engine through K1 against the engine through the
+#: plain attention: the train-model phase's limits (the kernel's bf16
+#: output differs from the plain version's by one rounding in some
+#: elements; see REL_TOL).
+PIPE_K1_LOSS_TOL = TRAIN_MODEL_LOSS_TOL
+PIPE_K1_GRAD_TOL = TRAIN_MODEL_GRAD_TOL
+#: the pipeline-model cut of GPT-2.7B: (layers, S, M, b, T), and its plans
+#: as ScheduleSpec keyword sets
+PIPE_MODEL = (4, 2, 4, 1, 512)
+PIPE_MODEL_PLANS = (
+    dict(kind="kfkb", k=1),
+    dict(kind="kfkb", k=2),
+    dict(kind="zb_h1", k=1, zb_policy="saved_residual"),
+    dict(kind="interleaved", k=2, num_virtual=2),
+)
+#: the pipeline phase: GPT-2.7B at full size in S = 4 stages under kfkb k = 2,
+#: batch 8 x 1024 tokens in M = 8 micro-batches (b = 1)
+PIPE_STAGES, PIPE_K = 4, 2
+PIPE_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=8, lr=1e-4, warmup=2)
 
 
 def log(msg: str) -> None:
@@ -274,14 +317,14 @@ def _flash_kernels() -> dict:
             f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version on {name}")
-        if name in TIMED_SERVING:
+        if name in TIMED_FLASH:
             timed[name] = (B, T, S, H, K, hd, dtype, causal, window, q, k, v, err)
 
     # device time from the profiler (the kernel's own time); per-call wall
     # time from CUDA events around back-to-back calls, which includes the
     # host's share of each call where the host is the slower side
     times = {}
-    for name in TIMED_SERVING:
+    for name in TIMED_FLASH:
         B, T, S, H, K, hd, dtype, causal, window, q, k, v, err = timed[name]
         flash = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
         plain = lambda: ref.attention(q, k, v, causal=causal, window=window)  # noqa: E731
@@ -294,19 +337,30 @@ def _flash_kernels() -> dict:
             f"(device time); per call {call_ms:.4f} ms, sdpa {sdpa_call_ms:.4f} ms (events); "
             f"bound {bound_ms:.5f} ms ({bound_by})")
         times[name] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
-    err, ms, plain_ms, library_ms, bound_ms, bound_by = times[TIMED_CASE]
+    # what one layer's attention costs a pipeline step's backward task: K1
+    # forward, then the backward that recomputes and differentiates the plain
+    # version
+    q, k, v = (t.detach().requires_grad_(True) for t in timed[PATH_CASES["pipeline"]][9:12])
+    go = torch.randn(q.shape, device="cuda").to(q.dtype)
+    train_ms = _time_ms(lambda: torch.autograd.grad(ops.flash_attention_train(q, k, v), (q, k, v), go), iters=5)
+    log(f"flash forward (K1) + backward (plain recompute) at {PATH_CASES['pipeline']}: {train_ms:.4f} ms")
+
+    def figures(name):
+        err, ms, plain_ms, library_ms, bound_ms, bound_by = times[name]
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-        "launches": None,  # filled from the serve phase (the main path)
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "launches": None,  # filled from the serve and pipeline phases (the main paths)
+        **figures(TIMED_CASE),
+        # each main path's launches (filled from its phase) and figures at its shape
+        "per_path": {
+            path: {"shape": name, "launches": None, **figures(name)} for path, name in PATH_CASES.items()
+        },
     }
 
 
@@ -554,6 +608,128 @@ def phase_serve() -> int:
     return launches
 
 
+def _rel_norm_err(got: list, want: list) -> float:
+    """One global ||got - want|| / ||want|| over lists of tensors."""
+    num = math.sqrt(sum(float((a.float() - b.float()).square().sum()) for a, b in zip(got, want)))
+    return num / math.sqrt(sum(float(b.float().square().sum()) for b in want))
+
+
+def phase_pipeline_model() -> None:
+    import dataclasses
+
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.core import ScheduleSpec, make_plan
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.pipeline import StagedModel, reference_pipeline_grads
+    from repro_torch.tree import flatten, tree_map
+
+    L, S, M, b, T = PIPE_MODEL
+    cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=L)  # bf16 compute, fp32 parameters
+    data = SyntheticTextDataset(cfg.vocab_size, T, M * b).batch_at(0, "cuda")
+    tokens, labels = data.tokens.reshape(M, b, T), data.labels.reshape(M, b, T)
+
+    def engine(staged, params, plan):
+        loss, grads = reference_pipeline_grads(staged, params, tokens, labels, plan)
+        torch.cuda.synchronize()
+        return float(loss), [g for ps in grads for g in flatten(ps).values()]
+
+    def oracle(staged, params):
+        """Autograd of the mean of the unpipelined full_loss over the micro-batches."""
+        leaves = [tree_map(lambda p: p.detach().requires_grad_(True), ps) for ps in params]
+        flat = [g for ps in leaves for g in flatten(ps).values()]
+        loss, grads = 0.0, [torch.zeros_like(g) for g in flat]
+        for m in range(M):
+            lm = staged.full_loss(leaves, tokens[m], labels[m]) / M
+            for acc, g in zip(grads, torch.autograd.grad(lm, flat, allow_unused=True)):
+                if g is not None:
+                    acc.add_(g)
+            loss += float(lm.detach())
+        torch.cuda.synchronize()
+        return loss, grads
+
+    cache = {}
+    for kw in PIPE_MODEL_PLANS:
+        plan = make_plan(S, M, spec=ScheduleSpec(**kw))
+        V = plan.total_virtual_stages
+        if V not in cache:
+            staged = StagedModel.build(cfg, V)
+            params = staged.init_all_stages(torch.Generator(device="cuda").manual_seed(0))
+            cache.clear()  # one model on the card at a time
+            cache[V] = (staged, params, oracle(staged, params))
+        staged, params, (loss_o, grads_o) = cache[V]
+        ops.launches = 0
+        loss_e, grads_e = engine(staged, params, plan)
+        launches = ops.launches
+        finite = math.isfinite(loss_e) and all(bool(torch.isfinite(g).all()) for g in grads_e)
+        loss_rel = abs(loss_e - loss_o) / abs(loss_o)
+        grad_rel = _rel_norm_err(grads_e, grads_o)
+        log(f"pipeline-model GPT-2.7B ({L} layers, d_model {cfg.d_model}, bf16) S={S} M={M} b={b} T={T} "
+            f"plan {plan.name}: loss engine {loss_e:.6f} full_loss {loss_o:.6f} (rel {loss_rel:.3e} <= "
+            f"{PIPE_ENGINE_LOSS_TOL:g}), gradients rel_norm_err {grad_rel:.3e} (<= {PIPE_ENGINE_GRAD_TOL:g}), "
+            f"K1 launches {launches}, finite {finite}")
+        if not finite or loss_rel > PIPE_ENGINE_LOSS_TOL or grad_rel > PIPE_ENGINE_GRAD_TOL:
+            raise AssertionError(f"the engine under {plan.name} disagrees with autograd of full_loss")
+        if kw["kind"] == "kfkb":
+            want = M * L * (2 * S - 1) // S
+            if launches != want:
+                raise AssertionError(f"K1 ran {launches} times under {plan.name}, want M*L*(2S-1)/S = {want}")
+        if kw == dict(kind="kfkb", k=2):  # the K1 path against the plain attention
+            loss_p, grads_p = engine(dataclasses.replace(staged, plain_attention=True), params, plan)
+            loss_rel = abs(loss_e - loss_p) / abs(loss_p)
+            grad_rel = _rel_norm_err(grads_e, grads_p)
+            log(f"pipeline-model {plan.name}, K1 against the plain attention: loss {loss_e:.6f} vs "
+                f"{loss_p:.6f} (rel {loss_rel:.3e} <= {PIPE_K1_LOSS_TOL:g}), gradients rel_norm_err "
+                f"{grad_rel:.3e} (<= {PIPE_K1_GRAD_TOL:g})")
+            if loss_rel > PIPE_K1_LOSS_TOL or grad_rel > PIPE_K1_GRAD_TOL:
+                raise AssertionError("the pipeline through K1 disagrees with the plain attention")
+            del grads_p
+        del grads_e
+    cache.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline() -> int:
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.core import ScheduleSpec
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+
+    cfg = GPT_CONFIGS["GPT-2.7B"]
+    ops.launches = 0
+    s = train.run_pipeline(
+        cfg, PIPE_STAGES, ScheduleSpec(kind="kfkb", k=PIPE_K), seed=0, log_every=1, device="cuda",
+        profile=True, **PIPE_ARGS,
+    )
+    launches = ops.launches
+    S, M, L, steps = s["stages"], s["microbatches"], s["num_layers"], s["steps"]
+    per_step = M * L * (2 * S - 1) // S
+    p = s["profile"]
+    log(f"pipeline GPT-2.7B ({L} layers, d_model {s['d_model']}, vocab {s['vocab_size']}, "
+        f"{s['param_count']:,} parameters) in S={S} stages, plan {s['plan']}: {steps} steps of "
+        f"{s['batch']} x {s['seq']} in M={M}; loss {s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}; "
+        f"step p50 {s['step_ms_p50']:.1f} ms (first {s['step_ms'][0]:.1f} ms), "
+        f"{s['tokens_per_second']:,.0f} tokens/s, max_memory_allocated "
+        f"{s['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  losses {[round(v, 4) for v in s['losses']]}")
+    log(f"  grad norms {[round(v, 4) for v in s['grad_norms']]}")
+    log(f"  profiled step: wall {p['wall_ms']:.3f} ms, device busy {p['device_ms']:.3f} ms "
+        f"({100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms "
+        f"({100 * p['flash_ms'] / p['device_ms']:.1f}% of the device time)")
+    for op in p["top"]:
+        log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+    log(f"flash launches on the pipeline path: {launches} over {steps} + 2 steps (the timed steps, then "
+        f"the profiled step run once untraced and once traced); {s['flash_launches']} in the timed "
+        f"steps, M*L*(2S-1)/S = {per_step} a step")
+    if s["flash_launches"] != per_step * steps or launches != per_step * (steps + 2):
+        raise AssertionError("the pipeline path did not run K1 M*L*(2S-1)/S times a step")
+    if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
+        raise AssertionError("non-finite loss or gradient norm")
+    if not s["losses"][-1] < s["losses"][0]:
+        raise AssertionError("the loss did not fall")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -582,15 +758,22 @@ def main(argv=None) -> int:
         elif name == "serve":
             launches = phase_serve()
             if kernels:
-                kernels["flash"]["launches"] = launches
+                kernels["flash"]["per_path"]["serve"]["launches"] = launches
         elif name == "train":
             launches = phase_train()
             if kernels:
                 kernels["ssd"]["launches"] = launches
+        elif name == "pipeline-model":
+            phase_pipeline_model()
+        elif name == "pipeline":
+            launches = phase_pipeline()
+            if kernels:
+                kernels["flash"]["per_path"]["pipeline"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):
         return 0  # a partial run prints no result
+    kernels["flash"]["launches"] = sum(p["launches"] for p in kernels["flash"]["per_path"].values())
     log(json.dumps({"kernels": [kernels["flash"], kernels["ssd"]]}))
     log(device["smi"])
     log(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))

@@ -14,6 +14,14 @@ group of irregular leading layers is empty for the ported families); the
 port keeps one entry per layer under ``layers/<i>/...``.
 :func:`params_from_repro` unstacks and :func:`params_to_repro` stacks back,
 bitwise.
+
+A pipeline's parameters (``repro.pipeline.stage.StagedModel``) are stacked
+once more, over the ``V`` virtual stages: ``blocks/<j>/...`` leaves are
+``[V, reps, ...]`` (layer ``j`` of the pattern in each repeat of each
+stage), ``embed/table`` is ``[V, vocab, d]`` and ``final_norm/scale``
+``[V, d]``.  The port's :class:`~repro_torch.pipeline.stage.StagedModel`
+keeps a list of ``V`` trees; :func:`staged_params_from_repro` and
+:func:`staged_params_to_repro` convert both ways, bitwise.
 """
 
 from __future__ import annotations
@@ -27,7 +35,14 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import structure
 from repro_torch.tree import flatten
 
-__all__ = ["flatten", "params_from_repro", "params_to_repro", "cache_from_repro"]
+__all__ = [
+    "flatten",
+    "params_from_repro",
+    "params_to_repro",
+    "cache_from_repro",
+    "staged_params_from_repro",
+    "staged_params_to_repro",
+]
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -111,3 +126,42 @@ def cache_from_repro(
             rows = arr[:, n, 0] if slot_major else arr[n]
             _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(rows, device))
     return {"layers": [layers[i] for i in range(st.num_layers)]}
+
+
+def staged_params_from_repro(flat: Mapping[str, np.ndarray], staged, device=None) -> list[dict]:
+    """The port's per-stage trees from ``repro``'s flattened, stacked
+    ``StagedModel`` parameters; ``staged`` is the port's
+    :class:`~repro_torch.pipeline.stage.StagedModel` of the same cut."""
+    P, V = len(staged.pattern), staged.num_stages
+    stages: list[dict] = [{"layers": [{} for _ in range(staged.layers_per_stage)]} for _ in range(V)]
+    for key, arr in flat.items():
+        parts = key.split("/")
+        arr = np.asarray(arr)
+        if arr.shape[0] != V:
+            raise ValueError(f"{key}: {arr.shape[0]} stacked stages, the model has {V}")
+        for vs in range(V):
+            if parts[0] == "blocks":
+                j, rest = int(parts[1]), parts[2:]
+                if arr.shape[1] != staged.reps:
+                    raise ValueError(f"{key}: {arr.shape[1]} repeats a stage, the model has {staged.reps}")
+                for r in range(staged.reps):
+                    _set(stages[vs]["layers"][r * P + j], rest, _tensor(arr[vs, r], device))
+            else:
+                _set(stages[vs], parts, _tensor(arr[vs], device))
+    return stages
+
+
+def staged_params_to_repro(params: list[dict], staged) -> dict[str, np.ndarray]:
+    """``repro``'s flattened, stacked ``StagedModel`` parameters from the
+    port's per-stage trees (the inverse of :func:`staged_params_from_repro`)."""
+    P = len(staged.pattern)
+    numpy = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    shared = [flatten({k: v for k, v in p.items() if k != "layers"}) for p in params]
+    layers = [[flatten(layer) for layer in p["layers"]] for p in params]
+    out = {key: np.stack([numpy(f[key]) for f in shared]) for key in shared[0]}
+    for j in range(P):
+        for key in layers[0][j]:
+            out[f"blocks/{j}/{key}"] = np.stack(
+                [np.stack([numpy(ls[r * P + j][key]) for r in range(staged.reps)]) for ls in layers]
+            )
+    return out

@@ -17,13 +17,20 @@ kernel in ``csrc/flash_fwd.cu``, built for ``sm_90a`` at first use.
 * ``launches`` counts kernel launches, so a run can show that its path went
   through the kernel.
 
+:func:`flash_attention_train` is the training entry: an autograd function
+whose forward launches the kernel (CPU tensors: the plain training
+attention, ``ref.train_attention``) and whose backward recomputes that
+plain function from the saved q/k/v and differentiates it.  The reference
+has no backward kernel to port; ``repro`` trains through the plain
+attention.  Without a gradient to take (``torch.no_grad()``, or no input
+that requires one) it runs the forward alone and saves nothing.
+
 What bounds the kernel on this card, and what its design does about it, is
 in the note at the top of the CUDA source: at the serving shapes the bound
 is the bytes of q/k/v/o; the kernel reads them once through strides (no
 transpose, no GQA repeat, no pad copies) and skips fully masked tiles;
 the mma route keeps both products on the tensor cores and overlaps the
 next key tile's copy with the current tile's compute.
-Forward only, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import check_cp_async
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["flash_attention", "route", "SOURCE", "HEAD_DIMS", "launches"]
+__all__ = ["flash_attention", "flash_attention_train", "route", "SOURCE", "HEAD_DIMS", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 #: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, and 128
@@ -106,10 +113,14 @@ def route(dtype: torch.dtype) -> str:
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     """q [B,T,H,hd]; k, v [B,S,K,hd] -> [B,T,H,hd] in q's type; scores
     scaled by 1/sqrt(hd)."""
-    global launches
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return _ref.attention(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal: bool, window: int | None):
+    global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, T, H, hd = q.shape
@@ -139,3 +150,40 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
         raise RuntimeError(f"flash_fwd ({path} route) launch failed: {err_str(err).decode()} ({err})")
     launches += 1
     return out
+
+
+def _train_forward(q, k, v, causal: bool, window: int | None):
+    if q.device.type == "cpu":
+        return _ref.train_attention(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window)
+
+
+class _FlashTrain(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain training attention (CPU).
+    Backward: the gradient of the plain training attention, recomputed from
+    the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _train_forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, go):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = _ref.train_attention(*inputs, causal=ctx.causal, window=ctx.window)
+            wanted = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, go))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def flash_attention_train(q, k, v, causal: bool = True, window: int | None = None):
+    """The training attention, differentiable in q, k and v: q [B,T,H,hd];
+    k, v [B,S,K,hd] -> [B,T,H,hd] in q's type."""
+    _check(q, k, v, causal, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashTrain.apply(q, k, v, causal, window)
+    return _train_forward(q, k, v, causal, window)

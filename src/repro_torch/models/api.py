@@ -9,8 +9,8 @@
 
 Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
 decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense
-family serves and the SSM family trains; every other family and path
-raises ``NotImplementedError`` here.  Caches are updated in place.
+family serves and trains, the SSM family trains; every other family and
+path raises ``NotImplementedError`` here.  Caches are updated in place.
 """
 
 from __future__ import annotations

@@ -1,6 +1,16 @@
 """Grouped-query attention with RoPE, sliding windows and a KV cache.
 
-Port of the serving side of ``repro/models/attention.py``:
+Port of ``repro/models/attention.py`` (self-attention; cross attention and
+M-RoPE come with their families):
+
+* ``attn_train`` -- full-sequence causal attention for training.  Its
+  attention goes through
+  :func:`repro_torch.kernels.flash_attention.ops.flash_attention_train`:
+  the CUDA kernel forward for a CUDA tensor (its backward differentiates
+  the plain version), the plain version for a CPU tensor.  The plain
+  version is what the reference's ``attn_train`` computes without its flash
+  kernel: ``sdpa`` under the causal/window mask below
+  ``CHUNKED_ATTN_THRESHOLD`` query tokens, ``chunked_attention`` from it up.
 
 * ``attn_prefill`` -- full-sequence causal attention that also fills the
   decode KV cache.  Its attention goes through
@@ -26,11 +36,15 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.flash_attention.ref import CHUNKED_ATTN_THRESHOLD, chunked_attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_rope, dense, dense_init, rope_frequencies
 
 __all__ = [
     "attn_init",
+    "attn_train",
+    "chunked_attention",
+    "CHUNKED_ATTN_THRESHOLD",
     "attn_prefill",
     "attn_decode",
     "init_kv_cache",
@@ -80,6 +94,23 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     v = _split_heads(dense(p["wv"], x, cfg), cfg.num_kv_heads, cfg.hd)
     cos, sin = rope_frequencies(cfg, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attn_train(p, x, cfg: ModelConfig, *, window: int | None = None, plain_attention: bool = False):
+    """Full-sequence causal attention.  x: [B, T, d] -> [B, T, d].
+
+    Positions are ``0..T-1``; GQA stays grouped (no repeated K/V).
+    ``plain_attention`` computes the attention with the plain training
+    version (:func:`flash_ref.train_attention`) on any device; it exists for
+    the on-card comparison and the training path never sets it."""
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if plain_attention:
+        out = flash_ref.train_attention(q, k, v, causal=True, window=window)
+    else:
+        out = flash_ops.flash_attention_train(q, k, v, causal=True, window=window)
+    return dense(p["wo"], _merge_heads(out), cfg)
 
 
 # -- KV cache -------------------------------------------------------------------

@@ -5,7 +5,8 @@ decoder-only families, with ``torch`` dtypes in place of ``jnp`` ones.
 :class:`ModelConfig` holds only the fields the port reads; the MoE,
 hybrid, encoder-decoder and multimodal fields of the reference arrive with
 the slices that read them.  :func:`check_ported` says which family is
-ported on which path: the dense family serves, the SSM family trains.
+ported on which path: the dense family serves and trains, the SSM family
+trains.
 ``layer_specs`` expands a config into a per-layer recipe (layer kind and
 sliding window) that :mod:`repro_torch.models.transformer` consumes.
 """
@@ -80,14 +81,12 @@ class ModelConfig:
 
 
 #: the families each path of the port runs
-_PORTED = {"serve": ("dense",), "train": ("ssm",)}
+_PORTED = {"serve": ("dense",), "train": ("dense", "ssm")}
 #: what is missing for a family on a path, and the later slice that brings it
 #: (ROADMAP.md, queue 1)
 _LATER = {
     ("ssm", "serve"): "serving the Mamba2 layer (mamba_prefill, mamba_decode, init_ssm_cache) "
     "comes with the SSM serving slice",
-    ("dense", "train"): "training the dense family (attn_train) comes with the dense "
-    "training slice",
     ("moe", None): "the MoE layer (models/moe.py) comes with the MoE slice",
     ("hybrid", None): "the Mamba2/attention hybrid family comes with the hybrid slice",
     ("encdec", None): "the encoder-decoder family comes with a later slice",

@@ -1,5 +1,5 @@
 """Model assembly for the decoder-only families: init, training forward and
-loss (SSM family), prefill and decode (dense family).
+loss (dense and SSM families), prefill and decode (dense family).
 
 Port of ``repro/models/transformer.py``.  The reference
 stacks the repeating block of layers into ``[n_blocks, ...]`` leaves for
@@ -9,9 +9,8 @@ unstacks.  :func:`structure` is kept because the bridge maps the reference's
 ``blocks`` keys through it.  The dense family has no irregular leading
 layers, so the reference's ``prefix`` group is always empty here.
 
-MoE and Mamba layers, the training forward and the encoder-decoder family
-come with later slices; :func:`repro_torch.models.common.check_ported`
-refuses them.
+MoE layers, Mamba decoding and the encoder-decoder family come with later
+slices; :func:`repro_torch.models.common.check_ported` refuses them.
 """
 
 from __future__ import annotations
@@ -101,16 +100,17 @@ def _ffn(p, x, cfg: ModelConfig):
     return torch.zeros_like(x)
 
 
-def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec):
+def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False):
     """Full-sequence training forward of one layer.  Returns (x, aux), aux
-    the MoE load-balance and router-z terms (zeros: no ported layer routes)."""
-    if spec.kind == "attn":
-        raise NotImplementedError(
-            "training the attention layer (attn_train) comes with the dense training slice "
-            "(ROADMAP.md, queue 1)"
-        )
+    the MoE load-balance and router-z terms (zeros: no ported layer routes).
+    ``plain_attention`` is :func:`attn.attn_train`'s on-card comparison flag."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + mamba_mod.mamba_train(p["mamba"], norm_apply(p["ln1"], x, cfg), cfg)
+    h = norm_apply(p["ln1"], x, cfg)
+    if spec.kind == "attn":
+        h = attn.attn_train(p["attn"], h, cfg, window=spec.window, plain_attention=plain_attention)
+    else:
+        h = mamba_mod.mamba_train(p["mamba"], h, cfg)
+    x = x + h
     return x + _ffn(p, x, cfg), (zero, zero)
 
 

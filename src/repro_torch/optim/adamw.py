@@ -13,7 +13,11 @@ is at least 2-D there: norm scales, ``A_log``, ``D``, ``dt_bias`` and
 ``conv_b`` are decayed.  The port keeps one 1-D tensor per layer for
 those, so :func:`decay_mask` reads the rank each leaf has in the reference
 layout: a leaf under ``layers/`` gains the stacked axis, and the rest
-(``embed/table`` decayed, ``final_norm/scale`` not) keep their own.
+(``embed/table`` decayed, ``final_norm/scale`` not) keep their own.  A
+pipeline's parameters (a list of per-virtual-stage trees) are stacked once
+more over the stages in the reference (``[V, ...]``, and ``[V, reps, ...]``
+for the layers), so there every leaf, ``final_norm`` and the layers' norm
+scales and biases included, has rank >= 2 and is decayed.
 """
 
 from __future__ import annotations
@@ -41,11 +45,15 @@ def adamw_init(params) -> AdamWState:
 
 
 def decay_mask(params) -> dict[str, bool]:
-    """``{path: decayed}``: the leaf's rank in the reference's stacked layout is >= 2."""
-    return {
-        key: t.ndim + (1 if key.split("/")[0] == "layers" else 0) >= 2
-        for key, t in flatten(params).items()
-    }
+    """``{path: decayed}``: the leaf's rank in the reference's stacked layout
+    is >= 2.  ``params`` is one model's tree, or a pipeline's list of
+    per-virtual-stage trees (paths ``<stage>/...``)."""
+    staged = isinstance(params, list)
+    mask = {}
+    for key, t in flatten(params).items():
+        group = key.split("/")[1 if staged else 0]
+        mask[key] = t.ndim + int(staged) + int(group == "layers") >= 2
+    return mask
 
 
 @torch.no_grad()

@@ -1,7 +1,9 @@
-"""Step factories: the gradient-accumulated train step and the eval step.
+"""Step factories: the gradient-accumulated train step, the pipeline train
+step and the eval step.
 
-Port of ``repro/training/steps.py:55-85``.  Both take a
-``loss_fn(params, batch) -> (loss, metrics)`` over a dict batch.
+Port of ``repro/training/steps.py:55-85`` and of the pipeline ``step_fn``
+of ``repro/launch/train.py::run_pipeline``.  The train and eval steps
+take a ``loss_fn(params, batch) -> (loss, metrics)`` over a dict batch.
 ``make_train_step(..., num_microbatches=M)`` cuts the batch into M equal
 micro-batches along its first axis and runs them one after another (the
 reference's ``lax.scan``), summing fp32 gradients; the step's loss and
@@ -11,6 +13,12 @@ global-batch ones when the micro-batches are equal-sized.
 Gradients are taken with ``torch.autograd.grad`` with respect to detached
 copies of the parameter leaves, so the parameters themselves never carry
 autograd state; the optimizer then updates them in place.
+
+``make_pipeline_train_step(staged, plan, optimizer)`` runs one step of a
+pipeline schedule on one card: the reference engine walks the plan over
+``[M, b, T]`` tokens and labels, the replicated leaves' gradients are
+summed over the stages (``reduce_replicated``), and the optimizer clips and
+applies them.
 """
 
 from __future__ import annotations
@@ -19,11 +27,14 @@ from typing import Any, Callable, Mapping
 
 import torch
 
+from repro_torch.core.schedule import SchedulePlan
 from repro_torch.optim import Optimizer
+from repro_torch.pipeline.engine import reduce_replicated, reference_pipeline_grads
+from repro_torch.pipeline.stage import StagedModel
 from repro_torch.training.state import TrainState
 from repro_torch.tree import flatten, tree_map
 
-__all__ = ["make_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_pipeline_train_step", "make_eval_step"]
 
 LossFn = Callable[[Any, Mapping[str, torch.Tensor]], tuple[torch.Tensor, dict]]
 
@@ -69,6 +80,21 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, num_microbatches: int
         params, opt_state, opt_metrics = optimizer.update(state.params, grads, state.opt_state)
         state.step, state.params, state.opt_state = state.step + 1, params, opt_state
         return state, {"loss": loss, **metrics, **opt_metrics}
+
+    return step
+
+
+def make_pipeline_train_step(staged: StagedModel, plan: SchedulePlan, optimizer: Optimizer):
+    """Returns ``step(state, tokens, labels) -> (state, metrics)`` over
+    ``[M, b, T]`` tokens and labels, ``state.params`` a list of
+    per-virtual-stage trees; the state is updated in place and returned."""
+
+    def step(state: TrainState, tokens, labels):
+        loss, grads = reference_pipeline_grads(staged, state.params, tokens, labels, plan)
+        grads = reduce_replicated(grads)
+        params, opt_state, metrics = optimizer.update(state.params, grads, state.opt_state)
+        state.step, state.params, state.opt_state = state.step + 1, params, opt_state
+        return state, {"loss": loss, **metrics}
 
     return step
 

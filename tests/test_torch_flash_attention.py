@@ -4,7 +4,11 @@ On the CPU the wrapper takes the plain version, so these tests hold the
 plain version to ``repro.kernels.flash_attention.ref.attention`` and to
 ``flash_attention_pallas`` in interpret mode over every ``FLASH_CASES`` row
 of ``test_kernels.py``, at that row's tolerance.  The CUDA kernel itself is
-held to the plain version by the ``gpu``-marked test (and by chip_smoke.py).
+held to the plain version by the ``gpu``-marked tests (and by chip_smoke.py).
+
+The training entry ``flash_attention_train`` takes the plain training
+attention on the CPU (forward and backward); on the card its forward
+launches the kernel and its backward differentiates the plain version.
 """
 
 import jax.numpy as jnp
@@ -194,3 +198,80 @@ def test_kernel_matches_plain_on_card(B, T, S, H, K, hd, dtype, causal, window, 
     assert ops.launches == before + 1
     want = ref.attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+TRAIN_CPU_CASES = [
+    # (B, T, S, H, K, hd, window): T < S, GQA, a window, and the chunked
+    # plain path from 2048 query tokens up
+    (2, 24, 24, 4, 2, 16, None),
+    (1, 10, 30, 4, 4, 16, 7),
+    (1, 2100, 2100, 2, 1, 8, None),
+]
+
+
+@pytest.mark.parametrize("B,T,S,H,K,hd,window", TRAIN_CPU_CASES, ids=["gqa", "t_lt_s_window", "chunked"])
+def test_train_entry_on_cpu_is_the_plain_training_attention(B, T, S, H, K, hd, window):
+    """Forward and gradients equal autograd of ``ref.train_attention``
+    exactly (the same operations on the CPU), and no launch is counted."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(B, T, S, H, K, hd, seed=3))
+    go = torch.from_numpy(np.random.default_rng(4).standard_normal((B, T, H, hd)).astype(np.float32))
+    before = ops.launches
+    out = ops.flash_attention_train(q, k, v, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), go)
+    assert ops.launches == before
+    want = ref.train_attention(q, k, v, window=window)
+    want_grads = torch.autograd.grad(want, (q, k, v), go)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if T >= ref.CHUNKED_ATTN_THRESHOLD:  # the chunked path is the same function
+        torch.testing.assert_close(want, ref.attention(q, k, v, window=window), rtol=1e-5, atol=1e-6)
+
+
+def test_train_entry_without_gradients_saves_nothing():
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 8, 8, 2, 2, 16))
+    with torch.no_grad():
+        out = ops.flash_attention_train(q, k, v)
+    assert out.grad_fn is None
+    out = ops.flash_attention_train(*(t.detach() for t in (q, k, v)))
+    assert out.grad_fn is None
+    assert ops.flash_attention_train(q, k, v).grad_fn is not None
+
+
+def test_train_entry_refuses_what_the_kernel_refuses():
+    q = torch.zeros(1, 8, 4, 64)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention_train(q, torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 4, 32))
+    with pytest.raises(ValueError, match="causal attention needs T <= S"):
+        ops.flash_attention_train(torch.zeros(1, 9, 2, 16), torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
+
+
+GPU_TRAIN_CASES = [
+    # (B, T, H, hd, dtype): one micro-batch of the pipeline phase, and fp32
+    (1, 1024, 32, 80, torch.bfloat16),
+    (2, 200, 8, 64, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,hd,dtype", GPU_TRAIN_CASES)
+def test_train_entry_gradient_matches_plain_on_card(B, T, H, hd, dtype):
+    """The kernel runs the forward (one launch); the gradient is autograd of
+    the plain training attention's, from the same inputs and cotangent, so
+    the two agree exactly.  The forward agrees at the kernel's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype).requires_grad_(True) for a in _qkv(B, T, T, H, H, hd))
+    go = torch.from_numpy(np.random.default_rng(4).standard_normal((B, T, H, hd))).to("cuda", dtype)
+    before = ops.launches
+    out = ops.flash_attention_train(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), go)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    want = ref.train_attention(q, k, v)
+    want_grads = torch.autograd.grad(want, (q, k, v), go)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

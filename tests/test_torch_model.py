@@ -198,9 +198,9 @@ UNPORTED = [
     ("init_cache", "hybrid", "Mamba2"),
     ("prefill_with_cache", "ssm", "Mamba2"),
     ("decode_fn", "ssm", "Mamba2"),
-    ("loss_fn", "dense", "dense training"),
+    ("loss_fn", "moe", "MoE"),
     ("loss_fn", "hybrid", "hybrid"),
-    ("decoder_forward", "dense", "attn_train"),
+    ("decoder_forward", "hybrid", "hybrid"),
 ]
 
 
