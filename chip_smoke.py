@@ -31,18 +31,34 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
 8. pipeline-model
                 a 4-layer, full-width GPT-2.7B in S=2 stages, M=4 micro-batches
                 of 1 x 512 tokens: the reference pipeline engine's loss and
-                gradients under kfkb k=1, kfkb k=2, zb_h1 (saved residuals)
-                and interleaved (v=2) against autograd of the unpipelined
-                ``full_loss``; the K1 path against the plain attention; K1
-                launches in the kfkb runs equal M*L*(2S-1)/S
+                gradients under kfkb k=1, kfkb k=2, zb_h1 (saved residuals),
+                zb_h2 (w=2), interleaved (v=2) and interleaved_zb (v=2)
+                against autograd of the unpipelined ``full_loss``; the K1
+                path against the plain attention; K1 launches in every run
+                equal the attention forwards of the plan's grid
+                (M*L*(2S-1)/S under kfkb)
 9. pipeline     GPT-2.7B at full width and depth trained through
                 ``repro_torch.launch.train.run_pipeline``: S=4 stages under
                 kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
                 one profiled step; the loss is finite and falls, and K1 ran
                 M*L*(2S-1)/S = 448 times a step
+10. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width and
+                depth trained through ``repro_torch.launch.train_adaptive``'s
+                Fig-10 scenario (S=4, M=4 micro-batches of 2 x 1024 tokens,
+                the tuner choosing among 1F1B, 2F2B, ZB-H1, ZB-H2(w=2) and
+                interleaved-ZB(v=2) on a simulated regime network, 14
+                iterations, seed 0).  The decision trail equals the one the
+                decision layer computes without an engine; >= 2 kind
+                switches, one restacking across v = 1 <-> 2; warm switches
+                under 5% of an iteration; precompile hit rate >= 0.8 and no
+                cold miss; finite losses; K1 launched in every iteration as
+                often as the plan's grid says; and the switched and
+                restacked state's gradients agree with autograd of the
+                unpipelined ``full_loss``
 
 The line before the last is a JSON object with every kernel's figures (K1's
-also per main path: serving and pipeline training, each at its own shape);
+also per main path: serving, pipeline training and the adaptive loop, each at
+its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,7 +78,9 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline")
+PHASES = (
+    "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "adaptive",
+)
 
 #: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
@@ -89,12 +107,14 @@ MODEL_TOL = 5e-2
 
 # (name, B, T, S, H, K, hd, dtype, causal, window); the first three are the
 # serving shapes of GPT-2.7B prefill (333 tests the ragged tile edge), the
-# fourth one micro-batch of the pipeline phase
+# fourth one micro-batch of the pipeline phase, the fifth one of the
+# adaptive phase
 FLASH_CASES = [
     ("gpt2.7b_t128", 1, 128, 128, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t333", 1, 333, 333, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t512", 1, 512, 512, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_train_t1024", 1, 1024, 1024, 32, 32, 80, torch.bfloat16, True, None),
+    ("gpt2.7b_train_b2_t1024", 2, 1024, 1024, 32, 32, 80, torch.bfloat16, True, None),
     ("fp32", 1, 333, 333, 8, 8, 80, torch.float32, True, None),
     ("fp16", 2, 200, 200, 8, 8, 80, torch.float16, True, None),
     ("t_lt_s", 1, 100, 333, 32, 32, 80, torch.bfloat16, True, None),
@@ -107,10 +127,11 @@ FLASH_CASES = [
     ("fp16_window", 1, 333, 333, 8, 8, 80, torch.float16, True, 100),
 ]
 TIMED_CASE = "gpt2.7b_t512"
-#: K1's shape on each main path: the longest serving prefill, one pipeline micro-batch
-PATH_CASES = {"serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024"}
-#: the lengths K1 is timed at, each beside SDPA and its bound
-TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024")
+#: K1's shape on each main path: the longest serving prefill, one pipeline
+#: micro-batch, one adaptive micro-batch
+PATH_CASES = {"serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "adaptive": "gpt2.7b_train_b2_t1024"}
+#: the shapes K1 is timed at, each beside SDPA and its bound
+TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024")
 
 #: K2 vs plain version, as ||out - want|| / ||want||.  fp32 out (the fma
 #: route, fp32 throughout): the two differ in summation order only, over up
@@ -176,12 +197,22 @@ PIPE_MODEL_PLANS = (
     dict(kind="kfkb", k=1),
     dict(kind="kfkb", k=2),
     dict(kind="zb_h1", k=1, zb_policy="saved_residual"),
+    dict(kind="zb_h2", extra_warmup=2),
     dict(kind="interleaved", k=2, num_virtual=2),
+    dict(kind="interleaved_zb", num_virtual=2),
 )
 #: the pipeline phase: GPT-2.7B at full size in S = 4 stages under kfkb k = 2,
 #: batch 8 x 1024 tokens in M = 8 micro-batches (b = 1)
 PIPE_STAGES, PIPE_K = 4, 2
 PIPE_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=8, lr=1e-4, warmup=2)
+#: the adaptive phase: repro's Fig-10 scenario (train_adaptive.build_fig10_scenario)
+#: with GPT-2.7B at full size, sequences of 1024 tokens, 14 coordinator iterations
+ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
+ADAPTIVE_ITERATIONS = 14
+#: adaptive check, the engine's gradients on the switched and restacked state
+#: against autograd of full_loss: pipeline-model's limit (both through K1 in
+#: bf16, the same operations on the same values, fp32 sums in another order)
+ADAPTIVE_GRAD_TOL = PIPE_ENGINE_GRAD_TOL
 
 
 def log(msg: str) -> None:
@@ -355,7 +386,7 @@ def _flash_kernels() -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-        "launches": None,  # filled from the serve and pipeline phases (the main paths)
+        "launches": None,  # filled from the serve, pipeline and adaptive phases (the main paths)
         **figures(TIMED_CASE),
         # each main path's launches (filled from its phase) and figures at its shape
         "per_path": {
@@ -622,6 +653,7 @@ def phase_pipeline_model() -> None:
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.pipeline import StagedModel, reference_pipeline_grads
+    from repro_torch.pipeline.engine import stage_body_runs
     from repro_torch.tree import flatten, tree_map
 
     L, S, M, b, T = PIPE_MODEL
@@ -670,10 +702,11 @@ def phase_pipeline_model() -> None:
             f"K1 launches {launches}, finite {finite}")
         if not finite or loss_rel > PIPE_ENGINE_LOSS_TOL or grad_rel > PIPE_ENGINE_GRAD_TOL:
             raise AssertionError(f"the engine under {plan.name} disagrees with autograd of full_loss")
-        if kw["kind"] == "kfkb":
-            want = M * L * (2 * S - 1) // S
-            if launches != want:
-                raise AssertionError(f"K1 ran {launches} times under {plan.name}, want M*L*(2S-1)/S = {want}")
+        want = stage_body_runs(plan) * L // V  # M*L*(2S-1)/S under kfkb
+        if kw["kind"] == "kfkb" and want != M * L * (2 * S - 1) // S:
+            raise AssertionError(f"the grid of {plan.name} has {want} attention forwards, not M*L*(2S-1)/S")
+        if launches != want:
+            raise AssertionError(f"K1 ran {launches} times under {plan.name}, the grid has {want} attention forwards")
         if kw == dict(kind="kfkb", k=2):  # the K1 path against the plain attention
             loss_p, grads_p = engine(dataclasses.replace(staged, plain_attention=True), params, plan)
             loss_rel = abs(loss_e - loss_p) / abs(loss_p)
@@ -730,6 +763,86 @@ def phase_pipeline() -> int:
     return launches
 
 
+def phase_adaptive() -> int:
+    import gc
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train_adaptive
+
+    ops.launches = 0
+    sc = train_adaptive.build_fig10_scenario(device="cuda", **ADAPTIVE_ARGS)
+    summary = sc.coordinator.run(ADAPTIVE_ITERATIONS)
+    launches = ops.launches
+    s = train_adaptive.summarize(sc, summary)
+    sc.runtime.cache.wait_idle()
+    sc.runtime.cache.shutdown()
+    cfg, rt = sc.cfg, sc.runtime
+    log(f"adaptive {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}) in S="
+        f"{rt.num_stages} stages, global batch {sc.global_batch} x {rt.seq_len}: {s['iterations']} iterations, "
+        f"{s['kind_switches']} kind switches, precompile hit rate {s['precompile_hit_rate']:.2f} "
+        f"(cache {s['cache']}), warm switch {100 * s['warm_switch_latency_frac']:.3f}% of an iteration")
+    log("  decision trail: " + ", ".join(f"t={d['t']} {d['chosen']}" for d in s["decision_trail"]))
+    log(f"  losses {s['losses']}")
+    for e in s["switch_events"]:
+        log(f"  switch at iteration {e['iteration']}: {e['from_plan'] or '-'} -> {e['to_plan']}, "
+            f"{1e3 * e['seconds']:.3f} ms, restacked {e['restacked']}, warm {e['warm']}")
+    for i, r in enumerate(s["per_iteration"]):
+        log(f"  iteration {i:2d} {r['plan']:22s} {1e3 * r['seconds']:9.1f} ms, loss {r['loss']:.4f}, K1 "
+            f"{r['flash_launches']} (grid: {r['attention_forwards']}), max_memory_allocated "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB")
+    for name, p in s["per_plan"].items():
+        log(f"  plan {name}: {p['iterations']} iterations, step p50 {p['step_ms_p50']:.1f} ms, "
+            f"max_memory_allocated {p['max_memory_allocated'] / 2**30:.2f} GiB, K1 a step {p['flash_launches']}")
+    log(f"flash launches on the adaptive path: {launches}")
+    want_trail = train_adaptive.engine_free_decision_trail(
+        ADAPTIVE_ITERATIONS, num_stages=rt.num_stages, seed=ADAPTIVE_ARGS["seed"]
+    )
+    if s["decision_trail"] != want_trail:
+        raise AssertionError(f"the decision trail differs from the engine-free one: {want_trail}")
+    if s["kind_switches"] < 2 or not any(e["restacked"] for e in s["switch_events"]):
+        raise AssertionError("fewer than two kind switches, or none across the v = 1 <-> 2 boundary")
+    if not s["warm_switch_latency_frac"] < 0.05:
+        raise AssertionError("a warm switch took 5% of an iteration or more")
+    if s["precompile_hit_rate"] < 0.8 or s["cache"]["cold_misses"]:
+        raise AssertionError("precompile hit rate under 0.8, or a cold miss")
+    if not all(math.isfinite(v) for v in s["losses"]):
+        raise AssertionError("non-finite loss")
+    for i, r in enumerate(s["per_iteration"]):
+        if r["flash_launches"] != r["attention_forwards"]:
+            raise AssertionError(f"iteration {i}: K1 ran {r['flash_launches']} times, the grid of "
+                                 f"{r['plan']} has {r['attention_forwards']} attention forwards")
+    if launches != sum(r["flash_launches"] for r in s["per_iteration"]):
+        raise AssertionError("K1 launches outside the iterations of the adaptive path")
+    # where the final plan's step time goes: one more step, untimed by the
+    # profiler and then traced
+    from repro_torch.launch.profiling import device_profile
+
+    batch = sc.dataset.batch_at(1000, rt.device)
+    wall_ms = 1e3 * rt.run_iteration(batch.tokens, batch.labels).seconds
+    prof = device_profile(lambda: rt.run_iteration(batch.tokens, batch.labels), rt.device, {"flash": "flash_fwd"})
+    log(f"  profiled step of {rt.current_table.plan.name}: wall {wall_ms:.3f} ms, device busy "
+        f"{prof['device_ms']:.3f} ms ({100 * prof['device_ms'] / wall_ms:.1f}%), K1 {prof['flash_ms']:.3f} ms "
+        f"({100 * prof['flash_ms'] / prof['device_ms']:.1f}% of the device time)")
+    for op in prof["top"][:8]:
+        log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+    # the switched and restacked state's gradients; the optimizer state and
+    # the last gradients go first, to leave room for the oracle's
+    rt.state.opt_state = rt.last_grads = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = train_adaptive.grad_parity(sc)
+    log(f"adaptive gradients on the final state ({rt.current_table.plan.name}, v={rt.current_v}, after "
+        f"{sum(e.restacked for e in rt.switch_events)} restacks) against autograd of full_loss: "
+        f"rel_norm_err {parity['rel_norm_err']:.3e} (<= {ADAPTIVE_GRAD_TOL:g}), max_abs_err "
+        f"{parity['max_abs_err']:.3e}, finite {parity['finite']}")
+    if not parity["finite"] or parity["rel_norm_err"] > ADAPTIVE_GRAD_TOL:
+        raise AssertionError("the engine's gradients on the switched state disagree with autograd of full_loss")
+    del sc, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -769,6 +882,10 @@ def main(argv=None) -> int:
             launches = phase_pipeline()
             if kernels:
                 kernels["flash"]["per_path"]["pipeline"]["launches"] = launches
+        elif name == "adaptive":
+            launches = phase_adaptive()
+            if kernels:
+                kernels["flash"]["per_path"]["adaptive"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):

@@ -22,6 +22,15 @@ stage), ``embed/table`` is ``[V, vocab, d]`` and ``final_norm/scale``
 ``[V, d]``.  The port's :class:`~repro_torch.pipeline.stage.StagedModel`
 keeps a list of ``V`` trees; :func:`staged_params_from_repro` and
 :func:`staged_params_to_repro` convert both ways, bitwise.
+
+A training state (``repro.training.TrainState`` with an AdamW state)
+flattens to ``step``, ``params/...``, ``opt_state/step``,
+``opt_state/m/...`` and ``opt_state/v/...``; the moments are stacked like
+the parameters.  :func:`train_state_from_repro` and
+:func:`train_state_to_repro` carry it to the port's
+:class:`~repro_torch.training.TrainState` (per-virtual-stage lists, an
+:class:`~repro_torch.optim.AdamWState`) and back, at any ``S * v``
+layout, bitwise.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import structure
+from repro_torch.optim import AdamWState
+from repro_torch.training import TrainState
 from repro_torch.tree import flatten
 
 __all__ = [
@@ -42,6 +53,8 @@ __all__ = [
     "cache_from_repro",
     "staged_params_from_repro",
     "staged_params_to_repro",
+    "train_state_from_repro",
+    "train_state_to_repro",
 ]
 
 
@@ -164,4 +177,30 @@ def staged_params_to_repro(params: list[dict], staged) -> dict[str, np.ndarray]:
             out[f"blocks/{j}/{key}"] = np.stack(
                 [np.stack([numpy(ls[r * P + j][key]) for r in range(staged.reps)]) for ls in layers]
             )
+    return out
+
+
+def _group(flat: Mapping[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
+    n = len(prefix)
+    return {k[n:]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def train_state_from_repro(flat: Mapping[str, np.ndarray], staged, device=None):
+    """The port's pipeline :class:`~repro_torch.training.TrainState` (AdamW)
+    from ``repro``'s flattened ``TrainState`` of the same ``StagedModel``
+    cut (``staged`` the port's, at ``S * v`` virtual stages)."""
+    params, m, v = (
+        staged_params_from_repro(_group(flat, prefix), staged, device)
+        for prefix in ("params/", "opt_state/m/", "opt_state/v/")
+    )
+    opt = AdamWState(step=int(flat["opt_state/step"]), m=m, v=v)
+    return TrainState(step=int(flat["step"]), params=params, opt_state=opt)
+
+
+def train_state_to_repro(state, staged) -> dict[str, np.ndarray]:
+    """``repro``'s flattened ``TrainState`` from the port's (the inverse of
+    :func:`train_state_from_repro`; the step counters as int32 scalars)."""
+    out = {"step": np.asarray(state.step, np.int32), "opt_state/step": np.asarray(state.opt_state.step, np.int32)}
+    for prefix, tree in (("params/", state.params), ("opt_state/m/", state.opt_state.m), ("opt_state/v/", state.opt_state.v)):
+        out.update({prefix + k: a for k, a in staged_params_to_repro(tree, staged).items()})
     return out

@@ -1,37 +1,137 @@
-"""The schedule layer of the port: copies of ``repro.core.schedule`` and
-``repro.core.kinds`` (numpy only).  The rest of ``repro.core`` (simulator,
-cost and memory models, tuner, calibration) comes with later slices."""
+"""The schedule and decision layer of the port: copies of ``repro.core``
+(numpy and the standard library only).
 
+    plan      = make_plan(S, M, spec=ScheduleSpec(...))
+    cands     = enumerate_candidates(S, B, memory_model, limit)
+    tuner     = AutoTuner(cands, stage_costs_for, NetworkProfiler(net))
+    summary   = Coordinator(tuner, net, B, interval).run(iters)
+
+Not copied yet: calibration (``calibrate.py``, ``devicespec.py``; ROADMAP
+queue 1, item 3) and the ASCII renderer (``viz.py``).
+"""
+
+from repro_torch.core.candidates import (
+    Candidate,
+    enumerate_candidates,
+    largest_admissible_warmup,
+)
+from repro_torch.core.coordinator import (
+    Coordinator,
+    IterationRecord,
+    RunSummary,
+    shifted_network,
+)
+from repro_torch.core.costmodel import CostModel, closed_form_1f1b_length, link_probe_specs
+from repro_torch.core.interfaces import IterationHook, TelemetrySink
 from repro_torch.core.kinds import (
     KindSpec,
     ScheduleSpec,
+    SearchSpace,
     get_kind,
+    known_kinds,
+    register_kind,
     registered_kinds,
     saved_residual_kinds,
     warmup_kinds,
 )
+from repro_torch.core.memory_model import (
+    ZB_SLOT_POLICIES,
+    MemoryModel,
+    StageMemorySpec,
+    limit_curve,
+    predicted_peak_live,
+)
+from repro_torch.core.network import (
+    BandwidthTrace,
+    BurstyTrace,
+    Network,
+    PeriodicPreemptionTrace,
+    RegimeTrace,
+    StableTrace,
+    uniform_network,
+)
+from repro_torch.core.placement import optimize_weight_placement
+from repro_torch.core.profiler import (
+    ComputeProfiler,
+    LinkSample,
+    MovingAverage,
+    NetworkProfiler,
+    merge_link_samples,
+)
 from repro_torch.core.schedule import (
     Op,
+    PlanEdge,
     SchedulePlan,
     TabularPlan,
     Task,
     lower_to_table,
     make_plan,
+    normalize_warmup,
     peak_live_activations,
+    tick_table,
 )
+from repro_torch.core.simulator import PipelineSimulator, SimResult, simulate, simulate_plan
+from repro_torch.core.taskgraph import StageCosts, TaskGraph, TransferSpec, build_task_graph
+from repro_torch.core.tuner import AutoTuner, TuningRecord
 
 __all__ = [
+    "Candidate",
+    "enumerate_candidates",
+    "largest_admissible_warmup",
+    "Coordinator",
+    "IterationRecord",
+    "RunSummary",
+    "shifted_network",
+    "CostModel",
+    "closed_form_1f1b_length",
+    "link_probe_specs",
+    "IterationHook",
+    "TelemetrySink",
     "KindSpec",
     "ScheduleSpec",
+    "SearchSpace",
     "get_kind",
+    "known_kinds",
+    "register_kind",
     "registered_kinds",
     "saved_residual_kinds",
     "warmup_kinds",
+    "ZB_SLOT_POLICIES",
+    "MemoryModel",
+    "StageMemorySpec",
+    "limit_curve",
+    "predicted_peak_live",
+    "BandwidthTrace",
+    "BurstyTrace",
+    "Network",
+    "PeriodicPreemptionTrace",
+    "RegimeTrace",
+    "StableTrace",
+    "uniform_network",
+    "optimize_weight_placement",
+    "ComputeProfiler",
+    "LinkSample",
+    "MovingAverage",
+    "NetworkProfiler",
+    "merge_link_samples",
     "Op",
+    "PlanEdge",
     "SchedulePlan",
     "TabularPlan",
     "Task",
     "lower_to_table",
     "make_plan",
+    "normalize_warmup",
     "peak_live_activations",
+    "tick_table",
+    "PipelineSimulator",
+    "SimResult",
+    "simulate",
+    "simulate_plan",
+    "StageCosts",
+    "TaskGraph",
+    "TransferSpec",
+    "build_task_graph",
+    "AutoTuner",
+    "TuningRecord",
 ]

@@ -11,9 +11,12 @@ record that owns what the rest of the system needs to know about it:
 * ``frees_slot``       -- which op releases a live activation slot,
 * capability flags     -- ``supports_virtual`` / ``fixed_virtual``,
   ``supports_extra_warmup`` / ``requires_warmup``, ``has_split_backward``,
-  ``supports_saved_residual``, ``peak_is_exact``,
+  ``supports_saved_residual``, ``weight_placement_refinable``,
+  ``peak_is_exact``, ...,
 * ``virtual_stage``    -- the device placement map (``None`` = Megatron's
-  looped ``chunk * S + stage``; ZB-V overrides it with the V shape).
+  looped ``chunk * S + stage``; ZB-V overrides it with the V shape),
+* ``search_specs``     -- the search-axis enumerator ``enumerate_candidates``
+  calls.
 
 Everything outside this module and ``schedule.py`` dispatches through the
 registry; ``tests/test_torch_schedule.py`` scans the port for kind-string
@@ -22,9 +25,13 @@ dispatch.  All six kinds of the original are registered (``kfkb``,
 the aliases ``1f1b`` and ``gpipe``: the port's reference engine executes
 every kind.
 
-:class:`ScheduleSpec` is the schedule-coordinate currency ``make_plan``
-takes.  The tuner's parts of the original (``SearchSpace``, the search-axis
-enumerator and the memory-curve pricers behind it) come with the tuner.
+The two declarative currencies of the API live here too:
+:class:`ScheduleSpec`, the frozen coordinate tuple ``make_plan``,
+``Candidate``, ``TuningRecord``, the compile-cache key and ``PlanRuntime``
+pass between them, and :class:`SearchSpace`, the candidate-enumeration axes
+``enumerate_candidates(space=...)`` consumes (each kind's ``search_specs``,
+priced on the memory-limit curve by :func:`admissible_warmup` and
+:func:`saved_residual_policy`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from repro_torch.core.schedule import Op, Task, normalize_warmup, normalize_zb_p
 
 __all__ = [
     "ScheduleSpec",
+    "SearchSpace",
     "KindSpec",
     "register_kind",
     "register_alias",
@@ -44,8 +52,9 @@ __all__ = [
     "registered_kinds",
     "known_kinds",
     "resolve_alias",
-    "warmup_kinds",
+    "admissible_warmup",
     "saved_residual_kinds",
+    "saved_residual_policy",
     "zbv_orders",
 ]
 
@@ -108,6 +117,47 @@ class ScheduleSpec:
             )
         return ScheduleSpec(kind, k, v, w, self.micro_batch_size, zb_policy=pol)
 
+    @classmethod
+    def from_plan(cls, plan) -> "ScheduleSpec":
+        """The (already normalized) coordinates of a built plan."""
+        return cls(
+            kind=plan.kind,
+            k=plan.k,
+            num_virtual=plan.num_virtual,
+            extra_warmup=tuple(plan.extra_warmup),
+            micro_batch_size=plan.micro_batch_size,
+            zb_policy=tuple(plan.zb_policy),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchSpace:
+    """Declarative candidate-enumeration axes for ``enumerate_candidates``.
+
+    ``kinds`` may name registered kinds or aliases; ``virtual_degrees``
+    lists the chunk counts tried for kinds with a searchable virtual axis;
+    warmup-capable kinds price their per-stage ``w[s]`` greedily under the
+    memory-limit curve (``max_extra_warmup`` caps the depth, default
+    ``S - 1``).
+    """
+
+    kinds: tuple[str, ...] = ("kfkb",)
+    virtual_degrees: tuple[int, ...] = (2,)
+    max_k: int | None = None
+    min_microbatches: int | None = None
+    max_extra_warmup: int | None = None
+    # BWD_WEIGHT policies to explore on saved-residual-capable kinds.  With
+    # "saved_residual" present, each such kind additionally emits (per
+    # (k, b)) a per-stage greedy DR/SR vector: saved_residual wherever the
+    # stage's memory-limit admits the residual surcharge, double_remat
+    # elsewhere (see :func:`saved_residual_policy`).
+    zb_policies: tuple[str, ...] = ("double_remat",)
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "kinds", tuple(self.kinds))
+        object.__setattr__(self, "virtual_degrees", tuple(self.virtual_degrees))
+        object.__setattr__(self, "zb_policies", tuple(self.zb_policies))
+
 
 # ---------------------------------------------------------------------------
 # KindSpec + registry
@@ -138,9 +188,15 @@ class KindSpec:
     # thread B's vjp residuals through the live slot instead of
     # rematerializing).  Only meaningful with has_split_backward.
     supports_saved_residual: bool = False
+    weight_placement_refinable: bool = False
     peak_is_exact: bool = False
+    needs_group_multiple_of_stages: bool = False
+    # the paper's original (k, b)-only search family: plans may be built
+    # through legacy positional plan factories (no kind/virtual/warmup kwargs)
+    legacy_factory: bool = False
     virtual_stage: Callable[[int, int, int, int], int] | None = None
     label: Callable[[str, int, str, int], str] | None = None
+    search_specs_fn: Callable[..., list[ScheduleSpec]] | None = None
 
     def frees_slot(self, op: Op) -> bool:
         """The op that releases a live activation slot at a device: the
@@ -152,6 +208,88 @@ class KindSpec:
         if self.label is None:
             return base
         return self.label(base, v, wtag, max_w)
+
+    def virtual_axis(self, virtual_degrees: Sequence[int]) -> tuple[int, ...]:
+        """The kind's searchable virtual-degree axis: pinned for
+        fixed-virtual kinds (ZB-V), the caller's degrees for interleaved
+        kinds, the degenerate ``(1,)`` otherwise."""
+        if self.fixed_virtual is not None:
+            return (self.fixed_virtual,)
+        if self.supports_virtual:
+            return tuple(virtual_degrees)
+        return (1,)
+
+    def search_specs(
+        self,
+        *,
+        num_stages: int,
+        num_microbatches: int,
+        k: int,
+        micro_batch_size: int,
+        virtual_degrees: Sequence[int],
+        memory_model,
+        limits: Sequence[float],
+        max_extra_warmup: int,
+        zb_policies: Sequence[str] = ("double_remat",),
+    ) -> list[ScheduleSpec]:
+        """The kind's search points at one ``(k, b)`` — the axis enumerator
+        ``enumerate_candidates`` consumes.  Flags drive the default: the
+        virtual axis comes from ``virtual_degrees`` (or is pinned), and
+        warmup-capable kinds take the greedily-priced ``w[s]`` (a
+        warmup-REQUIRING kind yields nothing when no stage admits
+        ``w = 1`` — that is the tuner's H1 fallback).  When the caller's
+        ``zb_policies`` include ``"saved_residual"`` and the kind supports
+        it, each virtual degree also emits the per-stage greedy DR/SR
+        variant (when at least one stage admits the residual surcharge) —
+        its warmup is re-priced under the fattened slot curve."""
+        if self.search_specs_fn is not None:
+            return self.search_specs_fn(
+                self,
+                num_stages=num_stages,
+                num_microbatches=num_microbatches,
+                k=k,
+                micro_batch_size=micro_batch_size,
+                virtual_degrees=virtual_degrees,
+                memory_model=memory_model,
+                limits=limits,
+                max_extra_warmup=max_extra_warmup,
+            )
+        want_sr = (
+            "saved_residual" in tuple(zb_policies) and self.supports_saved_residual
+        )
+        out: list[ScheduleSpec] = []
+        for v in self.virtual_axis(virtual_degrees):
+            w: tuple[int, ...] = (0,) * num_stages
+            if self.supports_extra_warmup:
+                w = admissible_warmup(
+                    self, num_stages, num_microbatches, k, micro_batch_size, v,
+                    memory_model, limits, max_extra_warmup,
+                )
+                if self.requires_warmup and max(w) < 1:
+                    continue
+            out.append(
+                ScheduleSpec(self.name, k, v, w, micro_batch_size)
+            )
+            if not want_sr:
+                continue
+            pol = saved_residual_policy(
+                self, num_stages, num_microbatches, k, micro_batch_size, v,
+                memory_model, limits,
+            )
+            if "saved_residual" not in pol:
+                continue  # no stage affords the residuals at this (k, b)
+            w_sr = w
+            if self.supports_extra_warmup:
+                w_sr = admissible_warmup(
+                    self, num_stages, num_microbatches, k, micro_batch_size, v,
+                    memory_model, limits, max_extra_warmup, zb_policy=pol,
+                )
+                if self.requires_warmup and max(w_sr) < 1:
+                    continue
+            out.append(
+                ScheduleSpec(self.name, k, v, w_sr, micro_batch_size, zb_policy=pol)
+            )
+        return out
 
 
 _REGISTRY: dict[str, KindSpec] = {}
@@ -185,12 +323,13 @@ def get_kind(kind: str) -> KindSpec:
 
 
 def registered_kinds() -> tuple[str, ...]:
-    """All registered kinds, in registration order."""
+    """All registered kinds, in registration order (``PLAN_KINDS`` view)."""
     return tuple(_REGISTRY)
 
 
 def known_kinds() -> tuple[str, ...]:
-    """Registered kinds plus aliases — the full set ``make_plan`` accepts."""
+    """Registered kinds plus aliases — the full set ``enumerate_candidates``
+    and ``make_plan`` accept."""
     return tuple(_REGISTRY) + tuple(_ALIASES)
 
 
@@ -207,6 +346,92 @@ def warmup_kinds() -> tuple[str, ...]:
 def saved_residual_kinds() -> tuple[str, ...]:
     """Kinds whose BWD_WEIGHT accepts ``zb_policy="saved_residual"``."""
     return tuple(n for n, s in _REGISTRY.items() if s.supports_saved_residual)
+
+
+def saved_residual_policy(
+    spec: KindSpec,
+    num_stages: int,
+    num_microbatches: int,
+    k: int,
+    micro_batch_size: int,
+    num_virtual: int,
+    memory_model,
+    limits: Sequence[float],
+) -> tuple[str, ...]:
+    """Greedy per-stage DR/SR vector on the memory-limit curve.
+
+    A stage takes ``"saved_residual"`` iff its zero-extra-warmup peak live
+    count still fits ``limits[s]`` under the residual-fattened slot price
+    (:meth:`MemoryModel.bytes_at_live` with ``policy="saved_residual"``),
+    ``"double_remat"`` otherwise — memory the limit curve already affords
+    is spent on skipping W's rematerialization, mirroring how
+    :func:`admissible_warmup` spends it on warmup depth."""
+    S, M, b = num_stages, num_microbatches, micro_batch_size
+    G = (M + k - 1) // k
+    base = spec.peak_live_groups(S, G, num_virtual, (0,) * S)
+    out = []
+    for s in range(S):
+        live = min(base[s] * k, M * num_virtual)
+        try:
+            fits = (
+                memory_model.bytes_at_live(s, b, live, True, policy="saved_residual")
+                <= limits[s]
+            )
+        except ValueError:
+            # checkpoint_policy="full": residuals are already resident, the
+            # model rejects the redundant policy -> never choose it
+            fits = False
+        out.append("saved_residual" if fits else "double_remat")
+    return tuple(out)
+
+
+def admissible_warmup(
+    spec: KindSpec,
+    num_stages: int,
+    num_microbatches: int,
+    k: int,
+    micro_batch_size: int,
+    num_virtual: int,
+    memory_model,
+    limits: Sequence[float],
+    max_extra_warmup: int,
+    zb_pricing: bool | None = None,
+    zb_policy: Sequence[str] | None = None,
+) -> tuple[int, ...]:
+    """Greedy per-stage warmup vector on the memory-limit curve.
+
+    Peak bytes at a stage are monotone in its own ``w[s]`` and independent
+    of every other stage's (each builder caps issuance per stage), so each
+    stage independently takes the largest ``w[s] <= max_extra_warmup``
+    whose predicted peak live count still fits ``limits[s]``, closed-form
+    via the kind's ``peak_live_groups`` — no plan is built per probe.
+    ``zb_pricing`` overrides which slot byte curve is walked (default:
+    the kind's own ``has_split_backward``); ``zb_policy`` prices each
+    stage's slots under its per-stage BWD_WEIGHT policy (saved_residual
+    stages pay the residual surcharge, so they admit shallower warmup)."""
+    S, M, b = num_stages, num_microbatches, micro_batch_size
+    zb = spec.has_split_backward if zb_pricing is None else zb_pricing
+    pol = None if zb_policy is None else normalize_zb_policy(tuple(zb_policy), S)
+    G = (M + k - 1) // k
+    prev = spec.peak_live_groups(S, G, num_virtual, (0,) * S)
+    out = []
+    for s in range(S):
+        w_s = 0
+        prev_groups = prev[s]
+        for w in range(1, max_extra_warmup + 1):
+            groups = spec.peak_live_groups(S, G, num_virtual, (w,) * S)[s]
+            if groups == prev_groups:
+                break  # clamped at the group budget: deeper w buys nothing
+            live = min(groups * k, M * num_virtual)
+            bytes_s = memory_model.bytes_at_live(
+                s, b, live, zb, policy=None if pol is None else pol[s]
+            )
+            if bytes_s > limits[s]:
+                break
+            w_s = w
+            prev_groups = groups
+        out.append(w_s)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +487,7 @@ register_kind(
         build_orders=_kfkb_build,
         peak_live_groups=_peak_1f1b,
         peak_is_exact=True,
+        legacy_factory=True,
     )
 )
 register_kind(
@@ -271,6 +497,7 @@ register_kind(
         peak_live_groups=_peak_1f1b,
         has_split_backward=True,
         supports_saved_residual=True,
+        weight_placement_refinable=True,
         peak_is_exact=True,
         label=lambda base, v, wtag, max_w: f"ZB-H1[{base}]",
     )
@@ -284,6 +511,7 @@ register_kind(
         requires_warmup=True,
         has_split_backward=True,
         supports_saved_residual=True,
+        weight_placement_refinable=True,
         peak_is_exact=True,
         label=lambda base, v, wtag, max_w: f"ZB-H2+{wtag}[{base}]",
     )
@@ -294,6 +522,7 @@ register_kind(
         build_orders=_interleaved_build,
         peak_live_groups=_peak_interleaved,
         supports_virtual=True,
+        needs_group_multiple_of_stages=True,
         peak_is_exact=True,
         label=lambda base, v, wtag, max_w: f"I{v}[{base}]",
     )
@@ -305,8 +534,10 @@ register_kind(
         peak_live_groups=_peak_interleaved,
         supports_virtual=True,
         supports_extra_warmup=True,
+        needs_group_multiple_of_stages=True,
         has_split_backward=True,
         supports_saved_residual=True,
+        weight_placement_refinable=True,
         label=lambda base, v, wtag, max_w: (
             f"I{v}ZB+{wtag}[{base}]" if max_w else f"I{v}ZB[{base}]"
         ),
@@ -477,6 +708,7 @@ register_kind(
         supports_extra_warmup=True,
         has_split_backward=True,
         supports_saved_residual=True,
+        weight_placement_refinable=True,
         virtual_stage=_zbv_vstage,
         label=lambda base, v, wtag, max_w: (
             f"ZB-V+{wtag}[{base}]" if max_w else f"ZB-V[{base}]"

@@ -21,18 +21,18 @@ edges.  The port's pipeline engine walks that grid.
 
 Kept from the original: the order builders the registry uses, ``make_plan``
 (with the ``DeprecationWarning`` for the legacy family kwargs),
-``assign_slots``, ``peak_live_activations``, ``lower_to_table`` and
-``tick_table``.  Left out, as nothing in the port calls them: the legacy
-kind-set views (``PLAN_KINDS`` and its siblings; the registry answers those
-questions), the ZB-H1 and 1F1B/GPipe order wrappers, the plan's ``spec``
-view and the tables' statistics helpers.
+``assign_slots``, ``peak_live_activations``, ``lower_to_table``,
+``tick_table`` and the plan's ``spec`` view.  Left out, as nothing in the
+port calls them: the legacy kind-set views (``PLAN_KINDS`` and its
+siblings; the registry answers those questions), the ZB-H1 and 1F1B/GPipe
+order wrappers and the tables' statistics helpers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Sequence
+from typing import Iterator, Sequence
 import warnings
 
 import numpy as np
@@ -59,7 +59,8 @@ __all__ = [
 ]
 
 #: per-stage BWD_WEIGHT policies of split-backward kinds (the original keeps
-#: this tuple in ``repro/core/memory_model.py``, which the port does not copy)
+#: this tuple in ``repro/core/memory_model.py``; the port's copy of that
+#: module re-exports this one, since it imports this module)
 ZB_SLOT_POLICIES = ("double_remat", "saved_residual")
 
 
@@ -264,6 +265,15 @@ class SchedulePlan:
         return self.num_stages * self.num_virtual
 
     @property
+    def spec(self):
+        """The plan's normalized :class:`~repro_torch.core.kinds.ScheduleSpec`:
+        the one coordinate currency candidates, tuning records, the
+        compile-cache key and the runtime all share."""
+        from repro_torch.core.kinds import ScheduleSpec
+
+        return ScheduleSpec.from_plan(self)
+
+    @property
     def placement(self) -> Placement:
         """The kind's virtual-stage placement map (cached — plans are
         static once built)."""
@@ -272,6 +282,13 @@ class SchedulePlan:
                 self.kind, self.num_stages, self.num_virtual
             )
         return self._placement
+
+    def virtual_stage(self, task: Task) -> int:
+        return int(self.placement.vstage_of[task.stage, task.chunk])
+
+    def tasks(self) -> Iterator[Task]:
+        for order in self.orders:
+            yield from order
 
     def lower(self) -> "TabularPlan":
         """Lower to the :class:`TabularPlan`, caching the result.

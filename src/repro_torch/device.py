@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -16,3 +16,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (no-op on the CPU): before a host
+    clock is read around device work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

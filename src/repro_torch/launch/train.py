@@ -46,7 +46,7 @@ from repro_torch.configs import mamba2_780m
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core import ScheduleSpec, make_plan
 from repro_torch.data import SyntheticTextDataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.profiling import device_profile
@@ -62,11 +62,6 @@ __all__ = ["ARCHS", "train", "run_pipeline", "main"]
 ARCHS = {"mamba2-780m": (mamba2_780m.FULL, mamba2_780m.SMOKE, mamba2_780m.OPTIMIZER)}
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def train(args) -> dict:
     device = resolve_device(args.device)
     full, smoke, opt_name = ARCHS[args.arch]
@@ -79,7 +74,7 @@ def train(args) -> dict:
         lambda p, b: api.loss_fn(p, cfg, b), opt, num_microbatches=args.microbatches
     )
     ds = SyntheticTextDataset(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
-    _synchronize(device)
+    synchronize(device)
     setup = time.perf_counter() - t0
 
     def batch(i):
@@ -92,10 +87,10 @@ def train(args) -> dict:
     losses, grad_norms, lrs, step_seconds = [], [], [], []
     for i in range(args.steps):
         b = batch(i)
-        _synchronize(device)
+        synchronize(device)
         t = time.perf_counter()
         state, m = step_fn(state, b)
-        _synchronize(device)
+        synchronize(device)
         step_seconds.append(time.perf_counter() - t)
         losses.append(float(m["loss"]))
         grad_norms.append(float(m["grad_norm"]))
@@ -132,7 +127,7 @@ def train(args) -> dict:
     if args.profile:
         def run():
             step_fn(state, batch(args.steps))
-            _synchronize(device)
+            synchronize(device)
 
         t = time.perf_counter()
         run()
@@ -176,7 +171,7 @@ def run_pipeline(
     state = create_train_state(params, opt)
     step_fn = make_pipeline_train_step(staged, plan, opt)
     ds = SyntheticTextDataset(cfg.vocab_size, seq, batch, seed=seed)
-    _synchronize(device)
+    synchronize(device)
     setup = time.perf_counter() - t0
 
     def batch_at(i):
@@ -189,10 +184,10 @@ def run_pipeline(
     losses, grad_norms, lrs, step_seconds = [], [], [], []
     for i in range(steps):
         tokens, labels = batch_at(i)
-        _synchronize(device)
+        synchronize(device)
         t = time.perf_counter()
         state, m = step_fn(state, tokens, labels)
-        _synchronize(device)
+        synchronize(device)
         step_seconds.append(time.perf_counter() - t)
         losses.append(float(m["loss"]))
         grad_norms.append(float(m["grad_norm"]))
@@ -233,7 +228,7 @@ def run_pipeline(
     if profile:
         def run():
             step_fn(state, *batch_at(steps))
-            _synchronize(device)
+            synchronize(device)
 
         t = time.perf_counter()
         run()

@@ -38,6 +38,7 @@ from repro_torch.tree import flatten, tree_map
 
 __all__ = [
     "reference_pipeline_grads",
+    "stage_body_runs",
     "reduce_replicated",
     "queue_capacities",
     "arrival_tables",
@@ -324,6 +325,30 @@ def reference_pipeline_grads(staged: StagedModel, all_params, tokens, labels, pl
         it = iter(ss)
         grads.append(tree_map(lambda _: next(it), ps))
     return loss_sum, grads
+
+
+def stage_body_runs(plan: SchedulePlan) -> int:
+    """How many times :func:`reference_pipeline_grads` runs a virtual
+    stage's body (``StagedModel.stage_hidden``) in one step of ``plan``,
+    read off its lowered grid: every FWD task but the last virtual stage's
+    (whose forward runs in its backward), every BWD and BWD_INPUT task (the
+    recompute under autograd), and every BWD_WEIGHT task of a
+    ``double_remat`` stage (the second recompute; ``saved_residual`` reuses
+    BWD_INPUT's graph).  A run applies each layer of its virtual stage once,
+    so a model whose layers all hold attention runs the attention forward
+    ``stage_body_runs(plan) * layers per virtual stage`` times a step."""
+    grid = plan.lower().grid
+    pl, V = plan.placement, plan.total_virtual_stages
+    runs = 0
+    for s in range(plan.num_stages):
+        for op, _, chunk, _ in grid[s].tolist():
+            if op == int(Op.FWD):
+                runs += int(pl.vstage_of[s, chunk]) < V - 1
+            elif op in _BWD_SENDERS:
+                runs += 1
+            elif op == int(Op.BWD_WEIGHT):
+                runs += plan.zb_policy[s] == "double_remat"
+    return runs
 
 
 @torch.no_grad()

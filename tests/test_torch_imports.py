@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.data import SyntheticTextDataset
-from repro_torch.launch import serve_decode, train
+from repro_torch.launch import serve_decode, train, train_adaptive
 from repro_torch.models import api
 from repro_torch.serve import ServeEngine
 
@@ -34,7 +34,8 @@ def _port_modules() -> list[str]:
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flash_attention.ops" in mods and "repro_torch.kernels.ssd_scan.ops" in mods
-    assert "repro_torch.launch.train" in mods and len(mods) >= 35
+    assert "repro_torch.launch.train" in mods and "repro_torch.launch.train_adaptive" in mods
+    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 55
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -86,6 +87,8 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         serve_decode.main(["--tiny", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_adaptive.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SyntheticTextDataset(64, 8, 2).batch_at(0)
 

@@ -380,6 +380,49 @@ def test_pipeline_train_step_matches_reference_update():
         assert torch.equal(p["final_norm"]["scale"], state.params[0]["final_norm"]["scale"])
 
 
+#: a small config of the GPT family (configs/gpt.py: LayerNorm, GELU MLP, tied
+#: embeddings, as many key/value heads as query heads)
+GPT_SMALL = dict(num_kv_heads=4, norm="layernorm", mlp_act="gelu", tie_embeddings=True)
+
+
+def test_pipeline_train_steps_at_lr_3e4_match_reference():
+    """Six steps of ``make_pipeline_train_step`` (S = 2, kfkb k = 2) at lr
+    3e-4, the rate at which the on-card pipeline loss rose over 6 steps,
+    against ``repro``: its reference engine (jitted), the replicated
+    copies' gradients summed with numpy as ``make_pipeline_step`` sums
+    them (``repro``'s multi-device engine cannot run in one CPU process),
+    then its optimizer (clip at 1 and AdamW).  Loss and every parameter
+    after every step within 1e-5 relative to each tensor's largest entry:
+    the one-step limit above, as AdamW's normalised updates keep a
+    gradient difference of ~1e-6 relative from growing over six steps."""
+    jstaged, jparams, staged, params = _staged(S, **GPT_SMALL)
+    plan = make_plan(S, M, spec=ScheduleSpec(kind="kfkb", k=2))
+    jplan = jax_make_plan(S, M, spec=JaxSpec(kind="kfkb", k=2))
+    jopt = jax_make_optimizer("adamw", jax_schedules.constant_schedule(3e-4))
+    jstate = jax_create_train_state(jparams, jopt)
+    grads_fn = jax.jit(lambda p, t, l: jax_reference_pipeline_grads(jstaged, p, t, l, jplan))
+    update = jax.jit(jopt.update)
+    opt = make_optimizer("adamw", schedules.constant_schedule(3e-4))
+    state = create_train_state(params, opt)
+    step = make_pipeline_train_step(staged, plan, opt)
+    jp, jo, losses = jstate.params, jstate.opt_state, []
+    for i in range(6):
+        tokens, labels = _data(20 + i)
+        jloss, jgrads = grads_fn(jp, jnp.asarray(tokens, jnp.int32), jnp.asarray(labels, jnp.int32))
+        flat = _flat(jgrads)
+        for key in flat:
+            if key.split("/")[0] in ("embed", "final_norm"):
+                flat[key] = np.broadcast_to(flat[key].sum(axis=0), flat[key].shape)
+        jp, jo, _ = update(jp, _jax_tree_like(jp, flat), jo)
+        state, m = step(state, torch.from_numpy(tokens), torch.from_numpy(labels))
+        _close(m["loss"], jloss, 1e-5, f"loss, step {i}")
+        got, want = bridge.staged_params_to_repro(state.params, staged), _flat(jp)
+        for key in want:
+            _close(torch.from_numpy(got[key]), want[key], 1e-5, f"step {i}: {key}")
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all()
+
+
 # -- the launcher ------------------------------------------------------------------------
 
 
