@@ -38,7 +38,8 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 equal the attention forwards of the plan's grid
                 (M*L*(2S-1)/S under kfkb)
 9. pipeline     GPT-2.7B at full width and depth trained through
-                ``repro_torch.launch.train.run_pipeline``: S=4 stages under
+                ``repro_torch.launch.train.run_pipeline`` on the one-process
+                reference engine (``engine="reference"``): S=4 stages under
                 kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
                 one profiled step; the loss is finite and falls, and K1 ran
                 M*L*(2S-1)/S = 448 times a step
@@ -55,10 +56,32 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 often as the plan's grid says; and the switched and
                 restacked state's gradients agree with autograd of the
                 unpipelined ``full_loss``
+11. ranks-model the multi-rank engine (one process per stage) on the
+                pipeline-model cut (4 layers, full width, S=2 ranks, M=4 x
+                1 x 512) under pipeline-model's plans and zbv: the gradients
+                gathered to rank 0 against autograd of ``full_loss``, and
+                beside the one-process engine's; K1 launches summed over the
+                ranks equal the grid's attention forwards
+12. ranks       GPT-2.7B at full width and depth trained through
+                ``repro_torch.launch.train.run_pipeline`` on S=4 ranks (kfkb
+                k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps, seed 0):
+                the first loss equals the pipeline phase's, the loss falls,
+                K1 ran M*L*(2S-1)/S = 448 times a step summed over the ranks;
+                the transport, the card count and each rank's breakdown
+                (compute, blocked in receives and sends, staging copies,
+                the replicated reduce, read from CUDA events) are printed,
+                and one more step, traced on rank 0.  With one card the
+                ranks run under gloo through pinned host buffers and share
+                the card by time-slicing: a correctness check on the card,
+                not a deployment's step time.  Under four cards they run
+                under NCCL, a card each.
+
+Every rank is a fresh process whose kernel counters start at 0; it reads
+them after its run and returns them.
 
 The line before the last is a JSON object with every kernel's figures (K1's
-also per main path: serving, pipeline training and the adaptive loop, each at
-its own shape);
+also per main path: serving, pipeline training, the adaptive loop and the
+ranks, each at its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -80,6 +103,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "adaptive",
+    "ranks-model", "ranks",
 )
 
 #: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
@@ -128,8 +152,11 @@ FLASH_CASES = [
 ]
 TIMED_CASE = "gpt2.7b_t512"
 #: K1's shape on each main path: the longest serving prefill, one pipeline
-#: micro-batch, one adaptive micro-batch
-PATH_CASES = {"serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "adaptive": "gpt2.7b_train_b2_t1024"}
+#: micro-batch, one adaptive micro-batch, one micro-batch on the ranks
+PATH_CASES = {
+    "serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
+    "ranks": "gpt2.7b_train_t1024",
+}
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024")
 
@@ -213,6 +240,12 @@ ADAPTIVE_ITERATIONS = 14
 #: against autograd of full_loss: pipeline-model's limit (both through K1 in
 #: bf16, the same operations on the same values, fp32 sums in another order)
 ADAPTIVE_GRAD_TOL = PIPE_ENGINE_GRAD_TOL
+#: ranks-model: pipeline-model's cut and plans, plus zbv (its V-shaped
+#: placement sends on both ring directions and keeps the turn in the process)
+RANKS_MODEL_PLANS = PIPE_MODEL_PLANS + (dict(kind="zbv"),)
+#: the ranks phase: the pipeline phase's workload (S, k, PIPE_ARGS), one
+#: process per stage
+RANKS_STAGES, RANKS_K = PIPE_STAGES, PIPE_K
 
 
 def log(msg: str) -> None:
@@ -654,7 +687,6 @@ def phase_pipeline_model() -> None:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.pipeline import StagedModel, reference_pipeline_grads
     from repro_torch.pipeline.engine import stage_body_runs
-    from repro_torch.tree import flatten, tree_map
 
     L, S, M, b, T = PIPE_MODEL
     cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=L)  # bf16 compute, fp32 parameters
@@ -664,21 +696,7 @@ def phase_pipeline_model() -> None:
     def engine(staged, params, plan):
         loss, grads = reference_pipeline_grads(staged, params, tokens, labels, plan)
         torch.cuda.synchronize()
-        return float(loss), [g for ps in grads for g in flatten(ps).values()]
-
-    def oracle(staged, params):
-        """Autograd of the mean of the unpipelined full_loss over the micro-batches."""
-        leaves = [tree_map(lambda p: p.detach().requires_grad_(True), ps) for ps in params]
-        flat = [g for ps in leaves for g in flatten(ps).values()]
-        loss, grads = 0.0, [torch.zeros_like(g) for g in flat]
-        for m in range(M):
-            lm = staged.full_loss(leaves, tokens[m], labels[m]) / M
-            for acc, g in zip(grads, torch.autograd.grad(lm, flat, allow_unused=True)):
-                if g is not None:
-                    acc.add_(g)
-            loss += float(lm.detach())
-        torch.cuda.synchronize()
-        return loss, grads
+        return float(loss), _flat(grads)
 
     cache = {}
     for kw in PIPE_MODEL_PLANS:
@@ -688,7 +706,8 @@ def phase_pipeline_model() -> None:
             staged = StagedModel.build(cfg, V)
             params = staged.init_all_stages(torch.Generator(device="cuda").manual_seed(0))
             cache.clear()  # one model on the card at a time
-            cache[V] = (staged, params, oracle(staged, params))
+            loss_o, grads_o = _oracle(staged, params, tokens, labels)
+            cache[V] = (staged, params, (loss_o, _flat(grads_o)))
         staged, params, (loss_o, grads_o) = cache[V]
         ops.launches = 0
         loss_e, grads_e = engine(staged, params, plan)
@@ -732,7 +751,7 @@ def phase_pipeline() -> int:
     ops.launches = 0
     s = train.run_pipeline(
         cfg, PIPE_STAGES, ScheduleSpec(kind="kfkb", k=PIPE_K), seed=0, log_every=1, device="cuda",
-        profile=True, **PIPE_ARGS,
+        profile=True, engine="reference", **PIPE_ARGS,
     )
     launches = ops.launches
     S, M, L, steps = s["stages"], s["microbatches"], s["num_layers"], s["steps"]
@@ -760,7 +779,7 @@ def phase_pipeline() -> int:
         raise AssertionError("non-finite loss or gradient norm")
     if not s["losses"][-1] < s["losses"][0]:
         raise AssertionError("the loss did not fall")
-    return launches
+    return launches, s["losses"][0]
 
 
 def phase_adaptive() -> int:
@@ -843,6 +862,160 @@ def phase_adaptive() -> int:
     return launches
 
 
+def _flat(trees: list) -> list:
+    """The leaves of a list of trees, in flatten order."""
+    from repro_torch.tree import flatten
+
+    return [g for ps in trees for g in flatten(ps).values()]
+
+
+def _oracle(staged, params, tokens, labels):
+    """Autograd of the mean of the unpipelined full_loss over the
+    micro-batches: (loss, gradient trees like ``params``, one per copy)."""
+    from repro_torch.tree import tree_map
+
+    leaves = [tree_map(lambda p: p.detach().requires_grad_(True), ps) for ps in params]
+    grads = [tree_map(torch.zeros_like, ps) for ps in leaves]
+    M = tokens.shape[0]
+    loss = 0.0
+    for m in range(M):
+        lm = staged.full_loss(leaves, tokens[m], labels[m]) / M
+        for acc, g in zip(_flat(grads), torch.autograd.grad(lm, _flat(leaves), allow_unused=True)):
+            if g is not None:
+                acc.add_(g)
+        loss += float(lm.detach())
+    torch.cuda.synchronize()
+    return loss, grads
+
+
+def _ranks_model_rank(group, plans) -> list:
+    """One rank of the ranks-model phase: every plan's engine step; rank 0
+    holds the gathered gradients to autograd of full_loss and to the
+    one-process engine, on the card."""
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.pipeline import reduce_replicated, reference_pipeline_grads
+    from repro_torch.pipeline.rank_checks import engine_case
+
+    L, S, M, b, T = PIPE_MODEL
+    cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=L)  # bf16 compute, fp32 parameters
+    data = SyntheticTextDataset(cfg.vocab_size, T, M * b).batch_at(0, "cpu")
+    tokens, labels = data.tokens.reshape(M, b, T), data.labels.reshape(M, b, T)
+    case = dict(cfg=cfg, M=M, tokens=tokens.numpy(), labels=labels.numpy(), seed=0)
+    out, oracles = [], {}
+    for kw in plans:
+        staged, plan, loss, full, stats = engine_case(group, {**case, "spec": kw})
+        res = {"plan": plan.name, "loss": loss, **stats}
+        if full is not None:
+            V = plan.total_virtual_stages
+            params = staged.init_all_stages(torch.Generator(device="cuda").manual_seed(0))
+            tok, lab = tokens.to("cuda"), labels.to("cuda")
+            if V not in oracles:
+                oracles.clear()  # one oracle on the card at a time
+                loss_o, grads_o = _oracle(staged, params, tok, lab)
+                oracles[V] = (loss_o, _flat(reduce_replicated(grads_o)))
+            loss_o, grads_o = oracles[V]
+            loss_r, grads_r = reference_pipeline_grads(staged, params, tok, lab, plan)
+            grads_r, grads_e = _flat(reduce_replicated(grads_r)), _flat(full)
+            finite = math.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads_e)
+            res.update(
+                finite=finite, loss_oracle=loss_o, loss_rel=abs(loss - loss_o) / abs(loss_o),
+                grad_rel=_rel_norm_err(grads_e, grads_o), loss_reference=float(loss_r),
+                max_abs_vs_reference=max(float((a - r).abs().max()) for a, r in zip(grads_e, grads_r)),
+            )
+            del params, grads_r, grads_e, full
+            torch.cuda.empty_cache()
+        out.append(res)
+    return out
+
+
+def phase_ranks_model() -> None:
+    from repro_torch.core import ScheduleSpec, make_plan
+    from repro_torch.pipeline import ranks
+    from repro_torch.pipeline.engine import stage_body_runs
+
+    L, S, M, b, T = PIPE_MODEL
+    per_rank = ranks.spawn(_ranks_model_rank, S, args=(RANKS_MODEL_PLANS,), device="cuda", timeout=900)
+    for i, kw in enumerate(RANKS_MODEL_PLANS):
+        plan = make_plan(S, M, spec=ScheduleSpec(**kw))
+        r0 = per_rank[0][i]
+        launches = [r[i]["flash_launches"] for r in per_rank]
+        want = stage_body_runs(plan) * L // plan.total_virtual_stages
+        log(f"ranks-model GPT-2.7B ({L} layers, bf16) S={S} ranks ({r0['transport']}) M={M} b={b} T={T} plan "
+            f"{plan.name}: loss {r0['loss']:.6f} full_loss {r0['loss_oracle']:.6f} (rel {r0['loss_rel']:.3e} <= "
+            f"{PIPE_ENGINE_LOSS_TOL:g}), gradients rel_norm_err {r0['grad_rel']:.3e} (<= {PIPE_ENGINE_GRAD_TOL:g}); "
+            f"against the one-process engine: loss {r0['loss_reference']:.6f}, gradients max_abs "
+            f"{r0['max_abs_vs_reference']:.3e}; K1 launches {launches} (sum {sum(launches)}, grid {want}); "
+            f"in flight {[r[i]['max_in_flight'] for r in per_rank]} (caps {r0['caps']}), finite {r0['finite']}")
+        if not r0["finite"] or r0["loss_rel"] > PIPE_ENGINE_LOSS_TOL or r0["grad_rel"] > PIPE_ENGINE_GRAD_TOL:
+            raise AssertionError(f"the ranks under {plan.name} disagree with autograd of full_loss")
+        if sum(launches) != want:
+            raise AssertionError(f"K1 ran {sum(launches)} times on the ranks under {plan.name}, the grid has {want}")
+
+
+def phase_ranks(pipeline_first_loss) -> int:
+    import gc
+
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.core import ScheduleSpec
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is the ranks'
+    log(f"parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB on the card while the ranks run")
+    cfg = GPT_CONFIGS["GPT-2.7B"]
+    ops.launches = 0
+    s = train.run_pipeline(
+        cfg, RANKS_STAGES, ScheduleSpec(kind="kfkb", k=RANKS_K), seed=0, log_every=1, device="cuda",
+        profile=True, engine="ranks", **PIPE_ARGS,
+    )
+    if ops.launches:
+        raise AssertionError("the parent launched K1 during the ranks phase")
+    S, M, L, steps = s["stages"], s["microbatches"], s["num_layers"], s["steps"]
+    per_step = M * L * (2 * S - 1) // S
+    log(f"ranks GPT-2.7B ({L} layers, d_model {s['d_model']}, vocab {s['vocab_size']}, {s['param_count']:,} "
+        f"parameters) on {s['ranks']} ranks, transport {s['transport']}, {s['device_count']} card(s) "
+        f"(the ranks time-slice one card when there are fewer cards than ranks), plan {s['plan']}: {steps} steps "
+        f"of {s['batch']} x {s['seq']} in M={M}; loss {s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}; step p50 "
+        f"{s['step_ms_p50']:.1f} ms (first {s['step_ms'][0]:.1f} ms), {s['tokens_per_second']:,.0f} tokens/s")
+    log(f"  losses {[round(v, 4) for v in s['losses']]}")
+    log(f"  grad norms {[round(v, 4) for v in s['grad_norms']]}")
+    log(f"  step ms {[round(v, 1) for v in s['step_ms']]}")
+    for r in s["per_rank"]:
+        log(f"  rank {r['rank']} (stage {r['stage']}): step p50 {r['step_ms_p50']:.1f} ms = compute "
+            f"{r['compute_ms_p50']:.1f} + blocked in receives {r['recv_wait_ms_p50']:.1f} + in sends "
+            f"{r['send_wait_ms_p50']:.1f} + staging {r['staging_ms_p50']:.1f} + replicated reduce "
+            f"{r['reduce_ms_p50']:.1f} + other (optimizer, host, barrier) {r['other_ms_p50']:.1f} ms (p50 of each); "
+            f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB; K1 {r['flash_launches']}; "
+            f"in flight {r['max_in_flight']}")
+    p = s["profile"]
+    log(f"  profiled step (every rank steps twice more; rank 0 times one and traces the next): rank 0 wall "
+        f"{p['wall_ms']:.3f} ms, rank 0's kernels {p['device_ms']:.3f} ms ({100 * p['device_busy_share']:.1f}% "
+        f"busy), K1 {p['flash_ms']:.3f} ms")
+    for op in p["top"]:
+        log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+    total_mem = sum(r["max_memory_allocated"] for r in s["per_rank"])
+    log(f"  in total: step p50 {s['step_ms_p50']:.1f} ms, peak memory {total_mem / 2**30:.2f} GiB summed over the "
+        f"ranks, K1 {s['flash_launches']} launches ({per_step} a step over {steps} steps)")
+    log(f"flash launches on the ranks path: {s['flash_launches']} (M*L*(2S-1)/S = {per_step} a step)")
+    if s["flash_launches"] != per_step * steps:
+        raise AssertionError("the ranks did not run K1 M*L*(2S-1)/S times a step")
+    if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
+        raise AssertionError("non-finite loss or gradient norm")
+    if not s["losses"][-1] < s["losses"][0]:
+        raise AssertionError("the loss did not fall")
+    if pipeline_first_loss is None:
+        log("  (the pipeline phase did not run: its first loss is not compared)")
+    else:
+        rel = abs(s["losses"][0] - pipeline_first_loss) / abs(pipeline_first_loss)
+        log(f"  first loss {s['losses'][0]:.6f} vs the pipeline phase's {pipeline_first_loss:.6f} "
+            f"(rel {rel:.3e} <= {PIPE_ENGINE_LOSS_TOL:g})")
+        if rel > PIPE_ENGINE_LOSS_TOL:
+            raise AssertionError("the ranks' first loss differs from the one-process engine's")
+    return s["flash_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -854,7 +1027,7 @@ def main(argv=None) -> int:
     device = phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    kernels = {}
+    kernels, pipeline_first_loss = {}, None
     for name in PHASES[1:]:
         if name not in only:
             continue
@@ -879,13 +1052,19 @@ def main(argv=None) -> int:
         elif name == "pipeline-model":
             phase_pipeline_model()
         elif name == "pipeline":
-            launches = phase_pipeline()
+            launches, pipeline_first_loss = phase_pipeline()
             if kernels:
                 kernels["flash"]["per_path"]["pipeline"]["launches"] = launches
         elif name == "adaptive":
             launches = phase_adaptive()
             if kernels:
                 kernels["flash"]["per_path"]["adaptive"]["launches"] = launches
+        elif name == "ranks-model":
+            phase_ranks_model()
+        elif name == "ranks":
+            launches = phase_ranks(pipeline_first_loss)
+            if kernels:
+                kernels["flash"]["per_path"]["ranks"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):

@@ -31,6 +31,12 @@ the parameters.  :func:`train_state_from_repro` and
 :class:`~repro_torch.training.TrainState` (per-virtual-stage lists, an
 :class:`~repro_torch.optim.AdamWState`) and back, at any ``S * v``
 layout, bitwise.
+
+The multi-rank engine gives each rank only its chunks.
+:func:`rank_params` cuts a rank's list (chunk ``c`` of stage ``s`` is
+virtual stage ``plan.placement.vstage_of[s, c]``) out of the full one, and
+:func:`gather_to_rank0` brings every rank's list back to global rank 0 in
+global virtual-stage order.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import structure
 from repro_torch.optim import AdamWState
 from repro_torch.training import TrainState
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_map
 
 __all__ = [
     "flatten",
@@ -55,7 +61,12 @@ __all__ = [
     "staged_params_to_repro",
     "train_state_from_repro",
     "train_state_to_repro",
+    "rank_params",
+    "gather_to_rank0",
 ]
+
+#: the tag of :func:`gather_to_rank0`'s transfers (the engine's channels use 0-5)
+_GATHER_TAG = 6
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -204,3 +215,37 @@ def train_state_to_repro(state, staged) -> dict[str, np.ndarray]:
     for prefix, tree in (("params/", state.params), ("opt_state/m/", state.opt_state.m), ("opt_state/v/", state.opt_state.v)):
         out.update({prefix + k: a for k, a in staged_params_to_repro(tree, staged).items()})
     return out
+
+
+def rank_params(all_params: list, plan, s: int) -> list:
+    """Stage ``s``'s list of per-chunk trees, in chunk order, from the full
+    list of ``S * v`` per-virtual-stage trees (no copies)."""
+    return [all_params[int(plan.placement.vstage_of[s, c])] for c in range(plan.num_virtual)]
+
+
+def gather_to_rank0(local: list, plan, group) -> list | None:
+    """The full list of per-virtual-stage trees on global rank 0, gathered
+    from every stage of replica 0 (each rank's ``local`` list, e.g. its
+    parameters or gradients; all leaves of one dtype); ``None`` on every
+    other rank.  Every rank of replica 0 must call it."""
+    if group.d != 0:
+        return None
+    leaves = [t for tree in local for t in flatten(tree).values()]
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    if group.s != 0:
+        group.exchange([(flat, 0, _GATHER_TAG)], [])
+        group.wait_sends()
+        return None
+    full: list = [None] * plan.total_virtual_stages
+    for s in range(group.S):
+        if s == 0:
+            got = flat
+        else:
+            (h,) = group.exchange([], [(flat.shape, flat.dtype, s, _GATHER_TAG)])
+            got = h.wait()
+        parts = iter(torch.split(got, [t.numel() for t in leaves]))
+        for c, tree in enumerate(local):
+            full[int(plan.placement.vstage_of[s, c])] = tree_map(
+                lambda t: next(parts).view(t.shape).clone(), tree
+            )
+    return full

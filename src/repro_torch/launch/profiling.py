@@ -23,10 +23,12 @@ def device_profile(fn: Callable[[], None], device: torch.device, kernels: Mappin
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         fn()
-    # device-side events only: a CPU op's own device time repeats its kernels'
+    # device-side events only: a CPU op's own device time repeats its kernels',
+    # and a range annotated on the device (a collective's ``nccl:*`` or
+    # ``gloo:*``) spans kernels or host waits, not work of its own
     events = [
         e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.is_user_annotation
     ]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     out = {"device_ms": sum(e.self_device_time_total for e in events) / 1e3}

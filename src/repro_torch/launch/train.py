@@ -1,4 +1,5 @@
-"""Train on one card: the port of ``repro/launch/train.py``.
+"""Train on one card, or on one process per pipeline stage: the port of
+``repro/launch/train.py``.
 
 Two modes, as in the reference:
 
@@ -7,11 +8,19 @@ Two modes, as in the reference:
   micro-batches.  Every Mamba2 layer's forward runs the chunked SSD scan in
   kernel K2 on the card.
 * ``--mode pipeline`` trains a Table-1 GPT cut into ``--stages`` stages
-  under a kFkB plan of group size ``--k``: the reference pipeline engine
-  walks the lowered plan tick by tick on one card (``run_pipeline``).  The
-  config is overridden as the reference's ``run_pipeline`` does
-  (``--layers`` layers, vocabulary 1024, fp32 compute).  Every attention
-  forward runs the flash kernel K1 on the card.
+  under a kFkB plan of group size ``--k``, as the reference's
+  ``run_pipeline`` runs ``make_pipeline_step``: one process per stage
+  (``pipeline/ranks.py``), each walking its own row of the lowered plan
+  and exchanging activations and gradients point to point
+  (``pipeline.engine.make_pipeline_step``).  The parent builds the kernels
+  once, then spawns the ranks; each rank draws only its own stages from
+  the seed; rank 0 prints the log.  The transport is NCCL when every rank
+  has a card of its own, else gloo through pinned host buffers (one card:
+  the ranks time-slice it).  The config is overridden as the reference's
+  ``run_pipeline`` does (``--layers`` layers, vocabulary 1024, fp32
+  compute).  Every attention forward runs the flash kernel K1 on the card.
+  ``run_pipeline(..., engine="reference")`` runs the one-process reference
+  engine instead (a send is a dict entry).
 
 Both draw synthetic token streams (``data/synthetic.py``) and train with
 AdamW under a linear-warmup cosine schedule, clipping at norm 1.
@@ -23,13 +32,14 @@ Usage:
       [--device cuda] [--profile] [--out summary.json]
   PYTHONPATH=src python -m repro_torch.launch.train --mode pipeline \\
       --gpt GPT-Medium --layers 8 --stages 4 --k 2 --steps 20 --batch 8 \\
-      --seq 64 --microbatches 4 [--device cuda] [--profile] [--out summary.json]
+      --seq 64 --microbatches 4 [--device cuda] [--out summary.json]
 
 ``--smoke`` trains the reduced 2-layer config; ``--device cpu`` runs on the
-CPU; without ``--device`` the run needs a CUDA card and fails if there is
-none.  ``--profile`` traces one more step with ``torch.profiler`` after the
-run.  The reference's checkpoint flags and its auto-tuner come with their
-slices.
+CPU (the pipeline ranks under gloo); without ``--device`` the run needs a
+CUDA card and fails if there is none.  ``--profile`` traces one more step
+with ``torch.profiler`` after the run (under ``--mode pipeline``, rank 0's
+share of it).  The reference's
+checkpoint flags and its auto-tuner come with their slices.
 """
 
 from __future__ import annotations
@@ -47,19 +57,44 @@ from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core import ScheduleSpec, make_plan
 from repro_torch.data import SyntheticTextDataset
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.profiling import device_profile
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, param_count
 from repro_torch.optim import linear_warmup_cosine, make_optimizer
-from repro_torch.pipeline import StagedModel
-from repro_torch.training import create_train_state, make_pipeline_train_step, make_train_step
+from repro_torch.pipeline import StagedModel, ranks
+from repro_torch.training import (
+    create_train_state,
+    make_pipeline_train_step,
+    make_train_step,
+    pipeline_train_step,
+)
 
 __all__ = ["ARCHS", "train", "run_pipeline", "main"]
 
 #: arch id -> (full config, smoke config, optimizer name)
 ARCHS = {"mamba2-780m": (mamba2_780m.FULL, mamba2_780m.SMOKE, mamba2_780m.OPTIMIZER)}
+
+
+def _steady(xs: list) -> list:
+    """The steps a p50 reads: all but the first, which also loads the kernels."""
+    return xs[1:] or xs
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def _profile(run, device: torch.device, kernels: dict) -> dict:
+    """Time ``run()`` (which ends in a synchronise), then trace it once more
+    with ``torch.profiler``."""
+    t = time.perf_counter()
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    prof = device_profile(run, device, kernels)
+    return {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
 
 
 def train(args) -> dict:
@@ -100,7 +135,7 @@ def train(args) -> dict:
                   f"grad_norm {grad_norms[-1]:.3e}  {1e3 * step_seconds[-1]:.1f} ms", flush=True)
     launches = ssd_ops.launches - launches0
     tokens = args.batch * args.seq
-    steady = step_seconds[1:] or step_seconds  # the first step also builds the kernel
+    steady = _steady(step_seconds)
     summary = {
         "arch": args.arch,
         "config": cfg.name,
@@ -111,7 +146,7 @@ def train(args) -> dict:
         "batch": args.batch,
         "seq": args.seq,
         "microbatches": args.microbatches,
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "device": _device_name(device),
         "setup_seconds": setup,
         "losses": losses,
         "grad_norms": grad_norms,
@@ -129,11 +164,7 @@ def train(args) -> dict:
             step_fn(state, batch(args.steps))
             synchronize(device)
 
-        t = time.perf_counter()
-        run()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-        prof = device_profile(run, device, {"ssd": "ssd_fwd"})
-        summary["profile"] = {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
+        summary["profile"] = _profile(run, device, {"ssd": "ssd_fwd"})
     return summary
 
 
@@ -152,19 +183,29 @@ def run_pipeline(
     log_every: int = 10,
     device=None,
     profile: bool = False,
+    engine: str = "ranks",
 ) -> dict:
     """Train ``cfg`` cut into ``stages`` devices' worth of stages under the
-    plan ``plan_spec`` over ``microbatches`` micro-batches, on one card.
+    plan ``plan_spec`` over ``microbatches`` micro-batches.
 
+    ``engine="ranks"``: one process per stage (:func:`_train_rank`), every
+    rank on ``device``; ``"reference"``: the one-process reference engine.
     Each step's ``batch`` x ``seq`` tokens are reshaped to ``[M, batch / M,
-    seq]``.  Returns the run's summary (losses, step times, K1 launches,
-    memory and, with ``profile``, one more step traced)."""
+    seq]``.  ``profile`` runs one more step and traces it (under the ranks,
+    every rank steps and rank 0 traces its own).  Returns the run's summary
+    (losses, step times, K1 launches, memory; for the ranks, the transport
+    and each rank's breakdown)."""
     device = resolve_device(device)
     M = microbatches
     if batch % M:
         raise ValueError(f"batch {batch} does not split into {M} micro-batches")
-    t0 = time.perf_counter()
     plan = make_plan(stages, M, spec=plan_spec)
+    if engine == "ranks":
+        return _run_ranks(cfg, plan, plan_spec, steps=steps, batch=batch, seq=seq, lr=lr, warmup=warmup,
+                          seed=seed, log_every=log_every, device=device, profile=profile)
+    if engine != "reference":
+        raise ValueError(f"unknown engine {engine!r}")
+    t0 = time.perf_counter()
     staged = StagedModel.build(cfg, plan.total_virtual_stages)
     params = staged.init_all_stages(torch.Generator(device=device).manual_seed(seed))
     opt = make_optimizer("adamw", linear_warmup_cosine(lr, warmup, steps))
@@ -195,16 +236,36 @@ def run_pipeline(
         if i % log_every == 0 or i == steps - 1:
             print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {lrs[-1]:.2e}  grad_norm "
                   f"{grad_norms[-1]:.3e}  plan {plan.name}  {1e3 * step_seconds[-1]:.1f} ms", flush=True)
-    launches = flash_ops.launches - launches0
-    steady = step_seconds[1:] or step_seconds  # the first step also builds the kernel
-    summary = {
+    summary = _pipeline_summary(
+        cfg, plan, "reference", steps=steps, batch=batch, seq=seq, device=_device_name(device), setup=setup,
+        losses=losses, grad_norms=grad_norms, lrs=lrs, step_seconds=step_seconds,
+        max_memory=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+        flash_launches=flash_ops.launches - launches0,
+    )
+    if profile:
+        def run():
+            step_fn(state, *batch_at(steps))
+            synchronize(device)
+
+        summary["profile"] = _profile(run, device, {"flash": "flash_fwd"})
+    return summary
+
+
+def _pipeline_summary(cfg, plan, engine, *, steps, batch, seq, device, setup, losses, grad_norms, lrs,
+                      step_seconds, max_memory, flash_launches) -> dict:
+    """What both engines of :func:`run_pipeline` report; ``device`` is the
+    card's name (or ``"cpu"``), ``step_seconds`` one entry a step."""
+    M = plan.num_microbatches
+    steady = _steady(step_seconds)
+    return {
         "mode": "pipeline",
+        "engine": engine,
         "config": cfg.name,
         "num_layers": cfg.num_layers,
         "d_model": cfg.d_model,
         "vocab_size": cfg.vocab_size,
         "param_count": param_count(cfg),
-        "stages": stages,
+        "stages": plan.num_stages,
         "virtual_stages": plan.total_virtual_stages,
         "plan": plan.name,
         "microbatches": M,
@@ -212,7 +273,7 @@ def run_pipeline(
         "steps": steps,
         "batch": batch,
         "seq": seq,
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "device": device,
         "setup_seconds": setup,
         "losses": losses,
         "grad_norms": grad_norms,
@@ -220,21 +281,129 @@ def run_pipeline(
         "step_ms": [1e3 * s for s in step_seconds],
         "step_ms_p50": 1e3 * statistics.median(steady),
         "tokens_per_second": batch * seq * len(steady) / sum(steady),
-        "max_memory_allocated": (
-            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-        ),
-        "flash_launches": launches,
+        "max_memory_allocated": max_memory,
+        "flash_launches": flash_launches,
     }
-    if profile:
+
+
+#: a rank's seconds in a step, as the summary's per-rank breakdown reports them
+_LINE_ITEMS = ("compute", "recv_wait", "send_wait", "staging", "reduce", "other")
+
+
+def _train_rank(group, cfg, plan_spec, steps, batch, seq, M, lr, warmup, seed, log_every, profile) -> dict:
+    """One rank of ``run_pipeline(engine="ranks")``: draw this rank's stages
+    from ``seed``, train them with ``pipeline_train_step`` and return the
+    rank's record (every rank sees the same reduced loss and clip norm).
+    A step's breakdown is the rank's spans (:meth:`RankGroup.span`), read
+    after the step; ``other`` is the rest of the step on the rank's clock
+    (the optimizer, the host)."""
+    device, lead = group.device, group.rank == 0
+    t0 = time.perf_counter()
+    plan = make_plan(group.S, M, spec=plan_spec)
+    staged = StagedModel.build(cfg, plan.total_virtual_stages)
+    owned = [plan.placement.vstage_of[group.s, c] for c in range(plan.num_virtual)]
+    params = staged.init_stages(torch.Generator(device=device).manual_seed(seed), owned)
+    opt = make_optimizer(
+        "adamw", linear_warmup_cosine(lr, warmup, steps), norm_reduce=lambda t: group.all_reduce_sum(t, "stage")
+    )
+    state = create_train_state(params, opt)
+    step_fn = pipeline_train_step(staged, plan, group, opt)
+    ds = SyntheticTextDataset(cfg.vocab_size, seq, batch, seed=seed)
+
+    def batch_at(i):
+        b = ds.batch_at(i, device)
+        return b.tokens.reshape(M, batch // M, seq), b.labels.reshape(M, batch // M, seq)
+
+    synchronize(device)
+    setup = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    launches0 = flash_ops.launches
+    losses, grad_norms, lrs, step_seconds, seconds = [], [], [], [], []
+    for i in range(steps):
+        tokens, labels = batch_at(i)
+        group.barrier()
+        t = time.perf_counter()
+        state, m = step_fn(state, tokens, labels)
+        synchronize(device)
+        done = time.perf_counter()
+        items = dict(group.take_seconds())
+        group.barrier()
+        step_seconds.append(time.perf_counter() - t)
+        items["other"] = (done - t) - sum(items.values())
+        seconds.append(items)
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if lead and (i % log_every == 0 or i == steps - 1):
+            print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {lrs[-1]:.2e}  grad_norm {grad_norms[-1]:.3e}  "
+                  f"plan {plan.name}  {1e3 * step_seconds[-1]:.1f} ms ({group.S * group.D} ranks, "
+                  f"{group.transport})", flush=True)
+    rec = {
+        "rank": group.rank,
+        "stage": group.s,
+        "transport": group.transport,
+        "device": _device_name(device),
+        "setup_seconds": setup,
+        "losses": losses,
+        "grad_norms": grad_norms,
+        "lrs": lrs,
+        "step_seconds": step_seconds,
+        "seconds": seconds,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+        "flash_launches": flash_ops.launches - launches0,
+        "max_in_flight": step_fn.engine.max_in_flight,
+    }
+    if profile:  # every rank steps twice more, in step with rank 0's timed and traced runs
         def run():
             step_fn(state, *batch_at(steps))
             synchronize(device)
 
-        t = time.perf_counter()
-        run()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-        prof = device_profile(run, device, {"flash": "flash_fwd"})
-        summary["profile"] = {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
+        group.barrier()
+        if lead:
+            rec["profile"] = _profile(run, device, {"flash": "flash_fwd"})
+        else:
+            run()
+            run()
+        group.take_seconds()
+    return rec
+
+
+def _run_ranks(cfg, plan, plan_spec, *, steps, batch, seq, lr, warmup, seed, log_every, device, profile):
+    M = plan.num_microbatches
+    if device.type == "cuda":
+        build.build(flash_ops.SOURCE)  # once, here: the ranks load it
+    t0 = time.perf_counter()
+    recs = ranks.spawn(
+        _train_rank, plan.num_stages,
+        args=(cfg, plan_spec, steps, batch, seq, M, lr, warmup, seed, log_every, profile),
+        device=device.type, timeout=None,
+    )
+    wall = time.perf_counter() - t0
+    r0, mem = recs[0], [r["max_memory_allocated"] for r in recs]
+    summary = _pipeline_summary(
+        cfg, plan, "ranks", steps=steps, batch=batch, seq=seq, device=r0["device"],
+        setup=max(r["setup_seconds"] for r in recs), losses=r0["losses"], grad_norms=r0["grad_norms"],
+        lrs=r0["lrs"], step_seconds=r0["step_seconds"], max_memory=None if None in mem else max(mem),
+        flash_launches=sum(r["flash_launches"] for r in recs),
+    )
+    summary.update(
+        ranks=len(recs),
+        transport=r0["transport"],
+        device_count=torch.cuda.device_count() if device.type == "cuda" else 0,
+        run_seconds=wall,
+        per_rank=[
+            {
+                **{k: r[k] for k in ("rank", "stage", "max_memory_allocated", "flash_launches", "max_in_flight")},
+                "step_ms_p50": 1e3 * statistics.median(_steady(r["step_seconds"])),
+                **{f"{k}_ms_p50": 1e3 * statistics.median(x.get(k, 0.0) for x in _steady(r["seconds"]))
+                   for k in _LINE_ITEMS},
+            }
+            for r in recs
+        ],
+    )
+    if profile:
+        summary["profile"] = r0["profile"]
     return summary
 
 
@@ -270,9 +439,11 @@ def main(argv=None) -> int:
             device=args.device, profile=args.profile,
         )
         print(f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}, {s['param_count']:,} "
-              f"parameters) in {s['stages']} stages, plan {s['plan']}, on {s['device']}: step p50 "
-              f"{s['step_ms_p50']:.1f} ms, {s['tokens_per_second']:,.0f} tokens/s, "
-              f"{s['flash_launches']} flash kernel launches")
+              f"parameters) in {s['stages']} ranks ({s['transport']}, {s['device_count']} cards), plan "
+              f"{s['plan']}, on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
+              f"{s['tokens_per_second']:,.0f} tokens/s, {s['flash_launches']} flash kernel launches")
+        for r in s["per_rank"]:
+            print(f"  rank {r['rank']}: " + ", ".join(f"{k} {r[k + '_ms_p50']:.1f} ms" for k in _LINE_ITEMS))
         kernel = "flash"
     else:
         s = train(args)

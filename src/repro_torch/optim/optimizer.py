@@ -4,6 +4,11 @@ Port of ``repro/optim/optimizer.py``.  ``make_optimizer("adamw", schedule)``
 returns an :class:`Optimizer` whose ``update(params, grads, state)`` clips
 the gradients by their global norm, takes the rate from the schedule at the
 state's step and applies the update.  Adafactor comes with the MoE slice.
+
+``norm_reduce`` is for a model split over ranks: a function that sums the
+rank's squared gradient norm over the ranks (the pipeline stages), so that
+every rank clips by the norm of the whole tree, as ``repro`` clips its
+stacked one.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ def make_optimizer(
     name: str = "adamw",
     schedule: Schedule | None = None,
     max_grad_norm: float | None = 1.0,
+    norm_reduce=None,
     **hyper,
 ) -> Optimizer:
     schedule = schedule or constant_schedule(3e-4)
@@ -43,7 +49,7 @@ def make_optimizer(
         lr = schedule(state.step)
         metrics = {"lr": lr}
         if max_grad_norm is not None:
-            grads, norm = clip_by_global_norm(grads, max_grad_norm)
+            grads, norm = clip_by_global_norm(grads, max_grad_norm, norm_reduce)
             metrics["grad_norm"] = norm
         new_params, new_state = adamw_update(params, grads, state, lr, **hyper)
         return new_params, new_state, metrics

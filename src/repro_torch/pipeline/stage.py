@@ -80,16 +80,31 @@ class StagedModel:
         """Parameters of every stage, drawn from ``gen`` on its device in
         ``cfg.param_dtype``.  The embedding and final norm are drawn once and
         copied to every stage, as the reference draws them from one key."""
+        return self.init_stages(gen, range(self.num_stages))
+
+    def init_stages(self, gen: torch.Generator, owned) -> list[dict]:
+        """The trees of the virtual stages ``owned``, in that order.  The
+        draws are always the whole sequence (embedding, final norm, then
+        every stage's layers); the layers of a stage not in ``owned`` are
+        dropped as soon as they are drawn, so a rank never holds the whole
+        model and every rank starts from the same weights."""
         cfg = self.cfg
+        owned = [int(j) for j in owned]
         embed_p = embedding_init(gen, cfg)
         final_norm = norm_init(cfg.d_model, cfg, gen.device)
+        layers = {}
+        for j in range(self.num_stages):
+            drawn = [tf.init_layer(gen, cfg, spec) for spec in self.layer_specs()]
+            if j in owned:
+                layers[j] = drawn
+            del drawn
         return [
             {
                 "embed": tree_map(torch.clone, embed_p),
                 "final_norm": tree_map(torch.clone, final_norm),
-                "layers": [tf.init_layer(gen, cfg, spec) for spec in self.layer_specs()],
+                "layers": layers[j],
             }
-            for _ in range(self.num_stages)
+            for j in owned
         ]
 
     # -- compute --------------------------------------------------------------

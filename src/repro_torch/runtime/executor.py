@@ -39,8 +39,9 @@ changed, swap a pointer) and ``run_iteration`` runs and times the current
 step, publishing to the telemetry bus.  Both synchronise the card before
 they read the clock.  Backend: ``"reference"`` (the single-device grid
 walk of ``pipeline.engine.reference_pipeline_grads``).  The original's
-``"spmd"`` backend needs the multi-rank engine, which the port does not
-have yet.
+``"spmd"`` backend, on the multi-rank engine
+(``pipeline.engine.make_pipeline_step``), is not ported yet: a switch
+that changes v moves layers and AdamW moments between the ranks.
 """
 
 from __future__ import annotations
@@ -185,8 +186,9 @@ class PlanRuntime:
     ) -> None:
         if backend == "spmd":
             raise NotImplementedError(
-                "the spmd backend needs the multi-rank pipeline engine, which the port does not "
-                "have yet (ROADMAP.md, queue 1, item 2); use backend='reference'"
+                "the spmd backend (PlanRuntime on the multi-rank engine, with the state restacked "
+                "across ranks when v changes) is not ported yet (ROADMAP.md, queue 1, item 2); "
+                "use backend='reference'"
             )
         if backend != "reference":
             raise ValueError(f"unknown backend {backend!r}")

@@ -19,6 +19,13 @@ pipeline schedule on one card: the reference engine walks the plan over
 ``[M, b, T]`` tokens and labels, the replicated leaves' gradients are
 summed over the stages (``reduce_replicated``), and the optimizer clips and
 applies them.
+
+``pipeline_train_step(staged, plan, group, optimizer)`` is the multi-rank
+form (``repro``'s ``pipeline_train_step``): one rank's engine gradients
+(``pipeline.engine.make_pipeline_step``), already summed and reduced over
+the ranks, then the optimizer on the rank's own parameters and moments.
+Build the optimizer with ``norm_reduce`` summing over the stage group, so
+that every rank clips by the norm of the whole model.
 """
 
 from __future__ import annotations
@@ -29,12 +36,12 @@ import torch
 
 from repro_torch.core.schedule import SchedulePlan
 from repro_torch.optim import Optimizer
-from repro_torch.pipeline.engine import reduce_replicated, reference_pipeline_grads
+from repro_torch.pipeline.engine import make_pipeline_step, reduce_replicated, reference_pipeline_grads
 from repro_torch.pipeline.stage import StagedModel
 from repro_torch.training.state import TrainState
 from repro_torch.tree import flatten, tree_map
 
-__all__ = ["make_train_step", "make_pipeline_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_pipeline_train_step", "pipeline_train_step", "make_eval_step"]
 
 LossFn = Callable[[Any, Mapping[str, torch.Tensor]], tuple[torch.Tensor, dict]]
 
@@ -96,6 +103,23 @@ def make_pipeline_train_step(staged: StagedModel, plan: SchedulePlan, optimizer:
         state.step, state.params, state.opt_state = state.step + 1, params, opt_state
         return state, {"loss": loss, **metrics}
 
+    return step
+
+
+def pipeline_train_step(staged: StagedModel, plan: SchedulePlan, group, optimizer: Optimizer):
+    """Returns one rank's ``step(state, tokens, labels) -> (state, metrics)``
+    over the global ``[M, b, T]`` tokens and labels, ``state.params`` the
+    rank's list of per-chunk trees; the state is updated in place and
+    returned.  ``step.engine`` is the rank's engine (its channel figures)."""
+    engine = make_pipeline_step(staged, plan, group)
+
+    def step(state: TrainState, tokens, labels):
+        loss, grads = engine(state.params, tokens, labels)
+        params, opt_state, metrics = optimizer.update(state.params, grads, state.opt_state)
+        state.step, state.params, state.opt_state = state.step + 1, params, opt_state
+        return state, {"loss": loss, **metrics}
+
+    step.engine = engine
     return step
 
 

@@ -35,7 +35,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flash_attention.ops" in mods and "repro_torch.kernels.ssd_scan.ops" in mods
     assert "repro_torch.launch.train" in mods and "repro_torch.launch.train_adaptive" in mods
-    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 55
+    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 57
+    assert "repro_torch.pipeline.ranks" in mods and "repro_torch.pipeline.rank_checks" in mods
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

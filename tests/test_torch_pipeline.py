@@ -45,7 +45,7 @@ from repro_torch.launch import train
 from repro_torch.models import api, attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import adamw, make_optimizer, schedules
-from repro_torch.pipeline import StagedModel, reduce_replicated, reference_pipeline_grads
+from repro_torch.pipeline import StagedModel, rank_checks, ranks, reduce_replicated, reference_pipeline_grads
 from repro_torch.training import create_train_state, make_pipeline_train_step
 from repro_torch.tree import flatten, tree_map
 from test_torch_schedule import FAMILY_PARITY_CASES, SAVED_RESIDUAL_PARITY_CASES
@@ -434,6 +434,8 @@ def test_run_pipeline_needs_the_card_unless_asked_for_cpu():
         train.run_pipeline(tcfg, 2, ScheduleSpec(), steps=1, batch=4, seq=8, microbatches=4, lr=1e-3, warmup=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--mode", "pipeline", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.spawn(rank_checks.engine_matrix, 2, args=([],))
 
 
 def test_pipeline_launcher_on_cpu_reduces_the_loss(tmp_path):
