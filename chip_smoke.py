@@ -75,13 +75,44 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the card by time-slicing: a correctness check on the card,
                 not a deployment's step time.  Under four cards they run
                 under NCCL, a card each.
+13. adaptive-ranks-model
+                PlanRuntime's spmd backend on GPT-2.7B at full width cut to
+                8 layers, S=4 ranks, M=4 micro-batches of 2 x 1024 tokens,
+                one iteration each of kfkb k=1, zb_h1, interleaved_zb v=2,
+                zbv and kfkb k=1, at lr 0 but for the last step's 1e-3 (the
+                restacks move layers at v 1 -> 2, looped -> V-shaped at
+                v = 2, and 2 -> 1): each iteration's loss, and its params,
+                m, v and gradients each apart, against the one-process
+                engine with the copies' gradients summed (compared through
+                random projections of every leaf, gathered to rank 0), the
+                last step's update too; the last gradients against autograd
+                of full_loss; K1
+                launches summed over the ranks equal the grid's attention
+                forwards
+14. adaptive-ranks
+                the adaptive phase's Fig-10 scenario through
+                ``train_adaptive.run_fig10_spmd`` on S=4 ranks (one card:
+                gloo, the ranks time-slicing it; four cards: NCCL, a card a
+                rank; ADAPTIVE_RANKS_ONE_CARD_LAYERS cuts the depth on one
+                card): the decision trail equals the engine-free one; >= 2
+                kind switches, restacks both ways; precompile hit rate >=
+                0.8 and no cold miss; finite losses, the first equal to the
+                one-process loop's at the same depth (the adaptive phase's,
+                or its first iteration run here); K1 summed over the ranks
+                as often as each iteration's grid says; the final state's
+                gradients, gathered to rank 0 with the optimizer state
+                freed, against autograd of full_loss.  Per plan the step
+                p50 and each rank's
+                breakdown, per switch its seconds and each rank's bytes, and
+                the warm-switch fraction (not gated: the restack goes
+                through gloo's host buffers on one card) are printed.
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
 
 The line before the last is a JSON object with every kernel's figures (K1's
-also per main path: serving, pipeline training, the adaptive loop and the
-ranks, each at its own shape);
+also per main path: serving, pipeline training, the adaptive loop, the
+ranks and the adaptive loop on the ranks, each at its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,12 +134,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "adaptive",
-    "ranks-model", "ranks",
+    "ranks-model", "ranks", "adaptive-ranks-model", "adaptive-ranks",
 )
 
-#: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
+#: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet;
+#: specs/h100-sxm.json): per input type, and TF32 (the tensor cores on fp32
+#: operands rounded to 10 mantissa bits) apart
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+H100_TF32_FLOPS = 494e12
 
 #: kernel vs plain version, as allclose(atol=tol, rtol=tol).  bf16/fp16 (the
 #: mma route): the FLASH_CASES tolerance of repro's kernel tests (one output
@@ -155,10 +189,12 @@ TIMED_CASE = "gpt2.7b_t512"
 #: micro-batch, one adaptive micro-batch, one micro-batch on the ranks
 PATH_CASES = {
     "serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
-    "ranks": "gpt2.7b_train_t1024",
+    "ranks": "gpt2.7b_train_t1024", "adaptive-ranks": "gpt2.7b_train_b2_t1024",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024")
+#: the traces _device_ms takes before it gives up on a trace with no kernel
+DEVICE_TRACES = 3
 
 #: K2 vs plain version, as ||out - want|| / ||want||.  fp32 out (the fma
 #: route, fp32 throughout): the two differ in summation order only, over up
@@ -246,6 +282,40 @@ RANKS_MODEL_PLANS = PIPE_MODEL_PLANS + (dict(kind="zbv"),)
 #: the ranks phase: the pipeline phase's workload (S, k, PIPE_ARGS), one
 #: process per stage
 RANKS_STAGES, RANKS_K = PIPE_STAGES, PIPE_K
+#: adaptive-ranks-model: GPT-2.7B at full width cut to 8 layers (S * v = 8
+#: divides it) on S = 4 ranks, one iteration of each plan of the walk, on the
+#: adaptive phase's batches (M = 4 micro-batches of 2 x 1024 tokens)
+ADAPTIVE_RANKS_MODEL_LAYERS = 8
+ADAPTIVE_RANKS_MODEL_WALK = (
+    dict(kind="kfkb", k=1), dict(kind="zb_h1"), dict(kind="interleaved_zb", num_virtual=2), dict(kind="zbv"),
+    dict(kind="kfkb", k=1),
+)
+#: adaptive-ranks-model, the ranks against the one-process engine with the
+#: copies' gradients summed: the same task bodies on the same bf16 values,
+#: so the gradients agree bitwise; the clip norm adds its per-rank sums in
+#: another order, which moves the clip scale by an ulp, and with it m and v
+#: (read 0.9e-7 to 2.2e-7 on the H100) and the update (5.1e-7).  Each of
+#: params, m, v, the gradients and the last step's update is held apart, as
+#: one relative error over its leaves (estimated from DIGEST_PROJECTIONS
+#: random projections of each leaf; see _digests): 1e-5, 20x the largest
+#: sound reading, where a leaf lost or misplaced reads its share of its
+#: kind's norm
+ADAPTIVE_RANKS_STATE_TOL = 1e-5
+DIGEST_PROJECTIONS = 4
+#: adaptive-ranks-model's learning rate: 0 at every step of the walk but the
+#: last, where it is 1e-3.  So the parameters keep their draw bitwise up to
+#: the last step, every iteration's gradients are taken at the same values
+#: on both sides, the moments accumulate them and the restacks move all
+#: three, and the last step checks the update itself from equal states.  At
+#: a constant 1e-3 two correct runs part after one step: parameters an ulp
+#: apart round to other bf16 weights (_lr_witness measures it in one
+#: process; PERF.md, section 6)
+ADAPTIVE_RANKS_MODEL_LR = 1e-3
+#: adaptive-ranks: the adaptive phase's Fig-10 scenario on S = 4 ranks, at
+#: full depth with a card per rank; on one card cut to 16 layers at full
+#: width: at 32 the four processes ran the card out of its 79.18 GiB in an
+#: AdamW update (rank 0 held 17.69 GiB; PERF.md, section 6)
+ADAPTIVE_RANKS_ONE_CARD_LAYERS = 16
 
 
 def log(msg: str) -> None:
@@ -333,7 +403,9 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time of one call: the summed device time of the kernels that
     ``iters`` calls launch, traced by torch.profiler, over ``iters``.  Unlike
-    _time_ms it leaves out the host's share of a call."""
+    _time_ms it leaves out the host's share of a call.  A trace that holds
+    no kernel lost its device events (the serve-shape K1 and one SDPA have
+    read 0 on the H100) and is taken again, up to DEVICE_TRACES times."""
     from repro_torch.launch.profiling import device_profile
 
     for _ in range(warmup):
@@ -345,7 +417,11 @@ def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             fn()
         torch.cuda.synchronize()
 
-    return device_profile(run, torch.device("cuda"), {})["device_ms"] / iters
+    for _ in range(DEVICE_TRACES):
+        ms = device_profile(run, torch.device("cuda"), {})["device_ms"] / iters
+        if ms > 0:
+            return ms
+    raise AssertionError(f"{DEVICE_TRACES} traces recorded no device time")
 
 
 def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, str]:
@@ -446,13 +522,22 @@ def _ssd_inputs(B, T, H, P, N, x_dtype, bc_dtype, seed=0):
 def _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype) -> tuple[float, str]:
     """max(bytes / HBM rate, FLOPs / peak): x, dt, A, B, C read once and y
     written once; per (b, h, chunk) the causal triangle of C B^T and of
-    S w, plus C h^T and the state update, 2 FLOP per MAC, at the peak of
-    x's type."""
+    S w, plus C h^T and the state update, 2 FLOP per MAC, each product at
+    the peak of the type it runs in.  The mma route (ssd_fwd.cu) runs C B^T
+    on bf16 operands and the other three on TF32; the fma route runs all
+    four in fp32 FMA."""
+    from repro_torch.kernels.ssd_scan import ops
+
     xb, bcb = torch.finfo(x_dtype).bits / 8, torch.finfo(bc_dtype).bits / 8
     nbytes = 2 * B * T * H * P * xb + 4 * B * T * H + 2 * B * T * N * bcb + 4 * H
     tri = Q * (Q + 1) / 2
-    flops = B * H * (T // Q) * 2.0 * (tri * N + tri * P + 2 * Q * P * N)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FLOPS[x_dtype]
+    triples = B * H * (T // Q)
+    cb, rest = triples * 2.0 * tri * N, triples * 2.0 * (tri * P + 2 * Q * P * N)
+    if ops.route(x_dtype, bc_dtype, P, N, Q) == "mma":
+        t_ops = cb / H100_FLOPS[torch.bfloat16] + rest / H100_TF32_FLOPS
+    else:
+        t_ops = (cb + rest) / H100_FLOPS[torch.float32]
+    t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -856,10 +941,11 @@ def phase_adaptive() -> int:
         f"{parity['max_abs_err']:.3e}, finite {parity['finite']}")
     if not parity["finite"] or parity["rel_norm_err"] > ADAPTIVE_GRAD_TOL:
         raise AssertionError("the engine's gradients on the switched state disagree with autograd of full_loss")
+    first_loss = s["per_iteration"][0]["loss"]
     del sc, rt
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, first_loss
 
 
 def _flat(trees: list) -> list:
@@ -1016,6 +1102,357 @@ def phase_ranks(pipeline_first_loss) -> int:
     return s["flash_launches"]
 
 
+def _adaptive_ranks_model_lr(step: int) -> float:
+    return ADAPTIVE_RANKS_MODEL_LR if step == len(ADAPTIVE_RANKS_MODEL_WALK) - 1 else 0.0
+
+
+def _digests(trees: list, vstages, kind: str) -> dict:
+    """Per leaf of a list of per-virtual-stage trees (``vstages`` their
+    global virtual stages): ``((r_1 . t, ..., r_P . t), |t|^2)`` in float64,
+    ``P = DIGEST_PROJECTIONS``, each ``r_p`` a Gaussian vector drawn from a
+    seed of the leaf's global name, so that two processes holding the same
+    virtual stage draw the same vectors.  Over two states, the mean over p
+    of sum((r_p . a - r_p . b)^2) / sum(|b|^2) estimates ||a - b||^2 /
+    ||b||^2 (E[(r . d)^2] = ||d||^2): the error of a state too large to
+    gather (the 8-layer cut's state is 20 GB, some 40 s through gloo)."""
+    import zlib
+
+    from repro_torch.tree import flatten
+
+    out = {}
+    for j, tree in zip(vstages, trees):
+        for path, t in flatten(tree).items():
+            key = f"{kind}/{int(j)}/{path}"
+            gen = torch.Generator(device=t.device).manual_seed(zlib.crc32(key.encode()))
+            t64, projs = t.double(), []
+            for _ in range(DIGEST_PROJECTIONS):
+                r = torch.randn(t.shape, generator=gen, device=t.device, dtype=torch.float32)
+                projs.append(float((t64 * r).sum()))
+                del r
+            out[key] = (tuple(projs), float(t64.square().sum()))
+            del t64
+    return out
+
+
+def _digest_err(got: dict, want: dict, kind: str, base: dict | None = None) -> float:
+    """The estimated ||got - want|| / ||want|| over the leaves of one kind
+    (params, m, v or grads) of two digest sets; with ``base`` (digests of
+    the state before the step), over ||want - base||: the error of the
+    step's update."""
+    got, want = ({k: d for k, d in x.items() if k.startswith(kind + "/")} for x in (got, want))
+    if sorted(got) != sorted(want) or not want:
+        raise AssertionError(f"{kind} digest keys differ: {sorted(set(got) ^ set(want))[:5]}")
+
+    def sq(a, b):  # the estimated ||a - b||^2 of one leaf
+        return sum((x - y) ** 2 for x, y in zip(a, b)) / DIGEST_PROJECTIONS
+
+    num = sum(sq(got[k][0], want[k][0]) for k in want)
+    den = sum(w[1] for w in want.values()) if base is None else sum(sq(want[k][0], base[k][0]) for k in want)
+    return math.sqrt(num / den)
+
+
+def _state_digests(state, grads, vstages) -> dict:
+    return {
+        **_digests(state.params, vstages, "params"), **_digests(state.opt_state.m, vstages, "m"),
+        **_digests(state.opt_state.v, vstages, "v"), **_digests(grads, vstages, "grads"),
+    }
+
+
+def _adaptive_ranks_model_oracle(cfg, plans, batches) -> list:
+    """The one-process semantics of the spmd backend on the card: the
+    reference engine, the replicated copies' gradients summed
+    (reduce_replicated), AdamW at _adaptive_ranks_model_lr clipped at 1,
+    restack_train_state at each change of v.  Per iteration: the loss and the digests of the state
+    after the step and of the step's gradients; the last also the digests of
+    the parameters before its step and of autograd of full_loss (the copies
+    summed) at the state before it."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.pipeline import StagedModel, reduce_replicated, reference_pipeline_grads
+    from repro_torch.runtime import restack_train_state
+    from repro_torch.training import create_train_state
+
+    S = plans[0].num_stages
+    opt = make_optimizer("adamw", schedule=_adaptive_ranks_model_lr)
+    params = StagedModel.build(cfg, S).init_all_stages(torch.Generator(device="cuda").manual_seed(0))
+    state, v_now, out = create_train_state(params, opt), 1, []
+    for i, (plan, (tokens, labels)) in enumerate(zip(plans, batches)):
+        v = plan.num_virtual
+        state, v_now = restack_train_state(state, S, v_now, v), v
+        staged = StagedModel.build(cfg, S * v)
+        rec = {}
+        if i == len(plans) - 1:
+            rec["before"] = _digests(state.params, range(S * v), "params")
+            loss_o, grads_o = _oracle(staged, state.params, tokens, labels)
+            rec["autograd"] = _digests(reduce_replicated(grads_o), range(S * v), "grads")
+            del grads_o
+        loss, grads = reference_pipeline_grads(staged, state.params, tokens, labels, plan)
+        reduce_replicated(grads)
+        state.params, state.opt_state, _ = opt.update(state.params, grads, state.opt_state)
+        rec.update(loss=float(loss), digests=_state_digests(state, grads, range(S * v)))
+        del grads
+        out.append(rec)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lr_witness(cfg, plans, batches) -> dict:
+    """Two correct one-process runs of the first two plans at a constant
+    ADAPTIVE_RANKS_MODEL_LR, alike but for the order of the clip norm's sum:
+    over the whole tree at once (clip_by_global_norm), and per stage first,
+    then over the stages in stage order (as the ranks add it).  Returns how
+    far apart they are: the clip norms of the first step, and the relative
+    errors of the parameters after it and of the gradients of the second
+    step, all exact (one process holds both)."""
+    from repro_torch.optim import constant_schedule, global_norm, make_optimizer
+    from repro_torch.pipeline import StagedModel, reduce_replicated, reference_pipeline_grads
+    from repro_torch.training import create_train_state
+    from repro_torch.tree import flatten, tree_map
+
+    S = plans[0].num_stages
+    if any(p.num_virtual != 1 for p in plans):
+        raise ValueError("the witness runs plans of one chunk a stage")
+    staged = StagedModel.build(cfg, S)
+    runs = []
+    for by_stage in (False, True):
+        opt = make_optimizer("adamw", schedule=constant_schedule(ADAPTIVE_RANKS_MODEL_LR),
+                             max_grad_norm=None if by_stage else 1.0)
+        params = staged.init_all_stages(torch.Generator(device="cuda").manual_seed(0))
+        state, rec = create_train_state(params, opt), {}
+        for i, (plan, (tokens, labels)) in enumerate(zip(plans, batches)):
+            _, grads = reference_pipeline_grads(staged, state.params, tokens, labels, plan)
+            reduce_replicated(grads)
+            if i == len(plans) - 1:
+                rec["grads"] = grads
+                break
+            if by_stage:  # each stage's (a rank's) squared norm, summed in stage order; clip_by_global_norm's scale
+                norm = torch.sqrt(sum(sum(x.float().square().sum() for x in flatten(g).values()) for g in grads))
+                scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+                grads = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+            else:
+                norm = global_norm(grads)
+            state.params, state.opt_state, _ = opt.update(state.params, grads, state.opt_state)
+            rec.setdefault("norm", float(norm))
+            del grads
+        rec["params"] = state.params
+        del state
+        runs.append(rec)
+
+    def rel(a, b):
+        pairs = list(zip(_flat(a), _flat(b)))
+        return math.sqrt(sum(float((x.double() - y.double()).square().sum()) for x, y in pairs)
+                         / sum(float(y.double().square().sum()) for _, y in pairs))
+
+    out = {"norms": (runs[0]["norm"], runs[1]["norm"]), "params_err": rel(runs[1]["params"], runs[0]["params"]),
+           "grads_err": rel(runs[1]["grads"], runs[0]["grads"])}
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+class _ModelRankProbe:
+    """adaptive-ranks-model's rank_probe: after each step, this rank's K1
+    launches in it and the digests of its state and gradients."""
+
+    def __init__(self) -> None:
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.runtime, self._launches = ops, None, ops.launches
+
+    def __call__(self) -> dict:
+        rt = self.runtime
+        launches, self._launches = self.ops.launches - self._launches, self.ops.launches
+        vstages = rt.placement.vstage_of[rt.group.s]
+        return {"flash_launches": launches, "digests": _state_digests(rt.state, rt.last_grads, vstages)}
+
+
+def _adaptive_ranks_model_rank(group, cfg, walk, batch, M):
+    """One rank of adaptive-ranks-model: PlanRuntime(backend="spmd") through
+    the walk, one iteration a plan; rank 0 leads and returns per iteration
+    the loss, the switch's records and every rank's step record."""
+    from repro_torch.core import ScheduleSpec, make_plan
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import PlanRuntime
+
+    B, T = batch
+    opt = make_optimizer(
+        "adamw", _adaptive_ranks_model_lr, norm_reduce=lambda t: group.all_reduce_sum(t, "stage")
+    )
+    probe = _ModelRankProbe()
+    rt = PlanRuntime(cfg, group.S, opt, global_batch=B, seq_len=T, backend="spmd", group=group, rank_probe=probe)
+    probe.runtime = rt
+    ds = SyntheticTextDataset(cfg.vocab_size, T, B, seed=0)
+
+    def batch_at(i):
+        b = ds.batch_at(i, group.device)
+        return b.tokens, b.labels
+
+    if group.rank:
+        rt.follow(batch_at)
+        rt.cache.shutdown()
+        return None
+    out = []
+    for i, kw in enumerate(walk):
+        ev = rt.switch_to(make_plan(group.S, M, spec=ScheduleSpec(micro_batch_size=B // M, **kw)).lower())
+        r = rt.run_iteration(*batch_at(i), batch_index=i)
+        out.append({"plan": r.plan_name, "loss": r.loss, "seconds": r.seconds, "restacked": ev.restacked,
+                    "switch_seconds": ev.seconds, "switch": ev.ranks, "ranks": r.ranks})
+    rt.stop()
+    rt.cache.shutdown()
+    return out
+
+
+def phase_adaptive_ranks_model() -> None:
+    import gc
+
+    from repro_torch.core import ScheduleSpec, make_plan
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.launch import train_adaptive
+    from repro_torch.pipeline import ranks
+
+    cfg, _, cands, B = train_adaptive.fig10_parts(RANKS_STAGES, gpt="GPT-2.7B", num_layers=ADAPTIVE_RANKS_MODEL_LAYERS)
+    S, M, T = RANKS_STAGES, cands[0].plan.num_microbatches, ADAPTIVE_ARGS["seq_len"]
+    plans = [make_plan(S, M, spec=ScheduleSpec(micro_batch_size=B // M, **kw)) for kw in ADAPTIVE_RANKS_MODEL_WALK]
+    ds = SyntheticTextDataset(cfg.vocab_size, T, B, seed=0)
+    batches = [(b.tokens.reshape(M, B // M, T), b.labels.reshape(M, B // M, T))
+               for b in (ds.batch_at(i, "cuda") for i in range(len(plans)))]
+    t = time.perf_counter()
+    w = _lr_witness(cfg, plans[:2], batches[:2])
+    log(f"adaptive-ranks-model: two one-process runs at a constant lr {ADAPTIVE_RANKS_MODEL_LR:g}, the clip norm "
+        f"summed over the tree / per stage then over the stages: first norms {w['norms'][0]!r} / "
+        f"{w['norms'][1]!r}; parameters after the first step rel err {w['params_err']:.3e}, the second step's "
+        f"gradients rel err {w['grads_err']:.3e} (not gated; {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    oracle = _adaptive_ranks_model_oracle(cfg, plans, batches)
+    log(f"adaptive-ranks-model: the one-process oracle in {time.perf_counter() - t:.1f} s")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = ranks.spawn(_adaptive_ranks_model_rank, S, args=(cfg, ADAPTIVE_RANKS_MODEL_WALK, (B, T), M),
+                      device="cuda", timeout=900)[0]
+    for i, (plan, r, o) in enumerate(zip(plans, got, oracle)):
+        digests = {k: d for x in r["ranks"] for k, d in x["digests"].items()}
+        launches = [x["flash_launches"] for x in r["ranks"]]
+        want = train_adaptive.expected_flash_launches(plan, cfg)
+        errs = {kind: _digest_err(digests, o["digests"], kind) for kind in ("params", "m", "v", "grads")}
+        if "before" in o:
+            errs["update"] = _digest_err(digests, o["digests"], "params", base=o["before"])
+        loss_rel = abs(r["loss"] - o["loss"]) / abs(o["loss"])
+        moved = ", ".join(f"{x['layers_sent']}/{x['layers_received']}" for x in r["switch"])
+        log(f"adaptive-ranks-model GPT-2.7B ({cfg.num_layers} layers, d_model {cfg.d_model}) S={S} ranks M={M} "
+            f"b={B // M} T={T} iteration {i} {r['plan']} lr {_adaptive_ranks_model_lr(i):g}: loss {r['loss']:.6f} "
+            f"vs one process {o['loss']:.6f} (rel {loss_rel:.3e} <= {PIPE_ENGINE_LOSS_TOL:g}); rel err "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (each <= {ADAPTIVE_RANKS_STATE_TOL:g}); "
+            f"K1 {launches} (sum {sum(launches)}, grid {want}); switch {1e3 * r['switch_seconds']:.1f} ms, "
+            f"restacked {r['restacked']}, layers sent/received a rank {moved}; step {1e3 * r['seconds']:.1f} ms")
+        if not math.isfinite(r["loss"]) or loss_rel > PIPE_ENGINE_LOSS_TOL:
+            raise AssertionError(f"iteration {i}: the ranks' loss differs from the one-process engine's")
+        bad = [k for k, e in errs.items() if not e <= ADAPTIVE_RANKS_STATE_TOL]
+        if bad:
+            raise AssertionError(f"iteration {i}: the ranks' {', '.join(bad)} differ from the one-process engine's")
+        if sum(launches) != want:
+            raise AssertionError(f"iteration {i}: K1 ran {sum(launches)} times on the ranks, the grid has {want}")
+    grads = {k: d for x in got[-1]["ranks"] for k, d in x["digests"].items()}
+    err = _digest_err(grads, oracle[-1]["autograd"], "grads")
+    log(f"adaptive-ranks-model: the last step's gradients against autograd of full_loss (copies summed): rel err "
+        f"{err:.3e} (<= {PIPE_ENGINE_GRAD_TOL:g})")
+    if not err <= PIPE_ENGINE_GRAD_TOL:
+        raise AssertionError("the ranks' gradients after the walk disagree with autograd of full_loss")
+
+
+def _adaptive_ranks_checks(sc) -> dict:
+    """adaptive-ranks' check on global rank 0 after the run (the other ranks
+    follow): the optimizer state goes first, on every rank, to leave room
+    for the oracle; then the final switched state's gradients against
+    autograd of full_loss (train_adaptive.grad_parity)."""
+    from repro_torch.launch import train_adaptive
+
+    sc.runtime.free_optimizer_state()
+    return train_adaptive.grad_parity(sc)
+
+
+def phase_adaptive_ranks(adaptive_first_loss) -> int:
+    import gc
+
+    from repro_torch.launch import train_adaptive
+
+    layers = None if torch.cuda.device_count() >= RANKS_STAGES else ADAPTIVE_RANKS_ONE_CARD_LAYERS
+    first_loss, first_from = adaptive_first_loss, "the adaptive phase"
+    if layers is not None or first_loss is None:  # the one-process loop's first iteration at this depth
+        sc = train_adaptive.build_fig10_scenario(device="cuda", num_layers=layers, **ADAPTIVE_ARGS)
+        sc.coordinator.run(1)
+        first_loss, first_from = sc.runtime.iterations[0].loss, "its first iteration, run here"
+        sc.runtime.cache.shutdown()
+        del sc
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is the ranks'
+    s = train_adaptive.run_fig10_spmd(
+        ADAPTIVE_ITERATIONS, num_stages=RANKS_STAGES, num_layers=layers, device="cuda",
+        checks=_adaptive_ranks_checks, **ADAPTIVE_ARGS,
+    )
+    parity = s["checks"]
+    log(f"adaptive-ranks {s['config']} ({s['num_layers']} layers, d_model {s['d_model']}) on {s['ranks']} ranks, "
+        f"transport {s['transport']}, {torch.cuda.device_count()} card(s): {s['iterations']} iterations, "
+        f"{s['kind_switches']} kind switches, precompile hit rate {s['precompile_hit_rate']:.2f} (cache "
+        f"{s['cache']}), warm switch {100 * s['warm_switch_latency_frac']:.3f}% of an iteration (printed, not "
+        f"gated)")
+    log("  decision trail: " + ", ".join(f"t={d['t']} {d['chosen']}" for d in s["decision_trail"]))
+    log(f"  losses {s['losses']}")
+    for e in s["switch_events"]:
+        log(f"  switch at iteration {e['iteration']}: {e['from_plan'] or '-'} -> {e['to_plan']}, "
+            f"{1e3 * e['seconds']:.1f} ms, restacked {e['restacked']}, warm {e['warm']}")
+        for r in e["ranks"]:
+            log(f"    rank {r['rank']}: {r['seconds']:.3f} s, sent {r['layers_sent']} layers ({r['bytes_sent']:,} B), "
+                f"received {r['layers_received']} ({r['bytes_received']:,} B) in {r['rounds']} rounds; staging "
+                f"{r.get('staging', 0.0):.3f} s, blocked in receives {r.get('recv_wait', 0.0):.3f} s, in sends "
+                f"{r.get('send_wait', 0.0):.3f} s")
+    for i, r in enumerate(s["per_iteration"]):
+        peaks = ", ".join(f"{p / 2**30:.2f}" for p in r["max_memory_allocated_per_rank"])
+        log(f"  iteration {i:2d} {r['plan']:22s} {1e3 * r['seconds']:9.1f} ms, loss {r['loss']:.4f}, K1 "
+            f"{r['flash_launches']} (grid: {r['attention_forwards']}), max_memory_allocated a rank {peaks} GiB")
+    for name, p in s["per_plan"].items():
+        peaks = ", ".join(f"{x / 2**30:.2f}" for x in p["max_memory_allocated_per_rank"])
+        reserved = p["max_memory_reserved_per_rank"]
+        log(f"  plan {name}: {p['iterations']} iterations, step p50 {p['step_ms_p50']:.1f} ms, max_memory_allocated "
+            f"a rank {peaks} GiB (reserved {', '.join(f'{x / 2**30:.2f}' for x in reserved)}; summed "
+            f"{sum(reserved) / 2**30:.2f} GiB), K1 a step {p['flash_launches']}")
+        for r, items in enumerate(p["per_rank_ms_p50"]):
+            log(f"    rank {r}: compute {items['compute']:.1f} + blocked in receives {items['recv_wait']:.1f} + "
+                f"in sends {items['send_wait']:.1f} + staging {items['staging']:.1f} + replicated reduce "
+                f"{items['reduce']:.1f} + other (optimizer, host) {items['other']:.1f} ms (p50 of each)")
+    launches = sum(r["flash_launches"] for r in s["per_iteration"])
+    log(f"flash launches on the adaptive-ranks path: {launches}")
+    log(f"adaptive-ranks gradients on the final state ({s['per_iteration'][-1]['plan']}) against autograd of "
+        f"full_loss (copies summed): rel_norm_err {parity['rel_norm_err']:.3e} (<= {ADAPTIVE_GRAD_TOL:g}), "
+        f"max_abs_err {parity['max_abs_err']:.3e}, finite {parity['finite']}")
+    want_trail = train_adaptive.engine_free_decision_trail(
+        ADAPTIVE_ITERATIONS, num_stages=RANKS_STAGES, seed=ADAPTIVE_ARGS["seed"]
+    )
+    if s["decision_trail"] != want_trail:
+        raise AssertionError(f"the decision trail differs from the engine-free one: {want_trail}")
+    restacks = {(e["from_spec"]["num_virtual"], e["to_spec"]["num_virtual"])
+                for e in s["switch_events"] if e["restacked"]}
+    if s["kind_switches"] < 2 or not {(1, 2), (2, 1)} <= restacks:
+        raise AssertionError("fewer than two kind switches, or no restack in one of the directions v 1 <-> 2")
+    if s["precompile_hit_rate"] < 0.8 or s["cache"]["cold_misses"]:
+        raise AssertionError("precompile hit rate under 0.8, or a cold miss")
+    if not all(math.isfinite(v) for v in s["losses"]):
+        raise AssertionError("non-finite loss")
+    for i, r in enumerate(s["per_iteration"]):
+        if r["flash_launches"] != r["attention_forwards"]:
+            raise AssertionError(f"iteration {i}: K1 ran {r['flash_launches']} times over the ranks, the grid of "
+                                 f"{r['plan']} has {r['attention_forwards']} attention forwards")
+    rel = abs(s["losses"][0] - first_loss) / abs(first_loss)
+    log(f"  first loss {s['losses'][0]:.6f} vs the one-process adaptive loop's {first_loss:.6f} at "
+        f"{s['num_layers']} layers ({first_from}; rel {rel:.3e} <= {PIPE_ENGINE_LOSS_TOL:g})")
+    if rel > PIPE_ENGINE_LOSS_TOL:
+        raise AssertionError("the ranks' first loss differs from the one-process adaptive loop's")
+    if not parity["finite"] or parity["rel_norm_err"] > ADAPTIVE_GRAD_TOL:
+        raise AssertionError("the ranks' gradients on the switched state disagree with autograd of full_loss")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -1027,7 +1464,7 @@ def main(argv=None) -> int:
     device = phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    kernels, pipeline_first_loss = {}, None
+    kernels, pipeline_first_loss, adaptive_first_loss = {}, None, None
     for name in PHASES[1:]:
         if name not in only:
             continue
@@ -1056,7 +1493,7 @@ def main(argv=None) -> int:
             if kernels:
                 kernels["flash"]["per_path"]["pipeline"]["launches"] = launches
         elif name == "adaptive":
-            launches = phase_adaptive()
+            launches, adaptive_first_loss = phase_adaptive()
             if kernels:
                 kernels["flash"]["per_path"]["adaptive"]["launches"] = launches
         elif name == "ranks-model":
@@ -1065,6 +1502,12 @@ def main(argv=None) -> int:
             launches = phase_ranks(pipeline_first_loss)
             if kernels:
                 kernels["flash"]["per_path"]["ranks"]["launches"] = launches
+        elif name == "adaptive-ranks-model":
+            phase_adaptive_ranks_model()
+        elif name == "adaptive-ranks":
+            launches = phase_adaptive_ranks(adaptive_first_loss)
+            if kernels:
+                kernels["flash"]["per_path"]["adaptive-ranks"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):

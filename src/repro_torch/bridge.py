@@ -34,9 +34,11 @@ layout, bitwise.
 
 The multi-rank engine gives each rank only its chunks.
 :func:`rank_params` cuts a rank's list (chunk ``c`` of stage ``s`` is
-virtual stage ``plan.placement.vstage_of[s, c]``) out of the full one, and
+virtual stage ``plan.placement.vstage_of[s, c]``) out of the full one,
+:func:`rank_train_state` a rank's training state out of ``repro``'s, and
 :func:`gather_to_rank0` brings every rank's list back to global rank 0 in
-global virtual-stage order.
+global virtual-stage order (:func:`gather_train_state_to_rank0` a rank's
+training state).
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ __all__ = [
     "train_state_from_repro",
     "train_state_to_repro",
     "rank_params",
+    "rank_train_state",
     "gather_to_rank0",
+    "gather_train_state_to_rank0",
 ]
 
 #: the tag of :func:`gather_to_rank0`'s transfers (the engine's channels use 0-5)
@@ -217,26 +221,49 @@ def train_state_to_repro(state, staged) -> dict[str, np.ndarray]:
     return out
 
 
+def _placement(plan):
+    """A plan's placement map, or the map itself."""
+    return getattr(plan, "placement", plan)
+
+
 def rank_params(all_params: list, plan, s: int) -> list:
     """Stage ``s``'s list of per-chunk trees, in chunk order, from the full
-    list of ``S * v`` per-virtual-stage trees (no copies)."""
-    return [all_params[int(plan.placement.vstage_of[s, c])] for c in range(plan.num_virtual)]
+    list of ``S * v`` per-virtual-stage trees (no copies).  ``plan`` is a
+    plan or its ``Placement``."""
+    return [all_params[int(vs)] for vs in _placement(plan).vstage_of[s]]
+
+
+def rank_train_state(flat: Mapping[str, np.ndarray], staged, plan, s: int, device=None):
+    """Stage ``s``'s local :class:`~repro_torch.training.TrainState` under
+    ``plan``'s placement (a plan or its ``Placement``) from ``repro``'s
+    flattened ``TrainState`` of the same ``S * v`` cut: the chunks' trees of
+    the parameters and of both AdamW moments (:func:`rank_params` of
+    :func:`train_state_from_repro`)."""
+    state = train_state_from_repro(flat, staged, device)
+    opt = state.opt_state
+    return TrainState(
+        step=state.step,
+        params=rank_params(state.params, plan, s),
+        opt_state=AdamWState(step=opt.step, m=rank_params(opt.m, plan, s), v=rank_params(opt.v, plan, s)),
+    )
 
 
 def gather_to_rank0(local: list, plan, group) -> list | None:
     """The full list of per-virtual-stage trees on global rank 0, gathered
-    from every stage of replica 0 (each rank's ``local`` list, e.g. its
-    parameters or gradients; all leaves of one dtype); ``None`` on every
+    from every stage of replica 0 (each rank's ``local`` list under
+    ``plan``'s placement, e.g. its parameters or gradients; all leaves of
+    one dtype; ``plan`` is a plan or its ``Placement``); ``None`` on every
     other rank.  Every rank of replica 0 must call it."""
     if group.d != 0:
         return None
+    placement = _placement(plan)
     leaves = [t for tree in local for t in flatten(tree).values()]
     flat = torch.cat([t.reshape(-1) for t in leaves])
     if group.s != 0:
         group.exchange([(flat, 0, _GATHER_TAG)], [])
         group.wait_sends()
         return None
-    full: list = [None] * plan.total_virtual_stages
+    full: list = [None] * placement.device_of.size
     for s in range(group.S):
         if s == 0:
             got = flat
@@ -245,7 +272,20 @@ def gather_to_rank0(local: list, plan, group) -> list | None:
             got = h.wait()
         parts = iter(torch.split(got, [t.numel() for t in leaves]))
         for c, tree in enumerate(local):
-            full[int(plan.placement.vstage_of[s, c])] = tree_map(
+            full[int(placement.vstage_of[s, c])] = tree_map(
                 lambda t: next(parts).view(t.shape).clone(), tree
             )
     return full
+
+
+def gather_train_state_to_rank0(state, plan, group):
+    """A rank-local :class:`~repro_torch.training.TrainState` (AdamW, or
+    ``opt_state=None``) gathered to global rank 0: the full lists of the
+    parameters and the moments in global virtual-stage order
+    (:func:`gather_to_rank0` of each); ``None`` on every other rank.  Every
+    rank of replica 0 must call it."""
+    params = gather_to_rank0(state.params, plan, group)
+    opt = state.opt_state
+    if opt is not None:
+        opt = AdamWState(step=opt.step, m=gather_to_rank0(opt.m, plan, group), v=gather_to_rank0(opt.v, plan, group))
+    return None if params is None else TrainState(step=state.step, params=params, opt_state=opt)

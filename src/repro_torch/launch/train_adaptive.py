@@ -1,10 +1,9 @@
-"""Fig-10 end-to-end on the port's engine: the live plan-switch runtime.
+"""Fig-10 end-to-end on the port's engines: the live plan-switch runtime.
 
-Port of ``repro/launch/train_adaptive.py`` on the reference backend (the
-``--fabric`` fleet and the ``spmd`` backend come with ROADMAP queue 1,
-items 8 and 2).  The paper's regime experiment (preemption appears, eases,
-returns; the tuner re-decides at intervals; the coordinator swaps plans
-with minimal overhead) with real gradients:
+Port of ``repro/launch/train_adaptive.py`` (the ``--fabric`` fleet comes
+with ROADMAP queue 1, item 8).  The paper's regime experiment (preemption
+appears, eases, returns; the tuner re-decides at intervals; the
+coordinator swaps plans with minimal overhead) with real gradients:
 
 * the network world stays a seeded :class:`RegimeTrace` driving the
   discrete-event simulator and the tuner's decisions (one card has no
@@ -25,19 +24,32 @@ The default scenario (4 stages, bursty -> exclusive -> bursty) flips the
 chosen schedule kind at least twice: ``zb_h2`` under contention,
 ``interleaved_zb`` on the quiet network, back again.
 
+Two backends, as ``repro``'s ``--backend``:
+
+* ``reference``: one process, the one-process engine over the whole model;
+* ``spmd``: one process per stage (:func:`run_fig10_spmd`), the multi-rank
+  engine, the state restacked across the ranks at each switch that moves
+  a layer.  Global rank 0 runs the coordinator, the tuner, the harness and
+  the telemetry, as ``repro``'s single controller does; its runtime tells
+  the other ranks each precompile, switch and step (the batch index: each
+  rank draws its own batch).  Transport: NCCL when every rank has a card
+  of its own, else gloo (``pipeline/ranks.py``).
+
 The model is ``repro``'s ``runtime-tiny`` by default, or a Table-1 GPT
 config at full size (``--gpt GPT-2.7B --seq 1024``: fp32 parameters, bf16
 compute, every attention forward in the flash kernel K1 on the card).
 Everything else is ``repro``'s: the candidate set, the trace, the seeds,
-AdamW at a constant lr of 1e-3, and the gates.
+AdamW at a constant lr of 1e-3 (clipped at 1 by the norm over every rank),
+and the gates.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train_adaptive \\
-      [--iterations 14] [--stages 4] [--seed 0] [--gpt GPT-2.7B --seq 1024] \\
-      [--device cuda] [--out summary.json] [--trace trace.json]
+      [--backend reference|spmd] [--iterations 14] [--stages 4] [--seed 0] \\
+      [--gpt GPT-2.7B --seq 1024] [--device cuda] \\
+      [--out summary.json] [--trace trace.json]
 
-Without ``--device`` the run needs a CUDA card and fails if there is none;
-``--device cpu`` runs on the CPU.
+Without ``--device`` the run needs a CUDA card (a card per rank for NCCL)
+and fails if there is none; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import json
 import math
 import statistics
 import time
+from typing import Callable
 
 import torch
 
@@ -67,11 +80,14 @@ from repro_torch.core import (
 )
 from repro_torch.core.coordinator import IterationRecord, RunSummary
 from repro_torch.data import SyntheticTextDataset
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs import DriftMonitor, Observability, render_simulated_trace, spans_by_track
 from repro_torch.optim import constant_schedule, make_optimizer
-from repro_torch.pipeline.engine import reference_pipeline_grads, stage_body_runs
+from repro_torch.pipeline import ranks
+from repro_torch.pipeline.engine import reduce_replicated, stage_body_runs
 from repro_torch.runtime import PassiveLinkFeed, PlanRuntime, RealEngineHarness, TelemetryBus
 from repro_torch.tree import flatten, tree_map
 
@@ -85,6 +101,8 @@ __all__ = [
     "expected_flash_launches",
     "grad_parity",
     "grad_parity_max_err",
+    "fig10_rank",
+    "run_fig10_spmd",
     "main",
 ]
 
@@ -99,12 +117,13 @@ PRECOMPILE_TOP_N = 5
 
 
 def fig10_parts(
-    num_stages: int = 4, gpt: str | None = None
+    num_stages: int = 4, gpt: str | None = None, num_layers: int | None = None
 ) -> tuple[ModelConfig, StageCosts, list[Candidate], int]:
     """The Fig-10 scenario's static parts: model config, stage costs, the
     candidate set (1F1B, 2F2B, ZB-H1, ZB-H2(w=2), interleaved-ZB(v=2)) and
     the global batch.  ``gpt`` names a Table-1 GPT config to train in place
-    of ``repro``'s ``runtime-tiny``; the candidates and costs stay."""
+    of ``repro``'s ``runtime-tiny`` (``num_layers`` cuts its depth); the
+    candidates and costs stay."""
     S, M, b = num_stages, num_stages, 2
     B = M * b
     if gpt is None:
@@ -115,6 +134,8 @@ def fig10_parts(
         )
     else:
         cfg = GPT_CONFIGS[gpt]
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     costs = StageCosts.uniform(S, 1.0, act_bytes=2.0)
     specs = [
         ScheduleSpec(kind="kfkb", k=1, micro_batch_size=b),
@@ -159,17 +180,13 @@ def _decision_stack(num_stages, costs, cands, seed, obs):
     return net, tuner, bus, drift
 
 
-class _EngineProbe:
-    """Coordinator hook after the harness: per iteration, the flash kernel
-    K1's launches beside the attention forwards the plan's grid asks for
-    (:func:`expected_flash_launches`; the CPU launches no kernel), and (on
-    the card) the peak memory allocated since the previous iteration's
-    reading, switch included."""
+class _RankCounters:
+    """One process's K1 launches and peak memory allocated since its last
+    reading, read after every step (switch included): the runtime's
+    ``rank_probe`` under spmd, the probe's own under the reference backend."""
 
-    def __init__(self, runtime: PlanRuntime) -> None:
-        self.runtime = runtime
-        self.device = runtime.device
-        self.records: list[dict] = []
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
         self._launches = flash_ops.launches
         self._reset_peak()
 
@@ -177,32 +194,68 @@ class _EngineProbe:
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 
-    def on_iteration(self, rec: IterationRecord) -> None:
+    def __call__(self) -> dict:
         launches, self._launches = flash_ops.launches - self._launches, flash_ops.launches
-        peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else None
-        forwards = expected_flash_launches(self.runtime.current_table.plan, self.runtime.cfg)
-        self.records.append({"flash_launches": launches, "attention_forwards": forwards, "max_memory_allocated": peak})
+        rec = {"flash_launches": launches, "max_memory_allocated": None, "max_memory_reserved": None}
+        if self.device.type == "cuda":
+            rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(self.device),
+                       max_memory_reserved=torch.cuda.max_memory_reserved(self.device))
         self._reset_peak()
+        return rec
+
+
+class _EngineProbe:
+    """Coordinator hook after the harness: per iteration, the flash kernel
+    K1's launches (summed over the ranks under spmd) beside the attention
+    forwards the plan's grid asks for (:func:`expected_flash_launches`; the
+    CPU launches no kernel), and (on the card) the peak memory allocated
+    since the previous iteration's reading, switch included: the largest
+    rank's, and each rank's under spmd."""
+
+    def __init__(self, runtime: PlanRuntime, counters: _RankCounters) -> None:
+        self.runtime = runtime
+        self.counters = counters
+        self.records: list[dict] = []
+
+    def on_iteration(self, rec: IterationRecord) -> None:
+        per_rank = self.runtime.iterations[-1].ranks or [self.counters()]
+        peaks = [r["max_memory_allocated"] for r in per_rank]
+        forwards = expected_flash_launches(self.runtime.current_table.plan, self.runtime.cfg)
+        self.records.append({
+            "flash_launches": sum(r["flash_launches"] for r in per_rank),
+            "attention_forwards": forwards,
+            "max_memory_allocated": None if None in peaks else max(peaks),
+            "max_memory_allocated_per_rank": peaks,
+            "max_memory_reserved_per_rank": [r["max_memory_reserved"] for r in per_rank],
+        })
 
 
 @dataclasses.dataclass
 class Fig10Scenario:
-    """Everything a runtime Fig-10 run needs, wired together."""
+    """Everything a runtime Fig-10 run needs, wired together.  Under spmd
+    only global rank 0 holds the decision side (the coordinator, the tuner,
+    the harness, the bus, the drift monitor and the probe); the other ranks'
+    scenarios hold ``None`` there and their runtimes follow rank 0's."""
 
     cfg: ModelConfig
     candidates: list[Candidate]
     costs: StageCosts
-    network: Network
-    coordinator: Coordinator
-    tuner: AutoTuner
+    network: Network | None
+    coordinator: Coordinator | None
+    tuner: AutoTuner | None
     runtime: PlanRuntime
-    harness: RealEngineHarness
-    bus: TelemetryBus
+    harness: RealEngineHarness | None
+    bus: TelemetryBus | None
     dataset: SyntheticTextDataset
     global_batch: int
-    obs: Observability
-    drift: DriftMonitor
-    probe: _EngineProbe
+    obs: Observability | None
+    drift: DriftMonitor | None
+    probe: _EngineProbe | None
+
+    def batch(self, i: int) -> tuple:
+        """Batch ``i``'s ``(tokens, labels)`` on the runtime's device."""
+        b = self.dataset.batch_at(i, self.runtime.device)
+        return b.tokens, b.labels
 
 
 def build_fig10_scenario(
@@ -211,39 +264,49 @@ def build_fig10_scenario(
     seed: int = 0,
     gpt: str | None = None,
     device=None,
+    backend: str = "reference",
+    group=None,
+    num_layers: int | None = None,
 ) -> Fig10Scenario:
     """The seeded regime scenario of ``repro``'s entry point and acceptance
-    test, on ``device`` (the card unless given ``"cpu"``).
+    test, on ``device`` (the card unless given ``"cpu"``).  ``backend="spmd"``
+    runs on the ranks: call it on every rank with the rank's ``group``
+    (the device is the group's).
 
     Under the bursty regimes the deep-warmup zero-bubble plan wins; on the
     exclusive network the interleaved composition's shorter fill/drain
     takes over, so the decision trail flips kinds at least twice, crossing
     the restacking boundary both ways."""
-    cfg, costs, cands, B = fig10_parts(num_stages, gpt=gpt)
-    obs = Observability.create()
-    net, tuner, bus, drift = _decision_stack(num_stages, costs, cands, seed, obs)
-    opt = make_optimizer("adamw", schedule=constant_schedule(1e-3))
+    cfg, costs, cands, B = fig10_parts(num_stages, gpt=gpt, num_layers=num_layers)
+    spmd = backend == "spmd"
+    leads = group is None or group.rank == 0
+    obs = Observability.create() if leads else None
+    net = tuner = bus = drift = None
+    if leads:
+        net, tuner, bus, drift = _decision_stack(num_stages, costs, cands, seed, obs)
+    # every rank clips by the norm of the whole model, every copy counted
+    norm_reduce = (lambda t: group.all_reduce_sum(t, "stage")) if spmd and group is not None else None
+    opt = make_optimizer("adamw", schedule=constant_schedule(1e-3), norm_reduce=norm_reduce)
+    counters = _RankCounters(group.device if spmd and group is not None else resolve_device(device))
     runtime = PlanRuntime(
-        cfg, num_stages, opt, global_batch=B, seq_len=seq_len,
-        telemetry=bus, init_key=seed, obs=obs, device=device,
+        cfg, num_stages, opt, global_batch=B, seq_len=seq_len, backend=backend,
+        telemetry=bus, init_key=seed, obs=obs, device=device, group=group,
+        rank_probe=counters if spmd else None,
     )
     dataset = SyntheticTextDataset(cfg.vocab_size, seq_len, B, seed=seed)
-
-    def batch_fn(i: int):
-        batch = dataset.batch_at(i, runtime.device)
-        return batch.tokens, batch.labels
-
-    harness = RealEngineHarness(runtime, tuner, batch_fn, precompile_top_n=PRECOMPILE_TOP_N)
-    probe = _EngineProbe(runtime)
-    coord = Coordinator(
-        tuner, net, global_batch=B, tuning_interval=TUNING_INTERVAL,
-        tuning_overhead=TUNING_OVERHEAD, hooks=(harness, probe), telemetry_sink=bus,
+    sc = Fig10Scenario(
+        cfg=cfg, candidates=cands, costs=costs, network=net, coordinator=None, tuner=tuner,
+        runtime=runtime, harness=None, bus=bus, dataset=dataset, global_batch=B, obs=obs,
+        drift=drift, probe=None,
     )
-    return Fig10Scenario(
-        cfg=cfg, candidates=cands, costs=costs, network=net, coordinator=coord,
-        tuner=tuner, runtime=runtime, harness=harness, bus=bus, dataset=dataset,
-        global_batch=B, obs=obs, drift=drift, probe=probe,
-    )
+    if leads:
+        sc.harness = RealEngineHarness(runtime, tuner, sc.batch, precompile_top_n=PRECOMPILE_TOP_N)
+        sc.probe = _EngineProbe(runtime, counters)
+        sc.coordinator = Coordinator(
+            tuner, net, global_batch=B, tuning_interval=TUNING_INTERVAL,
+            tuning_overhead=TUNING_OVERHEAD, hooks=(sc.harness, sc.probe), telemetry_sink=bus,
+        )
+    return sc
 
 
 def decision_trail(summary: RunSummary) -> list[dict]:
@@ -292,7 +355,8 @@ def summarize(sc: Fig10Scenario, summary: RunSummary) -> dict:
     probes_total = sum(r.probes_run + r.probes_skipped for r in summary.tuning)
     full_suspend = sc.coordinator.tuning_overhead * len(summary.tuning)
     per_iteration = [
-        {"plan": r.plan_name, "kind": r.kind, "loss": r.loss, "seconds": r.seconds, **p}
+        {"plan": r.plan_name, "kind": r.kind, "loss": r.loss, "seconds": r.seconds, **p,
+         **({"rank_seconds": [x["seconds"] for x in r.ranks]} if r.ranks else {})}
         for r, p in zip(rt.iterations, sc.probe.records)
     ]
     per_plan = {}
@@ -306,10 +370,23 @@ def summarize(sc: Fig10Scenario, summary: RunSummary) -> dict:
             "attention_forwards": runs[0]["attention_forwards"],
             "max_memory_allocated": max(peaks) if peaks else None,
         }
+        if "rank_seconds" in runs[0]:  # spmd: each rank's p50 of each item of its breakdown
+            for key in ("max_memory_allocated_per_rank", "max_memory_reserved_per_rank"):
+                per_plan[name][key] = [
+                    max(col) if None not in col else None for col in zip(*(r[key] for r in runs))
+                ]
+            per_plan[name]["per_rank_ms_p50"] = [
+                {k: 1e3 * statistics.median(x.get(k, 0.0) for x in col) for k in RANK_ITEMS}
+                for col in zip(*(r["rank_seconds"] for r in runs))
+            ]
+    g = rt.group
     return {
         "config": sc.cfg.name,
         "num_layers": sc.cfg.num_layers,
         "d_model": sc.cfg.d_model,
+        "backend": rt.backend,
+        "ranks": 1 if g is None else g.S * g.D,
+        "transport": None if g is None else g.transport,
         "device": str(rt.device),
         "iterations": len(rt.iterations),
         "losses": [round(r.loss, 4) for r in rt.iterations],
@@ -337,6 +414,11 @@ def summarize(sc: Fig10Scenario, summary: RunSummary) -> dict:
     }
 
 
+#: a rank's step breakdown under spmd (``pipeline/ranks.py``'s spans; "other"
+#: is the optimizer and the host)
+RANK_ITEMS = ("compute", "recv_wait", "send_wait", "staging", "reduce", "other")
+
+
 def expected_flash_launches(plan, cfg: ModelConfig) -> int:
     """K1 launches in one step of ``plan`` on the card: one per attention
     forward, each layer of a virtual stage once per run of its body (every
@@ -347,30 +429,35 @@ def expected_flash_launches(plan, cfg: ModelConfig) -> int:
 def grad_parity(sc: Fig10Scenario) -> dict:
     """The engine's gradients on the run's CURRENT (switched and restacked)
     state against autograd of the mean unpipelined ``full_loss`` over the
-    micro-batches (one micro-batch graph at a time): ``max_abs_err`` and
-    the global ``rel_norm_err`` = ||g_e - g_o|| / ||g_o|| over every leaf."""
+    micro-batches (one micro-batch graph at a time), both in the flat
+    layout: ``max_abs_err`` and the global ``rel_norm_err`` = ||g_e - g_o||
+    / ||g_o|| over every leaf.  The reference engine leaves each replicated
+    copy its own gradient, as autograd does; the ranks' engine sums the
+    copies' (under spmd this runs on global rank 0 while the others follow,
+    on the state and gradients gathered to it), so there the oracle's copies
+    are summed too."""
     rt = sc.runtime
-    plan = rt.current_table.plan
-    staged = rt.staged_for(plan.num_virtual)
-    M = plan.num_microbatches
-    b = sc.global_batch // M
-    batch = sc.dataset.batch_at(999, rt.device)  # a batch the run did not train on
-    tok = batch.tokens.reshape(M, b, rt.seq_len)
-    lab = batch.labels.reshape(M, b, rt.seq_len)
-    params = rt.state.params
-    _, egrads = reference_pipeline_grads(staged, params, tok, lab, plan)
-    egrads = list(flatten(egrads).values())
+    M = rt.current_table.plan.num_microbatches
+    shape = (M, sc.global_batch // M, rt.seq_len)
+    tokens, labels = sc.batch(999)  # a batch the run did not train on
+    _, egrads = rt.grads_at(tokens, labels, batch_index=999)
+    staged, params = rt.staged_for(1), rt.state_in_flat_layout().params
+    tok, lab = tokens.reshape(shape), labels.reshape(shape)
     leaves = [tree_map(lambda p: p.detach().requires_grad_(True), ps) for ps in params]
-    flat = [g for ps in leaves for g in flatten(ps).values()]
-    ograds = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+    ograds = [tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), ps) for ps in leaves]
+    flat, oflat = [g for ps in leaves for g in flatten(ps).values()], [g for ps in ograds for g in flatten(ps).values()]
     for m in range(M):
         loss = staged.full_loss(leaves, tok[m], lab[m]) / M
-        for acc, g in zip(ograds, torch.autograd.grad(loss, flat, allow_unused=True)):
+        for acc, g in zip(oflat, torch.autograd.grad(loss, flat, allow_unused=True)):
             if g is not None:
                 acc.add_(g.float())
-    max_abs = max(float((e - o).abs().max()) for e, o in zip(egrads, ograds))
-    num = math.sqrt(sum(float((e - o).square().sum()) for e, o in zip(egrads, ograds)))
-    den = math.sqrt(sum(float(o.square().sum()) for o in ograds))
+    del leaves, flat
+    if rt.group is not None:
+        reduce_replicated(ograds)
+    egrads = list(flatten(egrads).values())
+    max_abs = max(float((e - o).abs().max()) for e, o in zip(egrads, oflat))
+    num = math.sqrt(sum(float((e - o).square().sum()) for e, o in zip(egrads, oflat)))
+    den = math.sqrt(sum(float(o.square().sum()) for o in oflat))
     finite = all(bool(torch.isfinite(e).all()) for e in egrads)
     return {"max_abs_err": max_abs, "rel_norm_err": num / den, "finite": finite}
 
@@ -381,30 +468,13 @@ def grad_parity_max_err(sc: Fig10Scenario) -> float:
     return grad_parity(sc)["max_abs_err"]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--iterations", type=int, default=14)
-    ap.add_argument("--stages", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--gpt", default=None, choices=sorted(GPT_CONFIGS),
-                    help="train this Table-1 GPT config at full size instead of runtime-tiny")
-    ap.add_argument("--seq", type=int, default=64, help="tokens a sequence")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--out", default=None, help="write the run summary JSON here")
-    ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="write a Chrome/Perfetto trace of the run here: the observed spans plus "
-                    "the simulator's predicted timeline of the final plan")
-    args = ap.parse_args(argv)
-
-    sc = build_fig10_scenario(
-        num_stages=args.stages, seq_len=args.seq, seed=args.seed,
-        gpt=args.gpt, device=args.device,
-    )
-    t0 = time.time()
-    summary = sc.coordinator.run(args.iterations)
+def _report(sc: Fig10Scenario, summary: RunSummary, t0: float, trace: str | None) -> dict:
+    """The run's summary (:func:`summarize` and its wall seconds); with
+    ``trace``, the run's spans and the simulator's predicted timeline of the
+    final plan written there."""
     out = summarize(sc, summary)
     out["wall_seconds"] = round(time.time() - t0, 2)
-    if args.trace:
+    if trace:
         for rec in sc.tuner.history:
             sc.obs.trace.add_instant(
                 "coordinator/tuner", f"decision {rec.chosen}", rec.time,
@@ -412,17 +482,98 @@ def main(argv=None) -> int:
                 rejected=[{"name": n, "estimate": e, "reason": r} for n, e, r in rec.rejected_candidates],
             )
         render_simulated_trace(sc.runtime.current_table.plan, sc.costs, sc.network, recorder=sc.obs.trace)
-        sc.obs.trace.save(args.trace)
-        print(f"wrote trace {args.trace}")
+        sc.obs.trace.save(trace)
+        print(f"wrote trace {trace}")
+    return out
+
+
+def fig10_rank(group, iterations: int, scenario: dict, checks: Callable | None = None, trace: str | None = None):
+    """One rank of :func:`run_fig10_spmd`: build the scenario on this rank
+    (``scenario``: :func:`build_fig10_scenario`'s keywords), then run it
+    (global rank 0: the coordinator's ``iterations``, the summary, then
+    ``checks(sc)`` if given, whose result joins the summary as ``checks``)
+    or follow rank 0 (the others).  Returns rank 0's summary,
+    ``None`` elsewhere."""
+    sc = build_fig10_scenario(backend="spmd", group=group, **scenario)
+    if group.rank:
+        sc.runtime.follow(sc.batch)
+        sc.runtime.cache.shutdown()
+        return None
+    t0 = time.time()
+    summary = sc.coordinator.run(iterations)
+    out = _report(sc, summary, t0, trace)
+    if checks is not None:
+        out["checks"] = checks(sc)
+    sc.runtime.stop()
+    sc.runtime.cache.shutdown()
+    return out
+
+
+def run_fig10_spmd(
+    iterations: int = 14,
+    num_stages: int = 4,
+    seq_len: int = 64,
+    seed: int = 0,
+    gpt: str | None = None,
+    num_layers: int | None = None,
+    device=None,
+    checks: Callable | None = None,
+    trace: str | None = None,
+) -> dict:
+    """The Fig-10 scenario on the ``spmd`` backend: ``num_stages`` ranks, one
+    process each, on ``device`` (the card unless given ``"cpu"``).  Returns
+    global rank 0's summary (:func:`fig10_rank`).  ``checks``, a
+    module-level function, runs on rank 0 after the run while the other
+    ranks still follow (e.g. :func:`grad_parity`)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        build.build(flash_ops.SOURCE)  # once, here: the ranks load it
+    scenario = dict(num_stages=num_stages, seq_len=seq_len, seed=seed, gpt=gpt, num_layers=num_layers)
+    return ranks.spawn(
+        fig10_rank, num_stages, args=(iterations, scenario, checks, trace), device=dev.type, timeout=None
+    )[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--iterations", type=int, default=14)
+    ap.add_argument("--stages", type=int, default=4)
+    ap.add_argument("--backend", choices=("reference", "spmd"), default="reference",
+                    help="one process (reference) or one process per stage (spmd)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gpt", default=None, choices=sorted(GPT_CONFIGS),
+                    help="train this Table-1 GPT config at full size instead of runtime-tiny")
+    ap.add_argument("--seq", type=int, default=64, help="tokens a sequence")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default=None, help="write the run summary JSON here")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Chrome/Perfetto trace of the run here: the observed spans (rank 0's "
+                    "under spmd) plus the simulator's predicted timeline of the final plan")
+    args = ap.parse_args(argv)
+
+    kw = dict(num_stages=args.stages, seq_len=args.seq, seed=args.seed, gpt=args.gpt)
+    if args.backend == "spmd":
+        out = run_fig10_spmd(args.iterations, device=args.device, trace=args.trace, **kw)
+    else:
+        sc = build_fig10_scenario(device=args.device, **kw)
+        t0 = time.time()
+        out = _report(sc, sc.coordinator.run(args.iterations), t0, args.trace)
+        sc.runtime.cache.shutdown()
 
     print("decision trail:")
     for d in out["decision_trail"]:
         print(f"  t={d['t']:7.1f}  {d['chosen']:30s} kind={d['kind']}")
+    print(f"backend {out['backend']}: {out['ranks']} rank(s), transport {out['transport']}, device {out['device']}")
     print(f"kind switches: {out['kind_switches']}")
     print(f"precompile hit rate: {out['precompile_hit_rate']:.2f}  (cache: {out['cache']})")
     if out["warm_switch_latency_frac"] is not None:
         print(f"warm switch latency: median trace span = {100 * out['warm_switch_latency_frac']:.2f}% of a "
               f"{out['mean_iteration_seconds'] * 1e3:.0f} ms iteration")
+    for e in out["switch_events"]:
+        moved = "".join(f"; rank {r['rank']} sent {r['bytes_sent']} B, received {r['bytes_received']} B"
+                        for r in e["ranks"] or [])
+        print(f"switch at iteration {e['iteration']}: {e['from_plan'] or '-'} -> {e['to_plan']}, "
+              f"{1e3 * e['seconds']:.1f} ms, restacked {e['restacked']}{moved}")
     print(f"model drift ratio: {out['model_drift_ratio']:.3f} ({out['drift_samples']} samples; "
           f"1.0 = perfect cost model)")
     print(f"probes run/total: {out['probe_rounds_run']}/{out['probe_rounds_total']}  "
@@ -430,13 +581,14 @@ def main(argv=None) -> int:
     for name, p in out["per_plan"].items():
         print(f"plan {name}: {p['iterations']} iterations, step p50 {p['step_ms_p50']:.1f} ms, "
               f"K1 launches {p['flash_launches']}")
+        for r, items in enumerate(p.get("per_rank_ms_p50", [])):
+            print(f"  rank {r}: " + ", ".join(f"{k} {items[k]:.1f} ms" for k in RANK_ITEMS))
     print(f"loss {out['losses'][0]:.3f} -> {out['losses'][-1]:.3f}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1, default=str)
             f.write("\n")
         print(f"wrote {args.out}")
-    sc.runtime.cache.shutdown()
     return 0
 
 

@@ -20,7 +20,9 @@ of non-blocking sends and receives per call, posted in the caller's order
 (the engine posts one batch a tick, in a fixed channel order, so gloo's
 (peer, tag) matching and NCCL's posting-order matching agree).  A receive
 handle's :meth:`Recv.wait` returns the payload on the rank's device.
-:meth:`RankGroup.all_reduce_sum` sums over the stage or the data group.
+:meth:`RankGroup.all_reduce_sum` sums over the stage or the data group;
+:meth:`RankGroup.broadcast_object` and :meth:`RankGroup.gather_object`
+carry small pickled commands and records over the world.
 Every transfer, and every task the engine runs, is a span on the rank's
 clock (:meth:`RankGroup.span`): blocked in receives and in sends, staging
 copies, reduces, compute.  On the card a span is a pair of CUDA events on
@@ -213,6 +215,20 @@ class RankGroup:
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+    def broadcast_object(self, obj: Any = None) -> Any:
+        """Global rank 0's ``obj`` (pickled; a small command) on every rank of
+        the world.  Every rank must call it."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def gather_object(self, obj: Any) -> list | None:
+        """Every rank's ``obj`` (pickled; small records) on global rank 0, in
+        rank order; ``None`` elsewhere.  Every rank must call it."""
+        out: list = [None] * (self.S * self.D)
+        dist.all_gather_object(out, obj)
+        return out if self.rank == 0 else None
 
 
 def _join(S: int, D: int, rank: int, init_file: str, device_type: str) -> RankGroup:

@@ -1,14 +1,15 @@
-"""Live plan-switch runtime: the adaptive loop on the port's reference engine.
+"""Live plan-switch runtime: the adaptive loop on the port's engines.
 
-Port of ``repro.runtime`` (the reference backend; the fabric comes with
-ROADMAP queue 1, item 8):
+Port of ``repro.runtime`` (the reference and spmd backends; the fabric
+comes with ROADMAP queue 1, item 8):
 
 ``compile_cache``  step programs keyed by the lowered ``TabularPlan``, built
                    on a background worker for the tuner's top-N candidates
 ``executor``       :class:`PlanRuntime`: owns parameters and AdamW state,
                    switches plans at iteration boundaries across schedule
                    kinds, restacking the layout bitwise at the interleaved
-                   boundary
+                   boundary (across the ranks under spmd, wherever the
+                   placement changes)
 ``telemetry``      the per-iteration timing bus; simulated iteration lengths
                    feed ``NetworkProfiler``'s windows passively
 ``harness``        ``RealEngineHarness``: the coordinator's hook that mirrors
@@ -21,6 +22,7 @@ from repro_torch.runtime.executor import (
     IterationResult,
     PlanRuntime,
     SwitchEvent,
+    restack_across_ranks,
     restack_train_state,
 )
 from repro_torch.runtime.harness import HarnessRecord, RealEngineHarness
@@ -40,6 +42,7 @@ __all__ = [
     "PlanRuntime",
     "SwitchEvent",
     "restack_train_state",
+    "restack_across_ranks",
     "HarnessRecord",
     "RealEngineHarness",
     "IterationTiming",

@@ -1,6 +1,8 @@
 """RealEngineHarness: the Fig-10 loop with real gradients.
 
-Port of ``repro/runtime/harness.py`` (unchanged but for the imports).
+Port of ``repro/runtime/harness.py`` (unchanged but for the imports, and
+the batch's index passed with its tokens: under the ``spmd`` backend every
+rank draws that batch itself).
 
 The :class:`~repro_torch.core.coordinator.Coordinator` remains the clock of the
 adaptive experiment — it advances simulated network time, invokes the
@@ -86,7 +88,7 @@ class RealEngineHarness:
         if switched:
             self.runtime.switch_to(table)
         tokens, labels = self.batch_fn(rec.index)
-        result: IterationResult = self.runtime.run_iteration(tokens, labels)
+        result: IterationResult = self.runtime.run_iteration(tokens, labels, batch_index=rec.index)
         out = HarnessRecord(
             index=rec.index,
             plan_name=result.plan_name,

@@ -91,6 +91,8 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_adaptive.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_adaptive.main(["--iterations", "1", "--backend", "spmd"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         SyntheticTextDataset(64, 8, 2).batch_at(0)
 
 
