@@ -43,7 +43,25 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
                 one profiled step; the loss is finite and falls, and K1 ran
                 M*L*(2S-1)/S = 448 times a step
-10. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width and
+10. calibrate   GPT-2.7B at full width and depth calibrated through
+                ``repro_torch.launch.dryrun_pipeline.calibrate`` (S=4, the
+                adaptive phase's micro-batch b=2 x T=1024, seed 0), once
+                priced on specs/h100-sxm.json (the four task programs of each
+                stage counted on the meta device, the offline tune) and once
+                timed with CUDA events on the card (K1 in every stage
+                forward).  Gates: finite, positive counts and seconds; each
+                program counted through K1 on the card moves the bytes the
+                record counted on meta, and counts the FLOPs counted through
+                the plain attention (fwd) or those plus one plain attention
+                forward a layer (the backward programs' recompute); each fwd
+                equals its closed form; the last stage's bwd_input and
+                bwd_weight exceed every middle stage's and bwd_weight_saved <
+                bwd_weight everywhere, under both methods; K1 launched
+                S * L/S * 4 programs * (warmup + repeats) times in the
+                wall-clock run.  Spec and wall-clock ms per program with the
+                spread of the timed runs, the warmup vectors and the
+                tuner's choice on both costs are printed
+11. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width and
                 depth trained through ``repro_torch.launch.train_adaptive``'s
                 Fig-10 scenario (S=4, M=4 micro-batches of 2 x 1024 tokens,
                 the tuner choosing among 1F1B, 2F2B, ZB-H1, ZB-H2(w=2) and
@@ -56,13 +74,13 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 often as the plan's grid says; and the switched and
                 restacked state's gradients agree with autograd of the
                 unpipelined ``full_loss``
-11. ranks-model the multi-rank engine (one process per stage) on the
+12. ranks-model the multi-rank engine (one process per stage) on the
                 pipeline-model cut (4 layers, full width, S=2 ranks, M=4 x
                 1 x 512) under pipeline-model's plans and zbv: the gradients
                 gathered to rank 0 against autograd of ``full_loss``, and
                 beside the one-process engine's; K1 launches summed over the
                 ranks equal the grid's attention forwards
-12. ranks       GPT-2.7B at full width and depth trained through
+13. ranks       GPT-2.7B at full width and depth trained through
                 ``repro_torch.launch.train.run_pipeline`` on S=4 ranks (kfkb
                 k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps, seed 0):
                 the first loss equals the pipeline phase's, the loss falls,
@@ -75,7 +93,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the card by time-slicing: a correctness check on the card,
                 not a deployment's step time.  Under four cards they run
                 under NCCL, a card each.
-13. adaptive-ranks-model
+14. adaptive-ranks-model
                 PlanRuntime's spmd backend on GPT-2.7B at full width cut to
                 8 layers, S=4 ranks, M=4 micro-batches of 2 x 1024 tokens,
                 one iteration each of kfkb k=1, zb_h1, interleaved_zb v=2,
@@ -89,7 +107,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 of full_loss; K1
                 launches summed over the ranks equal the grid's attention
                 forwards
-14. adaptive-ranks
+15. adaptive-ranks
                 the adaptive phase's Fig-10 scenario through
                 ``train_adaptive.run_fig10_spmd`` on S=4 ranks (one card:
                 gloo, the ranks time-slicing it; four cards: NCCL, a card a
@@ -111,8 +129,9 @@ Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
 
 The line before the last is a JSON object with every kernel's figures (K1's
-also per main path: serving, pipeline training, the adaptive loop, the
-ranks and the adaptive loop on the ranks, each at its own shape);
+also per main path: serving, pipeline training, the calibration, the
+adaptive loop, the ranks and the adaptive loop on the ranks, each at its
+own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,16 +152,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "adaptive",
-    "ranks-model", "ranks", "adaptive-ranks-model", "adaptive-ranks",
+    "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "calibrate",
+    "adaptive", "ranks-model", "ranks", "adaptive-ranks-model", "adaptive-ranks",
 )
 
-#: published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet;
-#: specs/h100-sxm.json): per input type, and TF32 (the tensor cores on fp32
-#: operands rounded to 10 mantissa bits) apart
-H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
-H100_TF32_FLOPS = 494e12
+#: the device spec of one H100 SXM (published dense peaks at its 700 W
+#: limit), read by the port's loader: bytes/s of HBM, and FLOP/s per input
+#: type with TF32 (the tensor cores on fp32 operands rounded to 10 mantissa
+#: bits) apart
+H100_SPEC = os.path.join(ROOT, "specs", "h100-sxm.json")
 
 #: kernel vs plain version, as allclose(atol=tol, rtol=tol).  bf16/fp16 (the
 #: mma route): the FLASH_CASES tolerance of repro's kernel tests (one output
@@ -186,9 +204,11 @@ FLASH_CASES = [
 ]
 TIMED_CASE = "gpt2.7b_t512"
 #: K1's shape on each main path: the longest serving prefill, one pipeline
-#: micro-batch, one adaptive micro-batch, one micro-batch on the ranks
+#: micro-batch, one calibrated or adaptive micro-batch, one micro-batch on
+#: the ranks
 PATH_CASES = {
-    "serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
+    "serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "calibrate": "gpt2.7b_train_b2_t1024",
+    "adaptive": "gpt2.7b_train_b2_t1024",
     "ranks": "gpt2.7b_train_t1024", "adaptive-ranks": "gpt2.7b_train_b2_t1024",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
@@ -268,6 +288,14 @@ PIPE_MODEL_PLANS = (
 #: batch 8 x 1024 tokens in M = 8 micro-batches (b = 1)
 PIPE_STAGES, PIPE_K = 4, 2
 PIPE_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=8, lr=1e-4, warmup=2)
+#: the calibrate phase: GPT-2.7B at full size in S = 4 stages, the adaptive
+#: phase's micro-batch (b = 2 x T = 1024); the config's fp32 parameters and
+#: bf16 compute, drawn from seed 0 (core/calibrate.py's SEED); the two
+#: methods it runs
+CALIBRATE_ARGS = dict(config="GPT-2.7B", S=4, b_mb=2, seq=1024)
+CALIBRATE_METHODS = ("spec", "wallclock")
+#: calibrate check, each stage's fwd FLOPs against the closed form (relative)
+CALIBRATE_FLOPS_TOL = 1e-9
 #: the adaptive phase: repro's Fig-10 scenario (train_adaptive.build_fig10_scenario)
 #: with GPT-2.7B at full size, sequences of 1024 tokens, 14 coordinator iterations
 ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
@@ -424,14 +452,24 @@ def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     raise AssertionError(f"{DEVICE_TRACES} traces recorded no device time")
 
 
+def _h100():
+    """The H100's spec (specs/h100-sxm.json through the port's loader) and a
+    function from a torch dtype to its peak FLOP/s."""
+    from repro_torch.core.devicespec import dtype_key, load_device_spec
+
+    spec = load_device_spec(H100_SPEC)
+    return spec, lambda dtype: spec.peak_flops_for(dtype_key(dtype))
+
+
 def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, str]:
     """max(bytes / HBM rate, FLOPs / peak) for the pairs this mask keeps."""
     from repro_torch.kernels.flash_attention import ref
 
+    spec, peak = _h100()
     pairs = int(ref.causal_window_mask(T, S, causal, window).sum())
     flops = 4.0 * hd * pairs * B * H  # q.k and p.v, 2 FLOP per MAC
     nbytes = (2 * B * T * H * hd + 2 * B * S * K * hd) * torch.finfo(dtype).bits / 8
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / spec.hbm_bandwidth_bytes_per_s, flops / peak(dtype)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -528,16 +566,17 @@ def _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype) -> tuple[float, str]:
     four in fp32 FMA."""
     from repro_torch.kernels.ssd_scan import ops
 
+    spec, peak = _h100()
     xb, bcb = torch.finfo(x_dtype).bits / 8, torch.finfo(bc_dtype).bits / 8
     nbytes = 2 * B * T * H * P * xb + 4 * B * T * H + 2 * B * T * N * bcb + 4 * H
     tri = Q * (Q + 1) / 2
     triples = B * H * (T // Q)
     cb, rest = triples * 2.0 * tri * N, triples * 2.0 * (tri * P + 2 * Q * P * N)
     if ops.route(x_dtype, bc_dtype, P, N, Q) == "mma":
-        t_ops = cb / H100_FLOPS[torch.bfloat16] + rest / H100_TF32_FLOPS
+        t_ops = cb / peak(torch.bfloat16) + rest / spec.peak_flops_for("tf32")
     else:
-        t_ops = (cb + rest) / H100_FLOPS[torch.float32]
-    t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = (cb + rest) / peak(torch.float32)
+    t_bytes = nbytes / spec.hbm_bandwidth_bytes_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -865,6 +904,127 @@ def phase_pipeline() -> int:
     if not s["losses"][-1] < s["losses"][0]:
         raise AssertionError("the loss did not fall")
     return launches, s["losses"][0]
+
+
+def _gpt_fwd_flops(cfg, layers: int, b: int, T: int) -> int:
+    """A stage's fwd FLOPs in closed form: per layer the q, k, v, o and the
+    two MLP products, 2 * (4 d^2 + 2 d d_ff) * b T, and the attention's two
+    products over the full T x T square, 4 b H T^2 hd.  The embedding is a
+    gather (no products); the tied head runs inside the last stage's
+    backward programs, not in its fwd."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return layers * (2 * (4 * d * d + 2 * d * ff) * b * T + 4 * b * cfg.num_heads * T * T * cfg.hd)
+
+
+def phase_calibrate() -> int:
+    import types
+
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.core import StageCosts, WorkloadProfile, derive_memory_model
+    from repro_torch.core import calibrate as calib
+    from repro_torch.core.devicespec import TASK_PROGRAMS
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.launch import dryrun_pipeline
+    from repro_torch.pipeline.stage import StagedModel
+
+    name, S, b, T = (CALIBRATE_ARGS[k] for k in ("config", "S", "b_mb", "seq"))
+    cfg = GPT_CONFIGS[name]
+    L = cfg.num_layers // S
+    spec, _ = _h100()
+    out = os.path.join(ROOT, "build", "calibrate")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec, launches = {}, None
+    for method in CALIBRATE_METHODS:
+        ops.launches = 0
+        rec[method] = dryrun_pipeline.calibrate(name, S, b, T, os.path.join(out, method), method=method, device="cuda")
+        if method == "wallclock":
+            launches = ops.launches
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {m: WorkloadProfile.from_json(r["workload"]).counts for m, r in rec.items()}
+
+    # each program counted as it runs through K1 on the card, against the
+    # record's counts (FLOPs through the plain attention, bytes through K1, on meta)
+    staged = StagedModel.build(cfg, S)
+    k1_counts = [calib.count_programs(staged, s, b, T, device="cuda") for s in range(S)]
+    torch.cuda.empty_cache()
+    recompute = L * flash_ref.train_attention_flops(b, T, T, cfg.num_heads, cfg.hd)
+
+    peak_flops = spec.peak_flops_for(rec["spec"]["dtype"])
+    log(f"calibrate {name} (S={S}, {L} layers a stage, b={b} x T={T}, bf16 compute) on {rec['spec']['card']}: "
+        f"spec {rec['spec']['device']}, wall clock {rec['wallclock']['device']}; "
+        f"{seconds:.1f} s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    log("  stage program           GFLOP    HBM GB  spec ms  FLOP-only ms  wall ms  wall/spec  "
+        "spread %  K1 GFLOP")
+    for s in range(S):
+        for p in TASK_PROGRAMS:
+            c = counts["spec"][s][p]
+            spec_ms, wall_ms = 1e3 * rec["spec"][f"{p}_time"][s], 1e3 * rec["wallclock"][f"{p}_time"][s]
+            runs = rec["wallclock"]["repeat_seconds"][p][s]
+            spread = 100 * (max(runs) - min(runs)) / (sum(runs) / len(runs))
+            log(f"  {s:5d} {p:16s} {c.flops / 1e9:9.3f} {c.hbm_bytes / 1e9:9.3f} {spec_ms:8.3f} "
+                f"{1e3 * c.flops / peak_flops:13.3f} {wall_ms:8.3f} {wall_ms / spec_ms:10.2f} "
+                f"{spread:9.2f} {k1_counts[s][p].flops / 1e9:9.3f}")
+            log(f"        timed runs (ms): {[round(1e3 * r, 3) for r in runs]}")
+    for m, r in rec.items():
+        log(f"  {m}: admitted warmup vector {r['admitted_warmup_vector']} under limits "
+            f"{[round(x / 2**30, 2) for x in r['limit_curve']]} GiB")
+
+    # the tuner on the spec's costs, and on the card's wall-clock costs (the
+    # spec's limits and link bandwidth: only the costs are swapped)
+    wall = rec["wallclock"]
+    wall_costs = StageCosts(
+        fwd_time=wall["fwd_time"],
+        bwd_time=[bi + bw for bi, bw in zip(wall["bwd_input_time"], wall["bwd_weight_time"])],
+        fwd_bytes=wall["fwd_bytes"], bwd_bytes=wall["fwd_bytes"],
+        bwd_input_time=wall["bwd_input_time"], bwd_weight_time=wall["bwd_weight_time"],
+        bwd_weight_saved_time=wall["bwd_weight_saved_time"],
+    )
+    on_card = types.SimpleNamespace(
+        costs=wall_costs, limits=spec.limit_curve(S),
+        memory=derive_memory_model(WorkloadProfile.from_json(rec["spec"]["workload"])),
+    )
+    tuned_card = dryrun_pipeline._tune_on_spec(on_card, spec, S, b)
+    for label, tuned in (("spec costs", rec["spec"]["tuned"]), ("wall-clock costs", tuned_card)):
+        est = tuned["estimates"][tuned["chosen"]["name"]]
+        log(f"  tuner on the {label}: {tuned['chosen']['name']} (estimate {1e3 * est:.3f} ms of "
+            f"{len(tuned['candidates'])} candidates)")
+    log(f"flash launches on the calibrate path (the wall-clock run): {launches}")
+
+    # gates
+    for m in CALIBRATE_METHODS:
+        r = rec[m]
+        for s in range(S):
+            for p in TASK_PROGRAMS:
+                c, t = counts[m][s][p], r[f"{p}_time"][s]
+                if not all(math.isfinite(x) and x > 0 for x in (c.flops, c.hbm_bytes, t)):
+                    raise AssertionError(f"{m}: stage {s} {p} has a count or time that is not finite and positive")
+            if not r["bwd_weight_saved_time"][s] < r["bwd_weight_time"][s]:
+                raise AssertionError(f"{m}: stage {s} bwd_weight_saved is not below bwd_weight")
+        for p in ("bwd_input", "bwd_weight"):
+            if not r[f"{p}_time"][-1] > max(r[f"{p}_time"][1:-1]):
+                raise AssertionError(f"{m}: the last stage's {p} does not exceed every middle stage's")
+    for s in range(S):
+        for p in TASK_PROGRAMS:
+            k1, c = k1_counts[s][p], counts["spec"][s][p]
+            extra = 0 if p == "fwd" else recompute
+            if k1.flops != c.flops + extra:
+                raise AssertionError(f"stage {s} {p}: {k1.flops} FLOPs through K1, {c.flops} through the "
+                                     f"plain attention, {extra} recomputed by the backward")
+            if k1.hbm_bytes != c.hbm_bytes:
+                raise AssertionError(f"stage {s} {p}: {k1.hbm_bytes} bytes through K1 on the card, "
+                                     f"{c.hbm_bytes} counted on meta")
+        want = _gpt_fwd_flops(cfg, L, b, T)
+        if abs(counts["spec"][s]["fwd"].flops - want) > CALIBRATE_FLOPS_TOL * want:
+            raise AssertionError(f"stage {s} fwd: {counts['spec'][s]['fwd'].flops} FLOPs, closed form {want}")
+    # every program but W(SR) runs the stage forward in its timed body,
+    # W(SR) in the B it replays from (its untimed setup): each once a run
+    want = S * len(TASK_PROGRAMS) * L * (calib.WARMUP + calib.REPEATS)
+    if launches != want:
+        raise AssertionError(f"K1 ran {launches} times in the wall-clock calibration, the programs imply {want}")
+    return launches
 
 
 def phase_adaptive() -> int:
@@ -1492,6 +1652,10 @@ def main(argv=None) -> int:
             launches, pipeline_first_loss = phase_pipeline()
             if kernels:
                 kernels["flash"]["per_path"]["pipeline"]["launches"] = launches
+        elif name == "calibrate":
+            launches = phase_calibrate()
+            if kernels:
+                kernels["flash"]["per_path"]["calibrate"]["launches"] = launches
         elif name == "adaptive":
             launches, adaptive_first_loss = phase_adaptive()
             if kernels:

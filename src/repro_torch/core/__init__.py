@@ -6,8 +6,10 @@
     tuner     = AutoTuner(cands, stage_costs_for, NetworkProfiler(net))
     summary   = Coordinator(tuner, net, B, interval).run(iters)
 
-Not copied yet: calibration (``calibrate.py``, ``devicespec.py``; ROADMAP
-queue 1, item 3) and the ASCII renderer (``viz.py``).
+Device specs (``devicespec.py``) are exported here.  Calibration runs the
+engines' task bodies, so it imports torch and the pipeline: import it from
+``repro_torch.core.calibrate``.  Not copied yet: the ASCII renderer
+(``viz.py``).
 """
 
 from repro_torch.core.candidates import (
@@ -22,6 +24,16 @@ from repro_torch.core.coordinator import (
     shifted_network,
 )
 from repro_torch.core.costmodel import CostModel, closed_form_1f1b_length, link_probe_specs
+from repro_torch.core.devicespec import (
+    DeviceSpec,
+    DeviceSpecError,
+    ProgramCounts,
+    WorkloadProfile,
+    derive_memory_model,
+    derive_stage_costs,
+    load_device_spec,
+    load_workload_profile,
+)
 from repro_torch.core.interfaces import IterationHook, TelemetrySink
 from repro_torch.core.kinds import (
     KindSpec,
@@ -85,6 +97,14 @@ __all__ = [
     "CostModel",
     "closed_form_1f1b_length",
     "link_probe_specs",
+    "DeviceSpec",
+    "DeviceSpecError",
+    "ProgramCounts",
+    "WorkloadProfile",
+    "derive_memory_model",
+    "derive_stage_costs",
+    "load_device_spec",
+    "load_workload_profile",
     "IterationHook",
     "TelemetrySink",
     "KindSpec",
@@ -135,3 +155,4 @@ __all__ = [
     "AutoTuner",
     "TuningRecord",
 ]
+

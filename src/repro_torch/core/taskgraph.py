@@ -48,7 +48,7 @@ class StageCosts:
       last stage's B carries the vocab-projection backward, attention-heavy
       stages skew toward W — so production profiles should come from
       :func:`repro_torch.core.calibrate.calibrate_stage_costs`, which fills the
-      split from the compiled stage bodies instead of this default.
+      split from the engines' stage bodies instead of this default.
     * ``bwd_weight_saved_time[s]`` — the W body under
       ``zb_policy="saved_residual"``: a pure pullback reusing B's saved vjp
       residuals, no rematerialization.  Defaults to

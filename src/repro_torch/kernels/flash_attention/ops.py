@@ -25,6 +25,18 @@ has no backward kernel to port; ``repro`` trains through the plain
 attention.  Without a gradient to take (``torch.no_grad()``, or no input
 that requires one) it runs the forward alone and saves nothing.
 
+The training forward is the custom operator
+``repro_torch::flash_attention_train``, so that an operation counter
+(``torch.utils.flop_counter.FlopCounterMode``, which cannot see into a
+``ctypes`` launch) counts it by its FLOP formula: the plain training
+attention's two products over the full T x S square
+(:func:`ref.train_attention_flops`), whatever implements it.  A forward
+without a gradient so counts the same FLOPs through the kernel as through
+the plain attention.  Under autograd the backward recomputes the plain
+attention and differentiates it, and counters see that as it runs: the
+kernel's route counts one forward more than the plain attention, which
+keeps its probabilities for the backward instead.
+
 What bounds the kernel on this card, and what its design does about it, is
 in the note at the top of the CUDA source: at the serving shapes the bound
 is the bytes of q/k/v/o; the kernel reads them once through strides (no
@@ -40,6 +52,7 @@ import math
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import check_cp_async
@@ -152,10 +165,22 @@ def _launch(q, k, v, causal: bool, window: int | None):
     return out
 
 
-def _train_forward(q, k, v, causal: bool, window: int | None):
+@torch.library.custom_op("repro_torch::flash_attention_train", mutates_args=())
+def _train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
     if q.device.type == "cpu":
         return _ref.train_attention(q, k, v, causal=causal, window=window)
     return _launch(q, k, v, causal, window)
+
+
+@_train_forward.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_train)
+def _train_forward_flops(q_shape, k_shape, v_shape, causal, window, out_shape=None, **kwargs) -> int:
+    B, T, H, hd = q_shape
+    return _ref.train_attention_flops(B, T, k_shape[1], H, hd)
 
 
 class _FlashTrain(torch.autograd.Function):

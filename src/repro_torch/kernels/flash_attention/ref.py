@@ -27,11 +27,14 @@ __all__ = [
     "causal_window_mask",
     "chunked_attention",
     "train_attention",
+    "train_attention_flops",
     "CHUNKED_ATTN_THRESHOLD",
 ]
 
 #: query length at and above which the training attention runs in chunks
 CHUNKED_ATTN_THRESHOLD = 2048
+#: query tokens a chunk of :func:`chunked_attention` holds (at most)
+Q_CHUNK = 512
 
 
 def causal_window_mask(T: int, S: int, causal: bool, window: int | None, device=None):
@@ -69,7 +72,7 @@ def attention(q, k, v, causal: bool = True, window: int | None = None):
     return _attend(q, k, v, causal_window_mask(T, S, causal, window, q.device))
 
 
-def chunked_attention(q, k, v, causal: bool = True, window: int | None = None, q_chunk: int = 512):
+def chunked_attention(q, k, v, causal: bool = True, window: int | None = None, q_chunk: int = Q_CHUNK):
     """:func:`attention` over query chunks (the reference's ``lax.map``
     written as a loop): T is padded to a multiple of ``q_chunk``, and chunk
     ``i`` holds the queries at key positions ``i * q_chunk + j + S - T``."""
@@ -93,3 +96,14 @@ def train_attention(q, k, v, causal: bool = True, window: int | None = None):
     if q.shape[1] >= CHUNKED_ATTN_THRESHOLD:
         return chunked_attention(q, k, v, causal=causal, window=window)
     return attention(q, k, v, causal=causal, window=window)
+
+
+def train_attention_flops(B: int, T: int, S: int, H: int, hd: int) -> int:
+    """FLOPs of :func:`train_attention`'s forward as an operation counter
+    counts its two products (2 per multiply-add): ``q.kT`` and ``p.v`` over
+    the full T x S square, masked or not, 2*B*H*T*S*hd each; from
+    :data:`CHUNKED_ATTN_THRESHOLD` query tokens up over T padded to a
+    whole number of chunks."""
+    if T >= CHUNKED_ATTN_THRESHOLD:
+        T = -(-T // Q_CHUNK) * Q_CHUNK
+    return 4 * B * H * T * S * hd
