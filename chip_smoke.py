@@ -13,8 +13,9 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the main paths' shapes and at the edge cases (each case logs
                 the route it took: "mma", tensor cores, or "fma"), then timed
                 beside the plain version and the PyTorch library call
-                (yardstick only; K2 has none); K1 at all three serving
-                lengths
+                (yardstick only; K2 has none); K1 at all four serving
+                lengths (16 tokens: serve-adaptive's prompts, under one
+                query tile)
 4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
                 through K1 and through the plain attention; logits and greedy
                 tokens agree
@@ -22,8 +23,32 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 micro-batch through K2 and through the plain SSD agree
 6. serve        GPT-2.7B at full width and depth served through
                 ``repro_torch.launch.serve_decode``: 16 requests over 8 slots
-                on an M=4 x b=2 grid; every request completes, no NaN, and K1
-                ran once per layer per prefill
+                on an M=4 x b=2 grid (repro's static 1F1B baseline, admissions
+                on its simulated prices); every request completes, no NaN,
+                and K1 ran once per layer per prefill
+6a. serve-adaptive
+                Ada-Grouper's adaptive serving: ``launch/serve_adaptive``'s
+                adaptive-vs-static comparison (repro's Fig-10 serving world,
+                24 requests, seed 0, ticks priced on specs/h100-sxm.json)
+                with GPT-2.7B at full size behind each run, every tuner
+                decision switched live into the engine through the
+                stateless PlanRuntime.  Gates: every request completes with
+                exactly its max_new_tokens; no non-finite logit; every
+                simulated number (the decision trail, the quantiles) equals
+                the engine-free run's, and the trail crosses >= 2 kinds; the
+                bursty and exclusive regimes end on different plans; each
+                plan built once (cache misses = distinct plans dispatched,
+                every later switch a hit); K1 = prefills x 32 layers; every
+                request's first token equal in both runs.  The simulated
+                TTFT/token-latency p99 and SLO attainment, and the measured
+                prefill and per-plan decode tick p50, wall tokens/s, switch
+                seconds, peak memory and a traced tick are printed
+6b. serve-ssm   mamba2-780m at full size through ``serve_decode`` (8 slots,
+                M=4, 8 requests, prompts 64-128, 16-32 new tokens, max_len
+                160): every request completes, no non-finite logit, K2 never
+                runs (SSM serving is the recurrence); one request's fused
+                prefill bitwise equal, logits and state, to stepping
+                mamba_decode over its prompt on the card; a traced tick
 7. train        mamba2-780m at full width and depth trained through
                 ``repro_torch.launch.train``: 6 steps of batch 8 x 1024 tokens
                 in M=2 micro-batches; K2 ran once per layer per micro-batch,
@@ -129,9 +154,9 @@ Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
 
 The line before the last is a JSON object with every kernel's figures (K1's
-also per main path: serving, pipeline training, the calibration, the
-adaptive loop, the ranks and the adaptive loop on the ranks, each at its
-own shape);
+also per main path: serving, adaptive serving, pipeline training, the
+calibration, the adaptive loop, the ranks and the adaptive loop on the
+ranks, each at its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 from concurrent.futures import ThreadPoolExecutor
+import gc
 import json
 import math
 import os
@@ -152,8 +178,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "kernels", "model", "train-model", "serve", "train", "pipeline-model", "pipeline", "calibrate",
-    "adaptive", "ranks-model", "ranks", "adaptive-ranks-model", "adaptive-ranks",
+    "device", "build", "kernels", "model", "train-model", "serve", "serve-adaptive", "serve-ssm", "train",
+    "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
+    "adaptive-ranks",
 )
 
 #: the device spec of one H100 SXM (published dense peaks at its 700 W
@@ -181,11 +208,13 @@ REL_TOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 2e-6}
 #: hidden-state rounding flip moves a logit by a few bf16 ulps (7.8e-3 at 1.0)
 MODEL_TOL = 5e-2
 
-# (name, B, T, S, H, K, hd, dtype, causal, window); the first three are the
-# serving shapes of GPT-2.7B prefill (333 tests the ragged tile edge), the
-# fourth one micro-batch of the pipeline phase, the fifth one of the
-# adaptive phase
+# (name, B, T, S, H, K, hd, dtype, causal, window); the first is the
+# serve-adaptive phase's prefill (16 tokens, under one query tile), the next
+# three the serving shapes of GPT-2.7B prefill (333 tests the ragged tile
+# edge), then one micro-batch of the pipeline phase and one of the adaptive
+# phase
 FLASH_CASES = [
+    ("gpt2.7b_t16", 1, 16, 16, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t128", 1, 128, 128, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t333", 1, 333, 333, 32, 32, 80, torch.bfloat16, True, None),
     ("gpt2.7b_t512", 1, 512, 512, 32, 32, 80, torch.bfloat16, True, None),
@@ -203,16 +232,18 @@ FLASH_CASES = [
     ("fp16_window", 1, 333, 333, 8, 8, 80, torch.float16, True, 100),
 ]
 TIMED_CASE = "gpt2.7b_t512"
-#: K1's shape on each main path: the longest serving prefill, one pipeline
-#: micro-batch, one calibrated or adaptive micro-batch, one micro-batch on
-#: the ranks
+#: K1's shape on each main path: the longest serving prefill, the adaptive
+#: serving prefill, one pipeline micro-batch, one calibrated or adaptive
+#: micro-batch, one micro-batch on the ranks
 PATH_CASES = {
-    "serve": TIMED_CASE, "pipeline": "gpt2.7b_train_t1024", "calibrate": "gpt2.7b_train_b2_t1024",
-    "adaptive": "gpt2.7b_train_b2_t1024",
+    "serve": TIMED_CASE, "serve-adaptive": "gpt2.7b_t16", "pipeline": "gpt2.7b_train_t1024",
+    "calibrate": "gpt2.7b_train_b2_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
     "ranks": "gpt2.7b_train_t1024", "adaptive-ranks": "gpt2.7b_train_b2_t1024",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
-TIMED_FLASH = ("gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024")
+TIMED_FLASH = (
+    "gpt2.7b_t16", "gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024",
+)
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
 
@@ -296,6 +327,16 @@ CALIBRATE_ARGS = dict(config="GPT-2.7B", S=4, b_mb=2, seq=1024)
 CALIBRATE_METHODS = ("spec", "wallclock")
 #: calibrate check, each stage's fwd FLOPs against the closed form (relative)
 CALIBRATE_FLOPS_TOL = 1e-9
+#: the serve-adaptive phase: launch/serve_adaptive's comparison (repro's
+#: Fig-10 serving world, seed 0, ticks priced on specs/h100-sxm.json) with
+#: GPT-2.7B at full size behind each run (its ENGINE_ARGS: 4 stages, 8
+#: slots, max_len 80; 16-token prompts, 16-48 new tokens)
+SERVE_ADAPTIVE_ARGS = dict(max_requests=24, regime="fig10", seed=0, device_spec="h100-sxm")
+#: the serve-ssm phase: mamba2-780m at full size through serve_decode
+SERVE_SSM_ARGS = {
+    "config": "mamba2-780m", "slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "max-len": 160,
+    "prompt-len": (64, 128), "new-tokens": (16, 32),
+}
 #: the adaptive phase: repro's Fig-10 scenario (train_adaptive.build_fig10_scenario)
 #: with GPT-2.7B at full size, sequences of 1024 tokens, 14 coordinator iterations
 ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
@@ -783,17 +824,165 @@ def phase_serve() -> int:
     log(f"serve GPT-2.7B ({s['num_layers']} layers, d_model {s['d_model']}): "
         f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']} tokens, "
         f"prefill p50 {s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
-        f"{s['tokens_per_second']:.1f} tokens/s, max_memory_allocated "
+        f"{s['tokens_per_second_wall']:.1f} tokens/s (wall), max_memory_allocated "
         f"{s['max_memory_allocated'] / 2**30:.2f} GiB")
     log(f"flash launches on the serving path: {launches} "
         f"(prefill calls {s['prefill_calls']} x {s['num_layers']} layers)")
-    if s["requests_completed"] != s["requests"]:
+    if s["requests_completed"] < s["requests"]:
         raise AssertionError("not every request completed")
     if s["nonfinite_logits"]:
         raise AssertionError("non-finite logits during serving")
     if launches != s["prefill_calls"] * s["num_layers"] or launches == 0:
         raise AssertionError("the serving path did not run the flash kernel once per layer per prefill")
     return launches
+
+
+def _plans_built_once(engine) -> dict:
+    """The engine's compile cache against the plans it was switched to: each
+    plan built once (a miss), every later switch to it a hit."""
+    stats = engine.runtime.cache.stats
+    plans = [e.to_plan for e in engine.runtime.switch_events]
+    if stats.cold_misses != len(set(plans)) or stats.warm_hits != len(plans) - len(set(plans)):
+        raise AssertionError(f"compile cache {stats} over the plans dispatched {plans}")
+    return {"switches": len(plans), "plans": sorted(set(plans)), "misses": stats.cold_misses,
+            "hits": stats.warm_hits}
+
+
+def phase_serve_adaptive() -> int:
+    from repro_torch.configs.gpt import GPT_CONFIGS
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve_adaptive as sa
+    from repro_torch.launch.serve_decode import where_time_goes
+    from repro_torch.serve import ServeEngine
+
+    args = SERVE_ADAPTIVE_ARGS
+    free = sa.compare_adaptive_static(**args)  # the decision layer alone
+    regimes = sa.chosen_specs_by_regime(
+        max(12, args["max_requests"] // 3), seed=args["seed"], device_spec=args["device_spec"]
+    )
+    cfg = GPT_CONFIGS["GPT-2.7B"]
+    first = ServeEngine(cfg, seed=0, device="cuda", **sa.ENGINE_ARGS)
+    engines = (first, ServeEngine(cfg, params=first.params, device="cuda", **sa.ENGINE_ARGS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    out = sa.compare_adaptive_static(**args, engines=engines)
+    launches = ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    a, s = out["adaptive"], out["static"]
+    spec = f"specs/{args['device_spec']}.json"
+    log(f"serve-adaptive {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}), {sa.ENGINE_ARGS}, "
+        f"{args['max_requests']} requests, regime {args['regime']}, seed {args['seed']}")
+    log("  decision trail: " + ", ".join(f"t={d['t']} {d['chosen']}" for d in a["decision_trail"]))
+    log(f"  kinds chosen {a['kinds_chosen']}; bursty final {regimes['bursty']['final']}, "
+        f"exclusive final {regimes['exclusive']['final']}")
+    for key, what in (("ttft_p99", "TTFT p99"), ("token_latency_p99", "token-latency p99")):
+        log(f"  {what} (simulated, priced on {spec}): adaptive {1e3 * a[key]:.3f} ms, static {1e3 * s[key]:.3f} ms")
+    log(f"  SLO attainment (simulated, {spec}): adaptive {a['slo_attainment']:.3f}, static {s['slo_attainment']:.3f}")
+    for run, r, eng in (("adaptive", a, engines[0]), ("static", s, engines[1])):
+        sw = sorted(r["switch_seconds"])
+        per_plan = ", ".join(f"{n} {ms:.3f}" for n, ms in r["decode_tick_ms_p50_by_plan"].items())
+        log(f"  {run} (measured): {r['requests_completed']} requests, {r['tokens']:.0f} tokens, {r['ticks']} ticks "
+            f"({r['prefill_calls']} prefills); prefill p50 {r['prefill_ms_p50']:.3f} ms at T = 16, decode tick p50 "
+            f"{r['decode_tick_ms_p50']:.3f} ms ({per_plan}), {r['tokens_per_second_wall']:.2f} tokens/s (wall), "
+            f"switch seconds median {1e3 * sw[len(sw) // 2]:.4f} ms, max {1e3 * sw[-1]:.4f} ms; "
+            f"cache {_plans_built_once(eng)}")
+    log(f"  max_memory_allocated {peak / 2**30:.2f} GiB (both engines, one weight copy)")
+    log(f"  whole outputs equal in {out['outputs_equal_share']:.3f} of the {out['requests_completed_by_both']} "
+        f"requests both runs completed (printed, not gated: the batches differ); first tokens equal "
+        f"{out['first_tokens_equal']}")
+    want_launches = (a["prefill_calls"] + s["prefill_calls"]) * cfg.num_layers
+    log(f"flash launches on the serve-adaptive path: {launches} ((prefill calls {a['prefill_calls']} + "
+        f"{s['prefill_calls']}) x {cfg.num_layers} layers = {want_launches})")
+    for run, r in (("adaptive", a), ("static", s)):
+        if not r["requests_completed_exactly"] == r["requests_completed"] >= args["max_requests"]:
+            raise AssertionError(f"{run}: not every request completed with exactly its max_new_tokens")
+        if r["nonfinite_logits"]:
+            raise AssertionError(f"{run}: non-finite logits")
+        if {k: v for k, v in r.items() if k in free[run]} != free[run]:
+            raise AssertionError(f"{run}: the simulated summary differs from the engine-free run's")
+    if len(a["kinds_chosen"]) < 2:
+        raise AssertionError("the adaptive trail crosses fewer than two kinds")
+    if regimes["bursty"]["final"] == regimes["exclusive"]["final"]:
+        raise AssertionError("the bursty and exclusive regimes end on the same plan")
+    if launches != want_launches or launches == 0:
+        raise AssertionError("the serve-adaptive path did not run K1 once per layer per prefill")
+    if not out["first_tokens_equal"]:
+        raise AssertionError("a request's first token differs between the adaptive and static runs")
+    # where a decode tick's and a 16-token prefill's time goes (after the
+    # counts were read: these launches are not the path's)
+    for name, p in where_time_goes(engines[0], 16).items():
+        log(f"  traced {name} ({engines[0].runtime.current_table.plan.name}): wall {p['wall_ms']:.3f} ms, device "
+            f"{p['device_ms']:.3f} ms (busy {100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
+        for op in p["top"][:6]:
+            log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+    return launches
+
+
+def phase_serve_ssm() -> None:
+    from repro_torch.configs.mamba2_780m import FULL
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve_decode
+    from repro_torch.launch.profiling import device_profile
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve_ssm.json")
+        argv = ["--device", "cuda", "--out", out]
+        for k, v in SERVE_SSM_ARGS.items():
+            argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
+        ssd_ops.launches = 0
+        rc = serve_decode.main(argv)
+        k2 = ssd_ops.launches
+        with open(out) as f:
+            s = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"serve_decode exited {rc}")
+    log(f"serve-ssm {s['config']} ({s['num_layers']} layers, d_model {s['d_model']}), {s['slots']} slots on "
+        f"{s['grid']}: {s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
+        f"{s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
+        f"{s['tokens_per_second_wall']:.2f} tokens/s (wall), max_memory_allocated "
+        f"{s['max_memory_allocated'] / 2**30:.2f} GiB; K2 launches {k2}")
+    if s["requests_completed"] < s["requests"] or s["nonfinite_logits"]:
+        raise AssertionError("not every request completed, or a non-finite logit")
+    gc.collect()  # serve_decode's engine, before this phase builds its own
+    if k2 != 0:
+        raise AssertionError("K2 ran on the SSM serving path, which is the recurrence")
+    # one request's fused prefill against stepping mamba_decode over its
+    # prompt, on the card: the logits and every state leaf, bitwise
+    cfg = FULL
+    engine = ServeEngine(cfg, 4, SERVE_SSM_ARGS["slots"], SERVE_SSM_ARGS["max-len"], seed=0, device="cuda")
+    prompt = engine.default_prompt(0, SERVE_SSM_ARGS["prompt-len"][0])
+    fused = api.init_cache(cfg, 1, SERVE_SSM_ARGS["max-len"], device="cuda")
+    logits, fused = api.prefill_with_cache(engine.params, cfg, fused, {"tokens": prompt})
+    stepped = api.init_cache(cfg, 1, SERVE_SSM_ARGS["max-len"], device="cuda")
+    for i in range(prompt.shape[1]):
+        step_logits, stepped = api.decode_fn(engine.params, cfg, stepped, i, {"tokens": prompt[:, i : i + 1]})
+    torch.cuda.synchronize()
+    same = torch.equal(logits, step_logits) and all(
+        torch.equal(a["ssm"][k], b["ssm"][k]) for a, b in zip(fused["layers"], stepped["layers"]) for k in a["ssm"]
+    )
+    log(f"serve-ssm fused prefill of {prompt.shape[1]} tokens vs {prompt.shape[1]} decode steps on the card: "
+        f"logits and {2 * cfg.num_layers} state leaves bitwise equal {same}")
+    if not same:
+        raise AssertionError("the fused SSM prefill is not bitwise equal to token stepping")
+    # where a decode tick's time goes
+    engine.switch_to(serve_decode.static_candidate(4, engine.max_slots, SERVE_SSM_ARGS["microbatches"]).plan.lower())
+
+    def tick():
+        engine.decode_tick([])
+        engine.synchronize()
+
+    tick()
+    t0 = time.perf_counter()
+    tick()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof = device_profile(tick, engine.device, {})
+    log(f"  traced decode tick: wall {wall_ms:.3f} ms, device {prof['device_ms']:.3f} ms "
+        f"(busy {100 * prof['device_ms'] / wall_ms:.1f}%)")
+    for op in prof["top"][:6]:
+        log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
 
 
 def _rel_norm_err(got: list, want: list) -> float:
@@ -1028,8 +1217,6 @@ def phase_calibrate() -> int:
 
 
 def phase_adaptive() -> int:
-    import gc
-
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train_adaptive
 
@@ -1200,8 +1387,6 @@ def phase_ranks_model() -> None:
 
 
 def phase_ranks(pipeline_first_loss) -> int:
-    import gc
-
     from repro_torch.configs.gpt import GPT_CONFIGS
     from repro_torch.core import ScheduleSpec
     from repro_torch.kernels.flash_attention import ops
@@ -1464,8 +1649,6 @@ def _adaptive_ranks_model_rank(group, cfg, walk, batch, M):
 
 
 def phase_adaptive_ranks_model() -> None:
-    import gc
-
     from repro_torch.core import ScheduleSpec, make_plan
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.launch import train_adaptive
@@ -1533,8 +1716,6 @@ def _adaptive_ranks_checks(sc) -> dict:
 
 
 def phase_adaptive_ranks(adaptive_first_loss) -> int:
-    import gc
-
     from repro_torch.launch import train_adaptive
 
     layers = None if torch.cuda.device_count() >= RANKS_STAGES else ADAPTIVE_RANKS_ONE_CARD_LAYERS
@@ -1642,6 +1823,12 @@ def main(argv=None) -> int:
             launches = phase_serve()
             if kernels:
                 kernels["flash"]["per_path"]["serve"]["launches"] = launches
+        elif name == "serve-adaptive":
+            launches = phase_serve_adaptive()
+            if kernels:
+                kernels["flash"]["per_path"]["serve-adaptive"]["launches"] = launches
+        elif name == "serve-ssm":
+            phase_serve_ssm()
         elif name == "train":
             launches = phase_train()
             if kernels:
@@ -1673,6 +1860,10 @@ def main(argv=None) -> int:
             if kernels:
                 kernels["flash"]["per_path"]["adaptive-ranks"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
+        # what a phase built may hold itself alive (a serve engine and its
+        # runtime's program factory hold each other): free it before the next
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):
         return 0  # a partial run prints no result

@@ -140,8 +140,8 @@ def cache_from_repro(
     ``prefill_with_cache``, leaves ``blocks/<j>/kv/k`` of shape
     ``[n_blocks, B, L, K, hd]``.  ``slot_major=True``: ``ServeEngine.kv``,
     leaves ``[max_slots, n_blocks, 1, L, K, hd]``.  Either way the port's
-    layer ``i`` holds ``{"kv": {"k", "v"}}`` of shape ``[B or max_slots, L, K, hd]``.
-    """
+    layer ``i`` holds ``{"kv": {"k", "v"}}`` of shape ``[B or max_slots, L, K, hd]``
+    (a Mamba2 layer ``{"ssm": {"state", "conv"}}``, in the same rows)."""
     st = structure(cfg)
     layers: dict[int, dict] = {}
     for key, arr in flat.items():

@@ -9,8 +9,8 @@
 
 Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
 decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense
-family serves and trains, the SSM family trains; every other family and
-path raises ``NotImplementedError`` here.  Caches are updated in place.
+and SSM families serve and train; every other family and path raises
+``NotImplementedError`` here.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -32,10 +32,11 @@ __all__ = [
     "decode_fn",
 ]
 
-#: parameter leaves that are matrices (cast to cfg.dtype once for serving);
+#: parameter leaves that are matrices (cast to cfg.dtype once for serving),
+#: and the Mamba2 conv bias, which mamba_decode casts to cfg.dtype at use;
 #: norm scales and biases stay in param_dtype, since layernorm upcasts them
 #: to fp32 and a bf16 round trip would change its results
-_MATRIX_LEAVES = ("w", "table", "head")
+_MATRIX_LEAVES = ("w", "table", "head", "in_proj", "out_proj", "conv_w", "conv_b")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):

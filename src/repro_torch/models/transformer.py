@@ -1,5 +1,5 @@
-"""Model assembly for the decoder-only families: init, training forward and
-loss (dense and SSM families), prefill and decode (dense family).
+"""Model assembly for the decoder-only families (dense and SSM): init,
+training forward and loss, prefill and decode.
 
 Port of ``repro/models/transformer.py``.  The reference
 stacks the repeating block of layers into ``[n_blocks, ...]`` leaves for
@@ -9,8 +9,8 @@ unstacks.  :func:`structure` is kept because the bridge maps the reference's
 ``blocks`` keys through it.  The dense family has no irregular leading
 layers, so the reference's ``prefix`` group is always empty here.
 
-MoE layers, Mamba decoding and the encoder-decoder family come with later
-slices; :func:`repro_torch.models.common.check_ported` refuses them.
+MoE layers and the encoder-decoder family come with later slices;
+:func:`repro_torch.models.common.check_ported` refuses them.
 """
 
 from __future__ import annotations
@@ -115,22 +115,34 @@ def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec, *, plain_attentio
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device=None):
-    return {"kv": attn.init_kv_cache(cfg, batch, max_len, window=spec.window, device=device)}
+    if spec.kind == "attn":
+        return {"kv": attn.init_kv_cache(cfg, batch, max_len, window=spec.window, device=device)}
+    return {"ssm": mamba_mod.init_ssm_cache(cfg, batch, device=device)}
 
 
 def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False):
     """Full-sequence layer forward that also fills the layer's decode cache."""
-    h = norm_apply(p["ln1"], x, cfg)
-    h, _ = attn.attn_prefill(
-        p["attn"], h, cache["kv"], cfg, window=spec.window, plain_attention=plain_attention
-    )
+    if spec.kind == "attn":
+        h = norm_apply(p["ln1"], x, cfg)
+        h, _ = attn.attn_prefill(
+            p["attn"], h, cache["kv"], cfg, window=spec.window, plain_attention=plain_attention
+        )
+    else:
+        # the norm a token at a time too: on the card a row reduction over
+        # [B, T, d] may sum in another order than over decode's [B, 1, d],
+        # and the prefill must leave the state token stepping leaves, bitwise
+        h = torch.cat([norm_apply(p["ln1"], x[:, t : t + 1], cfg) for t in range(x.shape[1])], dim=1)
+        h, _ = mamba_mod.mamba_prefill(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
     return x + _ffn(p, x, cfg), cache
 
 
 def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
     h = norm_apply(p["ln1"], x, cfg)
-    h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
+    if spec.kind == "attn":
+        h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
+    else:
+        h, _ = mamba_mod.mamba_decode(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
     return x + _ffn(p, x, cfg), cache
 

@@ -74,6 +74,7 @@ class CompiledStepCache:
         self,
         program_factory: Callable[[TabularPlan], Callable],
         metrics: MetricsRegistry | None = None,
+        labels: dict[str, str] | None = None,
     ) -> None:
         self._factory = program_factory
         self._lock = threading.Lock()
@@ -81,6 +82,10 @@ class CompiledStepCache:
         self._inflight: dict[tuple, Future] = {}
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="plan-precompile")
         self.metrics = metrics or MetricsRegistry()
+        # ``labels`` scope this cache's series on a SHARED registry (a serve
+        # engine's runtime beside a training one) so per-cache stats stay
+        # per-cache while every number lives in one place
+        self._labels = dict(labels or {})
         self._gets = self.metrics.counter("cache_gets_total")
         self._warm = self.metrics.counter("cache_warm_hits_total")
         self._joined = self.metrics.counter("cache_inflight_hits_total")
@@ -95,12 +100,12 @@ class CompiledStepCache:
         shape (and ``dataclasses.asdict``-ability) is unchanged from when it
         was mutable state."""
         return CacheStats(
-            gets=int(self._gets.value()),
-            warm_hits=int(self._warm.value()),
-            inflight_hits=int(self._joined.value()),
-            cold_misses=int(self._cold.value()),
-            precompile_requests=int(self._requests.value()),
-            precompiled=int(self._done.value()),
+            gets=int(self._gets.value(**self._labels)),
+            warm_hits=int(self._warm.value(**self._labels)),
+            inflight_hits=int(self._joined.value(**self._labels)),
+            cold_misses=int(self._cold.value(**self._labels)),
+            precompile_requests=int(self._requests.value(**self._labels)),
+            precompiled=int(self._done.value(**self._labels)),
         )
 
     # -- identity -------------------------------------------------------------
@@ -139,9 +144,9 @@ class CompiledStepCache:
         with self._lock:
             self._entries[key] = entry
             self._inflight.pop(key, None)
-        self._compile_s.observe(entry.compile_seconds, source=source)
+        self._compile_s.observe(entry.compile_seconds, source=source, **self._labels)
         if source == "precompile":
-            self._done.inc()
+            self._done.inc(**self._labels)
         return entry
 
     def precompile(self, tables: Iterable[TabularPlan]) -> int:
@@ -156,25 +161,25 @@ class CompiledStepCache:
                 fut = self._pool.submit(self._compile, table, "precompile")
                 self._inflight[key] = fut
                 submitted += 1
-            self._requests.inc()
+            self._requests.inc(**self._labels)
         return submitted
 
     def get(self, table: TabularPlan) -> CompiledEntry:
         """The switch path: ready entry, else join the in-flight background
         build, else build synchronously (cold)."""
         key = self.plan_key(table)
-        self._gets.inc()
+        self._gets.inc(**self._labels)
         with self._lock:
             entry = self._entries.get(key)
             fut = None if entry is not None else self._inflight.get(key)
         if entry is not None:
-            self._warm.inc()
+            self._warm.inc(**self._labels)
             return entry
         if fut is not None:
-            self._joined.inc()
+            self._joined.inc(**self._labels)
             return fut.result()
         entry = self._compile(table, "demand")
-        self._cold.inc()
+        self._cold.inc(**self._labels)
         return entry
 
     def contains(self, table: TabularPlan) -> bool:

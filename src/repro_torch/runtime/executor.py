@@ -389,6 +389,7 @@ class PlanRuntime:
         telemetry: TelemetrySink | None = None,
         init_key: int = 0,
         obs: Observability | None = None,
+        obs_track: str = "runtime",
         program_factory=None,
         device=None,
         group=None,
@@ -405,7 +406,7 @@ class PlanRuntime:
             if optimizer is None:
                 raise NotImplementedError(
                     "the stateless (serving) mode of the spmd backend is not ported yet "
-                    "(ROADMAP.md, queue 1, item 4)"
+                    "(ROADMAP.md, queue 1, item 9)"
                 )
             if group.S != num_stages:
                 raise ValueError(f"{num_stages} stages, the rank group has {group.S}")
@@ -436,8 +437,11 @@ class PlanRuntime:
         self.current_v = 1
         #: the placement the owned state is laid out in (the flat layout's at first)
         self.placement = Placement.build("kfkb", num_stages, 1)
+        # the cache joins the shared registry, its series labelled by track
         self.cache = CompiledStepCache(
-            program_factory or self._program_for, metrics=obs.metrics if obs is not None else None
+            program_factory or self._program_for,
+            metrics=obs.metrics if obs is not None else None,
+            labels={"track": obs_track} if obs is not None else None,
         )
         self.current_table: TabularPlan | None = None
         self._compiled = None
@@ -445,9 +449,10 @@ class PlanRuntime:
         self.iterations: list[IterationResult] = []
         self.last_grads = None
         self._grads_placement = self.placement  # the layout last_grads are in
-        # observability (optional): trace spans on "runtime/switches" and
-        # "runtime/iterations", registry series, flight plan_switch events
+        # observability (optional): trace spans on "{obs_track}/switches" and
+        # "{obs_track}/iterations", registry series, flight plan_switch events
         self.obs = obs
+        self.obs_track = obs_track
         if obs is not None:
             self._m_iters = obs.metrics.counter("runtime_iterations_total")
             self._m_iter_s = obs.metrics.histogram("runtime_iteration_seconds")
@@ -549,7 +554,7 @@ class PlanRuntime:
         warm = self.cache.contains(table)
         sp = (
             self.obs.trace.span(
-                "runtime/switches",
+                f"{self.obs_track}/switches",
                 f"switch {table.plan.name}",
                 to_plan=table.plan.name,
                 warm=warm,
@@ -640,7 +645,7 @@ class PlanRuntime:
         self.last_grads = None
         sp = (
             self.obs.trace.span(
-                "runtime/iterations",
+                f"{self.obs_track}/iterations",
                 f"iter {len(self.iterations)} {plan.name}",
                 plan=plan.name,
                 index=len(self.iterations),
@@ -694,13 +699,13 @@ class PlanRuntime:
         """Run the current program on explicit operands (the stateless
         mode: programs built by ``program_factory`` carry their own state in
         their operands).  The runtime times them and records the same span
-        per run on ``runtime/iterations``.  Returns ``(outputs, seconds)``."""
+        per run on ``{obs_track}/iterations``.  Returns ``(outputs, seconds)``."""
         if self._compiled is None:
             raise RuntimeError("no plan dispatched; call switch_to first")
         plan = self.current_table.plan
         sp = (
             self.obs.trace.span(
-                "runtime/iterations",
+                f"{self.obs_track}/iterations",
                 f"serve {plan.name}",
                 plan=plan.name,
             )

@@ -1,35 +1,47 @@
-"""ServeEngine: fused prefill and grouped greedy decode over decode slots.
+"""ServeEngine: fused prefill and grouped decode behind the serve tick loop.
 
-Port of ``repro/serve/engine.py``.  The engine owns the model parameters and
-a slot-major decode state: a KV cache whose batch rows are the
-``max_slots`` decode slots, plus per-slot positions and last tokens.
+Port of ``repro/serve/engine.py``.  The simulated
+:class:`~repro_torch.serve.runtime.ServeRuntime` prices every tick against
+the trace network; this engine makes the *tokens* real.  It owns the model
+parameters and a slot-major decode state: a decode cache whose batch rows
+are the ``max_slots`` decode slots (KV rows for attention layers, the
+recurrent state and conv window for Mamba2 layers), plus per-slot positions
+and last tokens.  It runs two kinds of programs:
 
-* **prefill** -- :func:`repro_torch.models.api.prefill_with_cache` on one
-  admitted request (batch 1), written straight into the request's slot row
-  of the cache.  Its attention is the flash kernel on the card.
-* **grouped decode tick** -- the slots are laid out as the ``[M, b]`` grid
-  of the current plan (``switch_to(M)``) and the tick runs the M groups one
-  after the other, each one batch-``b`` decode with per-row positions (the
-  reference's ``lax.map`` over groups of a ``vmap``'d single-slot decode).
-  Empty slots compute padding, as a fixed-shape batch does in the reference.
-  ``M`` is all the reference's decode program depends on; the plan objects
-  themselves come with the schedule-layer slice.
+* **grouped decode tick** -- one program per dispatched
+  :class:`~repro_torch.core.schedule.TabularPlan`, built by the
+  ``program_factory`` hook of a *stateless*
+  :class:`~repro_torch.runtime.executor.PlanRuntime` (``optimizer=None``),
+  so the tuner's live ``switch_to`` goes through the same
+  ``CompiledStepCache`` warm-switch path training uses.  The program lays
+  the slots out as the plan's ``[M, b]`` micro-batch grid and runs the M
+  groups one after the other, each one batch-``b`` decode with per-row
+  positions (the reference's ``lax.map`` over groups of a ``vmap``'d
+  single-slot decode).  Empty slots compute padding, as a fixed-shape batch
+  does in the reference.
+* **fused prefill** -- :func:`repro_torch.models.api.prefill_with_cache` on
+  one admitted request (batch 1), written straight into the request's slot
+  row.  Prefill is plan-independent: it runs before the request joins the
+  grouped grid.  Its attention is the flash kernel on the card.
 
-Decoding is greedy, so runs are reproducible token for token; emitted tokens
-accumulate in ``outputs[rid]``.  Matrices and the embedding table are held in
-``cfg.dtype`` (cast once at load), norm scales and biases in
-``cfg.param_dtype``.  The cache is updated in place.
+Decoding is greedy (temperature 0), so serving runs are reproducible token
+for token; emitted tokens accumulate in ``outputs[rid]``.  Matrices and the
+embedding table are held in ``cfg.dtype`` (cast once at load), norm scales
+and biases in ``cfg.param_dtype``.  The cache is updated in place.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Callable
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig
+from repro_torch.runtime.executor import PlanRuntime
+from repro_torch.tree import tree_map
 
 __all__ = ["ServeEngine"]
 
@@ -38,14 +50,20 @@ class ServeEngine:
     def __init__(
         self,
         cfg: ModelConfig,
+        num_stages: int,
         max_slots: int,
         max_len: int,
         params=None,
         seed: int = 0,
         device=None,
+        obs=None,
+        track: str = "serve",
+        prompt_fn: Callable[[int, int], torch.Tensor] | None = None,
     ) -> None:
         """``params``: a parameter tree on ``device`` (e.g. from the weight
-        bridge); without one, weights are drawn from ``seed``."""
+        bridge); without one, weights are drawn from ``seed``.
+        ``prompt_fn(rid, prompt_len)`` gives request ``rid``'s prompt tokens;
+        by default :meth:`default_prompt`."""
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -57,19 +75,44 @@ class ServeEngine:
         self.positions = torch.zeros((max_slots,), dtype=torch.long, device=self.device)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.long, device=self.device)
         self.outputs: dict[int, list[int]] = {}
-        self.num_microbatches: int | None = None
-        self.micro_batch: int | None = None
+        self.prompt_fn = prompt_fn or self.default_prompt
         self.prefill_seconds: list[float] = []  # wall time of each prefill call
         self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
+        # stateless runtime: no TrainState, programs come from our factory,
+        # but the cache and warm-switch machinery is the training one
+        self.runtime = PlanRuntime(
+            cfg,
+            num_stages,
+            optimizer=None,
+            global_batch=max_slots,
+            seq_len=max_len,
+            program_factory=self._program_for,
+            obs=obs,
+            obs_track=track,
+            device=self.device,
+        )
 
-    # -- plan ---------------------------------------------------------------
+    # -- program factory (one program per dispatched plan) --------------------
 
-    def switch_to(self, num_microbatches: int) -> None:
-        """Lay the slots out as an ``[M, b]`` grid, ``b = max_slots / M``."""
-        if num_microbatches <= 0 or self.max_slots % num_microbatches:
-            raise ValueError(f"M={num_microbatches} must divide max_slots={self.max_slots}")
-        self.num_microbatches = num_microbatches
-        self.micro_batch = self.max_slots // num_microbatches
+    def _program_for(self, table):
+        plan = table.plan
+        M = plan.num_microbatches
+        if self.max_slots % M:
+            raise ValueError(f"plan {plan.name} needs M={M} | max_slots={self.max_slots}")
+        b = self.max_slots // M
+        cfg = self.cfg
+
+        def step(params, cache, positions, tokens):
+            new_tok = torch.empty_like(tokens)
+            for g in range(M):
+                rows = slice(g * b, (g + 1) * b)
+                logits, _ = api.decode_fn(
+                    params, cfg, self._rows(cache, rows), positions[rows], {"tokens": tokens[rows]}
+                )
+                new_tok[rows, 0] = self._greedy(logits)
+            return new_tok
+
+        return step
 
     # -- state --------------------------------------------------------------
 
@@ -82,13 +125,10 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _rows(self, rows: slice):
-        return {
-            "layers": [
-                {"kv": {"k": c["kv"]["k"][rows], "v": c["kv"]["v"][rows]}}
-                for c in self.cache["layers"]
-            ]
-        }
+    @staticmethod
+    def _rows(cache, rows: slice):
+        """Views of the slot rows ``rows`` of every cache leaf."""
+        return tree_map(lambda x: x[rows], cache)
 
     def _greedy(self, logits) -> torch.Tensor:
         last = logits[:, -1, :]
@@ -104,19 +144,15 @@ class ServeEngine:
 
     # -- ServeRuntime hooks -------------------------------------------------
 
-    def prefill(self, admitted, prompts=None) -> None:
-        """Fused-prefill each admitted request's prompt into its slot row.
-        ``prompts`` maps a request id to its prompt tokens; by default the
-        prompt is :meth:`default_prompt`."""
+    def switch_to(self, table):
+        return self.runtime.switch_to(table)
+
+    def prefill(self, admitted) -> None:
+        """Fused-prefill each admitted request's prompt into its slot row."""
         for inf in admitted:
             req = inf.request
-            if prompts is not None:
-                given = prompts[req.rid]
-                if not isinstance(given, torch.Tensor):
-                    given = torch.tensor(given)
-                prompt = given.to(self.device, torch.long).reshape(1, -1)
-            else:
-                prompt = self.default_prompt(req.rid, req.prompt_len)
+            prompt = torch.as_tensor(self.prompt_fn(req.rid, req.prompt_len))
+            prompt = prompt.to(self.device, torch.long).reshape(1, -1)
             if prompt.shape[1] != req.prompt_len:
                 raise ValueError(
                     f"request {req.rid}: prompt of {prompt.shape[1]} tokens, "
@@ -124,10 +160,8 @@ class ServeEngine:
                 )
             s = inf.slot
             t0 = time.perf_counter()
-            row = self._rows(slice(s, s + 1))
-            for c in row["layers"]:
-                c["kv"]["k"].zero_()
-                c["kv"]["v"].zero_()
+            row = self._rows(self.cache, slice(s, s + 1))
+            tree_map(torch.Tensor.zero_, row)
             logits, _ = api.prefill_with_cache(self.params, self.cfg, row, {"tokens": prompt})
             tok = self._greedy(logits)
             self.positions[s] = req.prompt_len
@@ -137,18 +171,11 @@ class ServeEngine:
             self.outputs[req.rid] = [first]
 
     def decode_tick(self, in_flight) -> None:
-        """One grouped decode step of the current grid over all slots."""
-        if self.num_microbatches is None:
-            raise RuntimeError("decode_tick before switch_to")
-        b = self.micro_batch
-        new_tok = torch.empty_like(self.tokens)
-        for g in range(self.num_microbatches):
-            rows = slice(g * b, (g + 1) * b)
-            logits, _ = api.decode_fn(
-                self.params, self.cfg, self._rows(rows), self.positions[rows],
-                {"tokens": self.tokens[rows]},
-            )
-            new_tok[rows, 0] = self._greedy(logits)
+        """One grouped decode step of the CURRENT plan over all slots (empty
+        slots compute padding, as a fixed-shape batch would)."""
+        new_tok, _seconds = self.runtime.run_program(
+            self.params, self.cache, self.positions, self.tokens
+        )
         self.tokens = new_tok
         occupied = torch.zeros((self.max_slots,), dtype=torch.bool)
         host = new_tok[:, 0].tolist()

@@ -1,9 +1,10 @@
-"""Training state and steps (port of ``repro.training``; the serve step stays with ``serve``)."""
+"""Training state and steps (port of ``repro.training``)."""
 
 from repro_torch.training.state import TrainState, create_train_state
 from repro_torch.training.steps import (
     make_eval_step,
     make_pipeline_train_step,
+    make_serve_step,
     make_train_step,
     pipeline_train_step,
 )
@@ -15,4 +16,5 @@ __all__ = [
     "make_pipeline_train_step",
     "pipeline_train_step",
     "make_eval_step",
+    "make_serve_step",
 ]

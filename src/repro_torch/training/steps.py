@@ -1,7 +1,7 @@
 """Step factories: the gradient-accumulated train step, the pipeline train
-step and the eval step.
+step, the eval step and the serve step.
 
-Port of ``repro/training/steps.py:55-85`` and of the pipeline ``step_fn``
+Port of ``repro/training/steps.py:55-119`` and of the pipeline ``step_fn``
 of ``repro/launch/train.py::run_pipeline``.  The train and eval steps
 take a ``loss_fn(params, batch) -> (loss, metrics)`` over a dict batch.
 ``make_train_step(..., num_microbatches=M)`` cuts the batch into M equal
@@ -26,6 +26,11 @@ form (``repro``'s ``pipeline_train_step``): one rank's engine gradients
 the ranks, then the optimizer on the rank's own parameters and moments.
 Build the optimizer with ``norm_reduce`` summing over the stage group, so
 that every rank clips by the norm of the whole model.
+
+``make_serve_step(decode_fn, temperature)`` is one sampled decode step:
+greedy at temperature 0 (or without a generator), else a categorical draw
+from ``softmax(logits / T)`` with the caller's ``torch.Generator``, so a
+fixed generator reproduces the draws.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from repro_torch.pipeline.stage import StagedModel
 from repro_torch.training.state import TrainState
 from repro_torch.tree import flatten, tree_map
 
-__all__ = ["make_train_step", "make_pipeline_train_step", "pipeline_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_pipeline_train_step", "pipeline_train_step", "make_eval_step", "make_serve_step"]
 
 LossFn = Callable[[Any, Mapping[str, torch.Tensor]], tuple[torch.Tensor, dict]]
 
@@ -130,3 +135,24 @@ def make_eval_step(loss_fn: LossFn):
         return {"loss": loss, **metrics}
 
     return step
+
+
+def make_serve_step(decode_fn: Callable[..., tuple[torch.Tensor, Any]], temperature: float = 0.0):
+    """Returns ``serve(params, cache, index, inputs, generator=None) -> (tokens, cache)``.
+
+    ``decode_fn(params, cache, index, **inputs)`` produces next-token logits
+    ``[B, 1, V]`` and the updated cache; sampling is greedy at T=0 (or
+    without a generator), else categorical, drawn with ``generator``."""
+
+    @torch.no_grad()
+    def serve(params, cache, index, inputs: Mapping[str, torch.Tensor], generator: torch.Generator | None = None):
+        logits, new_cache = decode_fn(params, cache, index, **inputs)
+        logits = logits[:, -1, :].float()
+        if temperature > 0.0 and generator is not None:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            tokens = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            tokens = logits.argmax(dim=-1)
+        return tokens, new_cache
+
+    return serve

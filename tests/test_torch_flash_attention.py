@@ -181,6 +181,8 @@ GPU_CASES = [
     (1, 333, 333, 16, 16, 96, torch.bfloat16, True, None, 2e-2),
     (1, 333, 333, 8, 8, 80, torch.float16, True, 100, 2e-2),
     (1, 100, 333, 8, 8, 80, torch.bfloat16, True, None, 2e-2),
+    # serve_adaptive's prefill: 16 tokens, under one query tile
+    (1, 16, 16, 32, 32, 80, torch.bfloat16, True, None, 2e-2),
 ]
 
 

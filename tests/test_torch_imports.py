@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.data import SyntheticTextDataset
-from repro_torch.launch import dryrun_pipeline, serve_decode, train, train_adaptive
+from repro_torch.launch import dryrun_pipeline, serve_adaptive, serve_decode, train, train_adaptive
 from repro_torch.models import api
 from repro_torch.serve import ServeEngine
 
@@ -35,7 +35,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flash_attention.ops" in mods and "repro_torch.kernels.ssd_scan.ops" in mods
     assert "repro_torch.launch.train" in mods and "repro_torch.launch.train_adaptive" in mods
-    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 75
+    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 77
+    assert "repro_torch.serve.slo" in mods and "repro_torch.launch.serve_adaptive" in mods
     assert "repro_torch.pipeline.ranks" in mods and "repro_torch.pipeline.rank_checks" in mods
     for mod in ("core.devicespec", "core.calibrate", "launch.op_counts", "launch.dryrun_pipeline"):
         assert f"repro_torch.{mod}" in mods, mod
@@ -83,11 +84,15 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         pytest.skip("a CUDA card is present: the default device is usable")
     cfg = GPT_CONFIGS["GPT-2.7B"].replace(**SMALL)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ServeEngine(cfg, max_slots=8, max_len=32)
+        ServeEngine(cfg, 4, max_slots=8, max_len=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_decode.main(["--tiny", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_adaptive.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_adaptive.main(["--engine", "--tiny", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):

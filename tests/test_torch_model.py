@@ -194,10 +194,10 @@ UNPORTED = [
     # (call, family, message): each family raises on each path it lacks
     ("init_params", "encdec", "ROADMAP"),
     ("init_params", "moe", "MoE"),
-    ("init_cache", "ssm", "Mamba2"),
+    ("init_cache", "moe", "MoE"),
     ("init_cache", "hybrid", "Mamba2"),
-    ("prefill_with_cache", "ssm", "Mamba2"),
-    ("decode_fn", "ssm", "Mamba2"),
+    ("prefill_with_cache", "hybrid", "Mamba2"),
+    ("decode_fn", "hybrid", "Mamba2"),
     ("loss_fn", "moe", "MoE"),
     ("loss_fn", "hybrid", "hybrid"),
     ("decoder_forward", "hybrid", "hybrid"),

@@ -14,7 +14,7 @@ import torch
 
 from repro.checkpoint.io import _path_str
 from repro.configs.gpt import GPT_CONFIGS as JAX_GPT
-from repro.core import make_plan
+from repro.core import make_plan as jax_make_plan
 from repro.serve import ArrivalProcess as JaxArrivals
 from repro.serve import ContinuousBatcher as JaxBatcher
 from repro.serve import InFlight as JaxInFlight
@@ -23,7 +23,9 @@ from repro.serve import RequestQueue as JaxQueue
 from repro.serve import ServeEngine as JaxEngine
 from repro_torch import bridge
 from repro_torch.configs.gpt import GPT_CONFIGS
+from repro_torch.core import make_plan
 from repro_torch.launch import serve_decode
+from repro_torch.launch.serve_adaptive import build_serve_scenario
 from repro_torch.serve import (
     ArrivalProcess,
     ContinuousBatcher,
@@ -31,7 +33,6 @@ from repro_torch.serve import (
     Request,
     RequestQueue,
     ServeEngine,
-    ServeRuntime,
 )
 
 SMALL = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
@@ -74,16 +75,16 @@ def test_engine_tokens_match_reference_engine():
     jcfg = JAX_GPT["GPT-2.7B"].replace(**SMALL, dtype=jnp.float32)
     tcfg = GPT_CONFIGS["GPT-2.7B"].replace(**SMALL, dtype=torch.float32)
     ref = JaxEngine(jcfg, num_stages=4, max_slots=8, max_len=32, init_key=0)
-    ref.switch_to(make_plan(4, 4, 1).lower())  # M = 4 -> grid [4, 2]
+    ref.switch_to(jax_make_plan(4, 4, 1).lower())  # M = 4 -> grid [4, 2]
     params = bridge.params_from_repro(_flat(ref.params), tcfg, device="cpu")
-    ours = ServeEngine(tcfg, max_slots=8, max_len=32, params=params, device="cpu")
-    ours.switch_to(4)
-
     reqs = [(0, 9, 0), (1, 5, 3), (2, 12, 5)]  # (rid, prompt_len, slot)
     prompts = {
-        rid: np.asarray(jax.random.randint(jax.random.PRNGKey(rid), (1, n), 0, jcfg.vocab_size, jnp.int32))
+        rid: np.array(jax.random.randint(jax.random.PRNGKey(rid), (1, n), 0, jcfg.vocab_size, jnp.int32))
         for rid, n, _ in reqs
     }
+    ours = ServeEngine(tcfg, 4, max_slots=8, max_len=32, params=params, device="cpu",
+                       prompt_fn=lambda rid, n: prompts[rid])
+    ours.switch_to(make_plan(4, 4, 1).lower())  # the port's own lowered plan
     jinf = {rid: JaxInFlight(JaxRequest(rid, 0.0, n, 8), s, 0.0) for rid, n, s in reqs}
     tinf = {rid: InFlight(Request(rid, 0.0, n, 8), s, 0.0) for rid, n, s in reqs}
 
@@ -91,11 +92,10 @@ def test_engine_tokens_match_reference_engine():
         fn_ref()
         fn_ours()
 
-    both(lambda: ref.prefill([jinf[0], jinf[1]]),
-         lambda: ours.prefill([tinf[0], tinf[1]], prompts=prompts))
+    both(lambda: ref.prefill([jinf[0], jinf[1]]), lambda: ours.prefill([tinf[0], tinf[1]]))
     for _ in range(2):
         both(lambda: ref.decode_tick([jinf[0], jinf[1]]), lambda: ours.decode_tick([tinf[0], tinf[1]]))
-    both(lambda: ref.prefill([jinf[2]]), lambda: ours.prefill([tinf[2]], prompts=prompts))
+    both(lambda: ref.prefill([jinf[2]]), lambda: ours.prefill([tinf[2]]))
     both(lambda: ref.decode_tick(list(jinf.values())), lambda: ours.decode_tick(list(tinf.values())))
     both(lambda: ref.release([0]), lambda: ours.release([0]))
     both(lambda: ref.decode_tick([jinf[1], jinf[2]]), lambda: ours.decode_tick([tinf[1], tinf[2]]))
@@ -112,17 +112,19 @@ def _tiny_cfg():
 
 def test_serve_loop_completes_deterministically():
     def run():
-        engine = ServeEngine(_tiny_cfg(), max_slots=4, max_len=32, seed=3, device="cpu")
+        engine = ServeEngine(_tiny_cfg(), 4, max_slots=4, max_len=32, seed=3, device="cpu")
         arrivals = ArrivalProcess(8.0, seed=2, prompt_len=(4, 12), new_tokens=(2, 6))
-        prices = {"prefill": 0.05, "decode": 0.02}
-        rt = ServeRuntime(engine, arrivals, prices.__getitem__, num_microbatches=2)
+        cand = serve_decode.static_candidate(4, 4, 2)
+        sc = build_serve_scenario(seed=2, max_slots=4, adaptive=False, engine=engine,
+                                  arrivals=arrivals, candidates=[cand])
+        rt = sc.runtime
         return rt.run(5), engine.outputs, [(t.phase, t.occupancy, t.start) for t in rt.ticks]
 
     (s1, out1, ticks1), (s2, out2, ticks2) = run(), run()
-    assert s1["requests_completed"] == 5 and not s1["nonfinite_logits"]
+    assert s1["requests_completed"] >= 5 and not s1["nonfinite_logits"]
     assert out1 == out2 and ticks1 == ticks2
     assert s1["prefill_calls"] == s1["requests_admitted"]
-    assert s1["tokens"] == sum(len(out1[r]) for r in range(5) if r in out1)
+    assert s1["tokens"] == sum(len(toks) for toks in out1.values())
 
 
 def test_serve_decode_entry_point_runs_on_cpu(tmp_path):
@@ -135,4 +137,4 @@ def test_serve_decode_entry_point_runs_on_cpu(tmp_path):
     import json
 
     s = json.loads(out.read_text())
-    assert s["requests_completed"] == 3 and s["num_layers"] == 2 and s["grid"] == [4, 2]
+    assert s["requests_completed"] >= 3 and s["num_layers"] == 2 and s["grid"] == [4, 2]

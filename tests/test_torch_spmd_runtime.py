@@ -539,7 +539,7 @@ def test_layer_homes_follow_the_virtual_stage_rule():
 def test_spmd_runtime_refuses_the_stateless_mode():
     """``optimizer=None`` (the serving side) is not ported on the spmd backend."""
     group = types.SimpleNamespace(S=2, D=1, s=0, rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         PlanRuntime(_cfgs(4)[1], 2, None, global_batch=8, seq_len=8, backend="spmd", group=group,
                     program_factory=lambda t: None)
     with pytest.raises(ValueError, match="rank group has 2"):
