@@ -5,7 +5,10 @@
 
 Phases, in order (any failure exits non-zero, and no result line is printed):
 
-1. device       the card's name and power limit, as nvidia-smi reports them
+1. device       the card's name and power limit, as nvidia-smi reports them,
+                and the host: its CPU model, logical cores, and the torch,
+                CUDA and Python versions (every wall time below is the
+                host's as much as the card's)
 2. build        nvcc builds the CUDA kernels (K1 flash attention, K2 SSD scan)
                 from the sources in this checkout, one nvcc per source, in
                 parallel
@@ -42,7 +45,10 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 request's first token equal in both runs.  The simulated
                 TTFT/token-latency p99 and SLO attainment, and the measured
                 prefill and per-plan decode tick p50, wall tokens/s, switch
-                seconds, peak memory and a traced tick are printed
+                seconds, peak memory and a traced tick are printed.  Last,
+                the engines are dropped: torch.cuda.memory_allocated must
+                fall before any garbage collection (no reference cycle
+                keeps an engine's weights)
 6b. serve-ssm   mamba2-780m at full size through ``serve_decode`` (8 slots,
                 M=4, 8 requests, prompts 64-128, 16-32 new tokens, max_len
                 160): every request completes, no non-finite logit, K2 never
@@ -149,14 +155,47 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 breakdown, per switch its seconds and each rank's bytes, and
                 the warm-switch fraction (not gated: the restack goes
                 through gloo's host buffers on one card) are printed.
+16. fabric      Ada-Grouper's coordinator-worker fabric in one process:
+                ``train_adaptive.build_fabric_fleet`` with two GPT-2.7B
+                hosts at full width cut to FABRIC_LAYERS = 8 layers (S=4, M=4 x
+                2 x 1024, each a whole replica on its own data shard),
+                driven by ``run_fabric_rounds`` for FABRIC_ROUNDS rounds
+                under a scripted trail kfkb k=1 -> ZB-H2(w=2) ->
+                interleaved_zb (v=2) -> kfkb k=1, then a spec that the
+                first host to see it refuses; the tuner runs on the hosts'
+                wall times beside it (its decisions printed, not gated).
+                Gates: every committed epoch applied on both hosts at its
+                boundary; every telemetry window's spec the incumbent at its
+                iteration; the refused epoch an ABORT, both hosts on the
+                incumbent; 3 commits and 1 abort; the v-changing switches
+                restack; finite losses; K1 launches in each host's each
+                iteration equal to its grid's attention forwards, and the
+                phase's total their sum.  Then the fleet is freed and host0's
+                shard runs alone in a fresh runtime, switched by hand at the
+                same boundaries: its losses within 5e-6 of host0's and its
+                parameter digest within a relative 1e-6 (repro's limits;
+                bitwise expected, the largest difference printed).  Barrier latency, each host's prepare-to-vote
+                seconds, switch seconds, per-plan step p50 and peak memory
+                a host are printed
+17. fabric-tcp  the fabric across processes: a ``CoordinatorListener`` here
+                and two ``python -m repro_torch.launch.fabric_worker``
+                processes on the card (GPT-2.7B at full width cut to
+                FABRIC_TCP_LAYERS = 8 layers, S=4), one scripted switch kfkb
+                k=1 -> interleaved_zb (v=2).  Gates: both workers exit 0
+                within FABRIC_TCP_TIMEOUT and none is left running; one
+                commit, applied at the same boundary on both, both ending on
+                the target; 2 x FABRIC_TCP_ITERATIONS telemetry windows;
+                finite losses; each worker's K1 launches equal to its grid's
+                attention forwards.  Both share the card by time-slicing:
+                their wall times are a check, not a deployment's
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
 
 The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
-calibration, the adaptive loop, the ranks and the adaptive loop on the
-ranks, each at its own shape);
+calibration, the adaptive loop, the ranks, the adaptive loop on the
+ranks and the fabric in one process and across two, each at its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -168,6 +207,7 @@ import gc
 import json
 import math
 import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -180,7 +220,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "kernels", "model", "train-model", "serve", "serve-adaptive", "serve-ssm", "train",
     "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
-    "adaptive-ranks",
+    "adaptive-ranks", "fabric", "fabric-tcp",
 )
 
 #: the device spec of one H100 SXM (published dense peaks at its 700 W
@@ -239,6 +279,7 @@ PATH_CASES = {
     "serve": TIMED_CASE, "serve-adaptive": "gpt2.7b_t16", "pipeline": "gpt2.7b_train_t1024",
     "calibrate": "gpt2.7b_train_b2_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
     "ranks": "gpt2.7b_train_t1024", "adaptive-ranks": "gpt2.7b_train_b2_t1024",
+    "fabric": "gpt2.7b_train_b2_t1024", "fabric-tcp": "gpt2.7b_train_b2_t1024",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
@@ -385,6 +426,36 @@ ADAPTIVE_RANKS_MODEL_LR = 1e-3
 #: width: at 32 the four processes ran the card out of its 79.18 GiB in an
 #: AdamW update (rank 0 held 17.69 GiB; PERF.md, section 6)
 ADAPTIVE_RANKS_ONE_CARD_LAYERS = 16
+#: the fabric phase: two hosts, each a whole GPT-2.7B replica at full width
+#: (the adaptive phase's stages and batches, seed 0) cut to 8 layers.  A host
+#: holds fp32 parameters, gradients and AdamW m, v (16 B a parameter), and
+#: every virtual stage its own copy of the 128.7 M-parameter embedding: at 16
+#: layers 26.4 GiB a host under kfkb and 34.1 GiB under interleaved_zb (8
+#: copies), two of which with one host's step in flight pass the card's 79.2
+#: GiB; 12 layers do not split over S * v = 8 virtual stages.  At 8: 17.0 and
+#: 24.7 GiB a host
+FABRIC_ARGS = dict(num_hosts=2, num_stages=4, gpt="GPT-2.7B", seq_len=1024, seed=0)
+FABRIC_LAYERS = 8
+#: the scripted trail after the initial kfkb k=1, as ScheduleSpec keywords (b
+#: = 2 added); the last is a kind no host can lower, which the first host to
+#: see its PREPARE refuses
+FABRIC_TRAIL = (
+    dict(kind="zb_h2", extra_warmup=2), dict(kind="interleaved_zb", num_virtual=2), dict(kind="kfkb", k=1),
+    dict(kind="bogus"),
+)
+#: rounds: with the fleet's boundary lead of 2, a switch lands 3 rounds after
+#: its decision, and the refusal's boundary is round 12
+FABRIC_ROUNDS = 13
+#: fabric-tcp: two worker processes at full width cut to 8 layers (S * v = 8
+#: divides it), 4 iterations, the switch at the boundary of iteration 2
+FABRIC_TCP_LAYERS = 8
+FABRIC_TCP_ITERATIONS = 4
+FABRIC_TCP_TIMEOUT = 600
+#: the fabric phase's oracle against host0: each loss (absolute) and the
+#: parameter digest's l2 (relative), repro's limits in tests/test_fabric.py.
+#: One card and one code path: bitwise equality is expected, and the largest
+#: difference is printed
+FABRIC_LOSS_TOL, FABRIC_DIGEST_TOL = 5e-6, 1e-6
 
 
 def log(msg: str) -> None:
@@ -399,7 +470,8 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"host: {_cpu_model()}, {os.cpu_count()} logical cores; torch {torch.__version__} cuda "
+        f"{torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 oracles in full fp32
     torch.backends.cudnn.allow_tf32 = False
     return {
@@ -408,6 +480,26 @@ def phase_device() -> dict:
         "count": torch.cuda.device_count(),
         "smi": smi,
     }
+
+
+def _cpu_model() -> str:
+    """The host CPU as the kernel reports its first processor: the model
+    name, else (where it is missing or reads "unknown", as in some virtual
+    machines) the vendor, family and model numbers."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip().lower()] = value.strip()
+    except OSError as e:
+        return f"{platform.processor() or platform.machine()} (/proc/cpuinfo: {e})"
+    if info.get("model name", "unknown") != "unknown":
+        return info["model name"]
+    fields = [f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "cpu mhz") if k in info]
+    return ", ".join(fields) or f"{platform.machine()} ({len(info)} cpuinfo fields, none naming the model)"
 
 
 def phase_build() -> None:
@@ -854,6 +946,7 @@ def phase_serve_adaptive() -> int:
     from repro_torch.launch import serve_adaptive as sa
     from repro_torch.launch.serve_decode import where_time_goes
     from repro_torch.serve import ServeEngine
+    from repro_torch.tree import flatten
 
     args = SERVE_ADAPTIVE_ARGS
     free = sa.compare_adaptive_static(**args)  # the decision layer alone
@@ -916,6 +1009,24 @@ def phase_serve_adaptive() -> int:
             f"{p['device_ms']:.3f} ms (busy {100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
         for op in p["top"][:6]:
             log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+    # the engines go: no reference cycle holds one, so their weights and
+    # caches are freed at once, before any garbage collection (none may run
+    # in between)
+    weights = sum(t.numel() * t.element_size() for t in flatten(first.params).values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        del first, engines, eng
+        dropped = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    gc.collect()
+    collected = torch.cuda.memory_allocated()
+    log(f"  engines dropped: memory_allocated {before / 2**30:.3f} GiB -> {dropped / 2**30:.3f} GiB before any "
+        f"garbage collection, {collected / 2**30:.3f} GiB after one (one weight copy: {weights / 2**30:.3f} GiB)")
+    if before - dropped < weights:
+        raise AssertionError("dropping the serve engines did not free their weights without a garbage collection")
     return launches
 
 
@@ -1794,6 +1905,224 @@ def phase_adaptive_ranks(adaptive_first_loss) -> int:
     return launches
 
 
+class _NullTransport:
+    """A fabric transport with no coordinator: the oracle's."""
+
+    def request(self, msg):
+        return None
+
+
+def _incumbent_at(history, initial, iteration: int):
+    """The fleet's spec at ``iteration``: the last committed epoch's whose
+    boundary it has reached, else ``initial``."""
+    spec = initial
+    for rec in history:
+        if rec.committed and rec.boundary <= iteration:
+            spec = rec.spec
+    return spec
+
+
+def _fabric_gates(server, workers, summary, initial) -> None:
+    """The fabric phase's gates on the fleet (see the module docstring)."""
+    hist = server.barrier.history
+    committed = [r for r in hist if r.committed]
+    for rec in committed:
+        for w in workers:
+            applied = [o for o in w.applied_outcomes if o.epoch == rec.epoch]
+            landed = [e for e in w.runtime.switch_events if e.iteration == rec.boundary and e.to_kind == rec.spec.kind]
+            if len(applied) != 1 or not applied[0].committed or applied[0].boundary != rec.boundary or not landed:
+                raise AssertionError(f"{w.host}: epoch {rec.epoch} not applied at its boundary {rec.boundary}")
+    for host, wins in server.windows.items():
+        for win in wins:
+            if win.spec != _incumbent_at(hist, initial, win.iteration):
+                raise AssertionError(f"{host}: iteration {win.iteration} ran {win.spec}, not the incumbent")
+    m = server.fabric_metrics()
+    if (m["committed_switches"], m["aborted_switches"]) != (len(FABRIC_TRAIL) - 1, 1):
+        raise AssertionError(f"{m['committed_switches']} commits and {m['aborted_switches']} aborts")
+    last = hist[-1]
+    if last.committed or not last.reason.startswith("refused"):
+        raise AssertionError(f"the refused spec's epoch ended {last.committed}, {last.reason!r}")
+    for w in workers:
+        if w.current_spec != committed[-1].spec or w._pending is not None:
+            raise AssertionError(f"{w.host} did not roll back to the incumbent")
+        if any(o.committed for o in w.applied_outcomes if o.epoch == last.epoch):
+            raise AssertionError(f"{w.host} committed the refused epoch")
+        moves = [(e.from_spec.num_virtual, e.to_spec.num_virtual, e.restacked)
+                 for e in w.runtime.switch_events if e.from_spec is not None]
+        if sorted((a, b) for a, b, r in moves if a != b) != [(1, 2), (2, 1)] or any(r != (a != b) for a, b, r in moves):
+            raise AssertionError(f"{w.host}: the v-changing switches did not restack: {moves}")
+        for i, r in enumerate(summary["hosts"][w.host]["per_iteration"]):
+            if not math.isfinite(r["loss"]):
+                raise AssertionError(f"{w.host}: non-finite loss at iteration {i}")
+            if r["flash_launches"] != r["attention_forwards"]:
+                raise AssertionError(f"{w.host} iteration {i}: K1 ran {r['flash_launches']} times, the grid of "
+                                     f"{r['plan']} has {r['attention_forwards']} attention forwards")
+
+
+def phase_fabric() -> int:
+    from repro_torch.core import ScheduleSpec
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import fabric_worker, train_adaptive
+
+    trail = [ScheduleSpec(micro_batch_size=2, **kw) for kw in FABRIC_TRAIL]
+
+    def scripted(server):
+        n = len(server.barrier.history)
+        return trail[n] if n < len(trail) else None
+
+    server, workers = train_adaptive.build_fabric_fleet(
+        num_layers=FABRIC_LAYERS, device="cuda", decision_fn=scripted, **FABRIC_ARGS
+    )
+    initial = workers[0].current_spec
+    ops.launches = 0
+    summary = train_adaptive.run_fabric_rounds(server, workers, FABRIC_ROUNDS)
+    launches = ops.launches
+    cfg, rt0 = workers[0].runtime.cfg, workers[0].runtime
+    m = summary["fabric"]
+    log(f"fabric {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {m['hosts']} hosts in one process, "
+        f"S={rt0.num_stages}, global batch {rt0.global_batch} x {rt0.seq_len} a host, {FABRIC_ROUNDS} rounds: "
+        f"{m['barrier_epochs']} epochs ({m['committed_switches']} committed, {m['aborted_switches']} aborted), "
+        f"{m['telemetry_windows']} telemetry windows")
+    for rec in server.barrier.history:
+        votes = ", ".join(f"{h} {'ready' if v.ready else 'refused'} {v.precompile_seconds:.4f} s"
+                          for h, v in rec.votes.items())
+        log(f"  epoch {rec.epoch}: {'COMMIT' if rec.committed else 'ABORT'} {rec.spec.kind} at iteration "
+            f"{rec.boundary}, barrier latency {rec.latency:.4f} s; prepare-to-vote {votes}"
+            + (f"; {rec.reason}" if rec.reason else ""))
+    lat = sorted(r.latency for r in server.barrier.history)
+    log(f"  barrier latency p50 {lat[len(lat) // 2]:.4f} s, max {lat[-1]:.4f} s")
+    clamped = all(s.duration == s.nbytes / 1e15 for ws in server.windows.values() for w in ws for s in w.samples)
+    log(f"  tuner on the hosts' wall times (printed, not gated): every link sample at the bw_hi clamp: {clamped}; "
+        f"decisions " + ", ".join(d["chosen"] for d in server.decision_log))
+    for w in workers:
+        h = summary["hosts"][w.host]
+        peaks = [r["max_memory_allocated"] for r in h["per_iteration"]]
+        log(f"  {w.host}: losses {[round(r['loss'], 4) for r in h['per_iteration']]}")
+        log(f"  {w.host}: state held between steps {h['state_bytes'] / 2**30:.2f} GiB; card's peak during its steps "
+            f"{max(peaks) / 2**30:.2f} GiB (both hosts' state resident)")
+        for e in w.runtime.switch_events[1:]:
+            log(f"  {w.host}: switch at iteration {e.iteration}: {e.from_plan} -> {e.to_plan}, "
+                f"{1e3 * e.seconds:.3f} ms, restacked {e.restacked}, warm {e.warm}")
+        for name, p in h["per_plan"].items():
+            log(f"  {w.host}: plan {name}: {p['iterations']} iterations, step p50 {p['step_ms_p50']:.1f} ms, K1 a "
+                f"step {p['flash_launches']} (grid: {p['attention_forwards']})")
+    log(f"flash launches on the fabric path: {launches}")
+    _fabric_gates(server, workers, summary, initial)
+    per_iteration = summary["hosts"]["host0"]["per_iteration"]
+    want = sum(r["flash_launches"] for h in summary["hosts"].values() for r in h["per_iteration"])
+    if launches != want:
+        raise AssertionError(f"K1 ran {launches} times in the fleet's rounds, its iterations account for {want}")
+    # the oracle: host0's shard alone in a fresh runtime, switched by hand at
+    # the committed boundaries, once the fleet is gone
+    switches = {r.boundary: r.spec for r in server.barrier.history if r.committed}
+    digest = fabric_worker.param_digest(workers[0].runtime.state.params)
+    for w in workers:
+        w.runtime.cache.shutdown()
+    del server, workers, w, rt0
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle = fabric_worker.build_worker(
+        "oracle", 0, _NullTransport(), num_stages=FABRIC_ARGS["num_stages"], seq_len=FABRIC_ARGS["seq_len"],
+        seed=FABRIC_ARGS["seed"], gpt=FABRIC_ARGS["gpt"], num_layers=FABRIC_LAYERS, device="cuda",
+    )
+    for it in range(FABRIC_ROUNDS):
+        if it in switches:
+            oracle.runtime.switch_to(oracle.resolve(switches[it]))
+        oracle.step()
+    oracle.runtime.cache.shutdown()
+    diffs = [abs(a["loss"] - b.loss) for a, b in zip(per_iteration, oracle.runtime.iterations)]
+    odigest = fabric_worker.param_digest(oracle.runtime.state.params)
+    rel = abs(digest["l2"] - odigest["l2"]) / odigest["l2"]
+    log(f"  oracle (host0's shard alone, switched by hand): largest loss difference {max(diffs):.3e} (<= "
+        f"{FABRIC_LOSS_TOL:g}; bitwise: {max(diffs) == 0.0}), parameter digest l2 {digest['l2']!r} vs "
+        f"{odigest['l2']!r} (rel {rel:.3e} <= {FABRIC_DIGEST_TOL:g}), l1 {digest['l1']!r} vs {odigest['l1']!r}")
+    if len(diffs) != FABRIC_ROUNDS or max(diffs) > FABRIC_LOSS_TOL or rel > FABRIC_DIGEST_TOL:
+        raise AssertionError("host0 of the fleet differs from its shard run alone")
+    del oracle
+    return launches
+
+
+def phase_fabric_tcp() -> int:
+    from repro_torch.core import ScheduleSpec
+    from repro_torch.launch import train_adaptive
+    from repro_torch.runtime.fabric import CoordinatorListener, CoordinatorServer, FabricConfig
+
+    _, _, cands, _ = train_adaptive.fig10_parts(FABRIC_ARGS["num_stages"], gpt=FABRIC_ARGS["gpt"],
+                                                num_layers=FABRIC_TCP_LAYERS)
+    target = ScheduleSpec(kind="interleaved_zb", num_virtual=2, micro_batch_size=2)
+    server = CoordinatorServer(
+        ("host0", "host1"), initial_spec=cands[0].spec, tuner=None,
+        config=FabricConfig(vote_timeout=600.0, boundary_lead=1),
+        decision_fn=lambda sv: target if not sv.barrier.history else None,
+    )
+    listener = CoordinatorListener(server).start()
+    out_dir = tempfile.mkdtemp(prefix="fabric_tcp_")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs, outs = [], {}
+    t0 = time.perf_counter()
+    try:
+        for i, host in enumerate(server.hosts):
+            outs[host] = os.path.join(out_dir, f"{host}.json")
+            cmd = [
+                sys.executable, "-m", "repro_torch.launch.fabric_worker", "--connect", f"127.0.0.1:{listener.port}",
+                "--host", host, "--host-index", str(i), "--iterations", str(FABRIC_TCP_ITERATIONS),
+                "--stages", str(FABRIC_ARGS["num_stages"]), "--gpt", FABRIC_ARGS["gpt"],
+                "--layers", str(FABRIC_TCP_LAYERS), "--seq-len", str(FABRIC_ARGS["seq_len"]),
+                "--seed", str(FABRIC_ARGS["seed"]), "--device", "cuda", "--out", outs[host],
+            ]
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        deadline = time.monotonic() + FABRIC_TCP_TIMEOUT
+        for host, p in zip(server.hosts, procs):
+            stdout, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"fabric worker {host} exited {p.returncode}:\n{stdout[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        listener.stop()
+    wall = time.perf_counter() - t0
+    left = [p.pid for p in procs if p.poll() is None]
+    results = {h: json.load(open(path)) for h, path in outs.items()}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    m = server.fabric_metrics()
+    log(f"fabric-tcp {FABRIC_ARGS['gpt']} ({FABRIC_TCP_LAYERS} layers) in two worker processes over TCP, "
+        f"{FABRIC_TCP_ITERATIONS} iterations each, {wall:.1f} s from launch to exit; {m['barrier_epochs']} epochs "
+        f"({m['committed_switches']} committed), {m['telemetry_windows']} telemetry windows, barrier latency "
+        f"{m['barrier_latency_max']:.4f} s; processes left running: {left}")
+    for h, r in results.items():
+        launches = [k["flash_launches"] for k in r["kernel_launches"]]
+        log(f"  {h}: plans {r['plans']}, losses {[round(x, 4) for x in r['losses']]}, step "
+            f"{[round(1e3 * x, 1) for x in r['seconds']]} ms, switches {[round(1e3 * x, 3) for x in r['switch_seconds']]}"
+            f" ms, K1 {launches} (grid: {[k['attention_forwards'] for k in r['kernel_launches']]}), "
+            f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB, applied {r['applied']}")
+    hist = server.barrier.history
+    if left:
+        raise AssertionError(f"fabric worker processes left running: {left}")
+    if len(hist) != 1 or not hist[0].committed or m["committed_switches"] != 1:
+        raise AssertionError(f"not one committed switch: {[(r.epoch, r.committed, r.reason) for r in hist]}")
+    if m["telemetry_windows"] != 2 * FABRIC_TCP_ITERATIONS:
+        raise AssertionError(f"{m['telemetry_windows']} telemetry windows, not {2 * FABRIC_TCP_ITERATIONS}")
+    launches = 0
+    for h, r in results.items():
+        (applied,) = r["applied"]
+        if not applied["committed"] or applied["boundary"] != hist[0].boundary:
+            raise AssertionError(f"{h} applied {applied}, not the commit at {hist[0].boundary}")
+        if r["final_spec"]["kind"] != target.kind or r["iterations"] != FABRIC_TCP_ITERATIONS:
+            raise AssertionError(f"{h} ended on {r['final_spec']} after {r['iterations']} iterations")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"{h}: non-finite loss")
+        for i, k in enumerate(r["kernel_launches"]):
+            if k["flash_launches"] != k["attention_forwards"] or k["flash_launches"] == 0:
+                raise AssertionError(f"{h} iteration {i}: K1 ran {k['flash_launches']} times, the grid has "
+                                     f"{k['attention_forwards']} attention forwards")
+            launches += k["flash_launches"]
+    log(f"flash launches on the fabric-tcp path: {launches} (summed over the two workers)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -1859,9 +2188,17 @@ def main(argv=None) -> int:
             launches = phase_adaptive_ranks(adaptive_first_loss)
             if kernels:
                 kernels["flash"]["per_path"]["adaptive-ranks"]["launches"] = launches
+        elif name == "fabric":
+            launches = phase_fabric()
+            if kernels:
+                kernels["flash"]["per_path"]["fabric"]["launches"] = launches
+        elif name == "fabric-tcp":
+            launches = phase_fabric_tcp()
+            if kernels:
+                kernels["flash"]["per_path"]["fabric-tcp"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
-        # what a phase built may hold itself alive (a serve engine and its
-        # runtime's program factory hold each other): free it before the next
+        # what a phase built may hold itself alive (a training runtime and its
+        # step cache's factory hold each other): free it before the next
         gc.collect()
         torch.cuda.empty_cache()
     log(f"all phases {time.perf_counter() - t0:.1f} s")

@@ -54,6 +54,7 @@ import dataclasses
 import json
 import os
 import time
+import weakref
 
 import torch
 
@@ -245,10 +246,11 @@ def build_serve_scenario(
         ttft_slo=TTFT_SLO, tpot_slo=TPOT_SLO,
     )
     # the objective needs the runtime's live queue pressure, the runtime
-    # needs the tuner: late-bind through a box
+    # needs the tuner: late-bind through a box, weakly, so that the runtime
+    # (and the engine it drives) is freed without a garbage collection
     box: dict = {}
     objective = (
-        make_slo_objective(lambda: box["rt"].queue_pressure(), latency_weight)
+        make_slo_objective(lambda: box["rt"]().queue_pressure(), latency_weight)
         if adaptive
         else None
     )
@@ -266,7 +268,7 @@ def build_serve_scenario(
         tuning_overhead=tuning_overhead,
         engine=engine, obs=obs, track=track,
     )
-    box["rt"] = rt
+    box["rt"] = weakref.ref(rt)
     return ServeScenario(
         cfg=cfg, candidates=cands, decode_costs=decode_costs,
         prefill_costs=prefill_costs, network=net, tuner=tuner, runtime=rt,

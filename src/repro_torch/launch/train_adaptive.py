@@ -1,8 +1,7 @@
 """Fig-10 end-to-end on the port's engines: the live plan-switch runtime.
 
-Port of ``repro/launch/train_adaptive.py`` (the ``--fabric`` fleet comes
-with ROADMAP queue 1, item 8).  The paper's regime experiment (preemption
-appears, eases, returns; the tuner re-decides at intervals; the
+Port of ``repro/launch/train_adaptive.py``.  The paper's regime experiment
+(preemption appears, eases, returns; the tuner re-decides at intervals; the
 coordinator swaps plans with minimal overhead) with real gradients:
 
 * the network world stays a seeded :class:`RegimeTrace` driving the
@@ -35,6 +34,16 @@ Two backends, as ``repro``'s ``--backend``:
   rank draws its own batch).  Transport: NCCL when every rank has a card
   of its own, else gloo (``pipeline/ranks.py``).
 
+``--fabric N`` runs ``repro``'s cross-host fleet instead (the reference
+backend only, as in ``repro``): N hosts, each a whole :class:`PlanRuntime`
+replica training its own data shard (:func:`build_fabric_fleet`), under a
+:class:`~repro_torch.runtime.fabric.CoordinatorServer` that merges their
+telemetry windows (each host's wall time inverted to link samples) into a
+central tuner and switches every host at one iteration boundary through
+the two-phase barrier, over in-process transports
+(:func:`run_fabric_rounds`).  ``python -m repro_torch.launch.fabric_worker``
+is one such host in a process of its own, over TCP.
+
 The model is ``repro``'s ``runtime-tiny`` by default, or a Table-1 GPT
 config at full size (``--gpt GPT-2.7B --seq 1024``: fp32 parameters, bf16
 compute, every attention forward in the flash kernel K1 on the card).
@@ -46,6 +55,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train_adaptive \\
       [--backend reference|spmd] [--iterations 14] [--stages 4] [--seed 0] \\
       [--gpt GPT-2.7B --seq 1024] [--device cuda] \\
+      [--fabric N [--vote-timeout 600]] \\
       [--out summary.json] [--trace trace.json]
 
 Without ``--device`` the run needs a CUDA card (a card per rank for NCCL)
@@ -77,6 +87,7 @@ from repro_torch.core import (
     StableTrace,
     StageCosts,
     make_plan,
+    uniform_network,
 )
 from repro_torch.core.coordinator import IterationRecord, RunSummary
 from repro_torch.data import SyntheticTextDataset
@@ -89,6 +100,7 @@ from repro_torch.optim import constant_schedule, make_optimizer
 from repro_torch.pipeline import ranks
 from repro_torch.pipeline.engine import reduce_replicated, stage_body_runs
 from repro_torch.runtime import PassiveLinkFeed, PlanRuntime, RealEngineHarness, TelemetryBus
+from repro_torch.runtime.fabric import CoordinatorServer, FabricConfig, LocalTransport, WorkerAgent, fabric_probe_links
 from repro_torch.tree import flatten, tree_map
 
 __all__ = [
@@ -103,6 +115,8 @@ __all__ = [
     "grad_parity_max_err",
     "fig10_rank",
     "run_fig10_spmd",
+    "build_fabric_fleet",
+    "run_fabric_rounds",
     "main",
 ]
 
@@ -117,19 +131,21 @@ PRECOMPILE_TOP_N = 5
 
 
 def fig10_parts(
-    num_stages: int = 4, gpt: str | None = None, num_layers: int | None = None
+    num_stages: int = 4, d_model: int = 16, gpt: str | None = None, num_layers: int | None = None
 ) -> tuple[ModelConfig, StageCosts, list[Candidate], int]:
     """The Fig-10 scenario's static parts: model config, stage costs, the
     candidate set (1F1B, 2F2B, ZB-H1, ZB-H2(w=2), interleaved-ZB(v=2)) and
-    the global batch.  ``gpt`` names a Table-1 GPT config to train in place
-    of ``repro``'s ``runtime-tiny`` (``num_layers`` cuts its depth); the
-    candidates and costs stay."""
+    the global batch.  Every fabric host builds the same parts, so a
+    :class:`ScheduleSpec` on the wire resolves to the same logical plan on
+    each.  ``runtime-tiny`` is ``repro``'s at ``d_model`` (``d_ff`` twice
+    it); ``gpt`` names a Table-1 GPT config to train in its place
+    (``num_layers`` cuts its depth); the candidates and costs stay."""
     S, M, b = num_stages, num_stages, 2
     B = M * b
     if gpt is None:
         cfg = ModelConfig(
-            "runtime-tiny", "dense", num_layers=2 * S, d_model=16, num_heads=2,
-            num_kv_heads=2, d_ff=32, vocab_size=64,
+            "runtime-tiny", "dense", num_layers=2 * S, d_model=d_model, num_heads=2,
+            num_kv_heads=2, d_ff=2 * d_model, vocab_size=64,
             dtype=torch.float32, param_dtype=torch.float32,
         )
     else:
@@ -534,6 +550,181 @@ def run_fig10_spmd(
     )[0]
 
 
+def host_state_bytes(runtime: PlanRuntime) -> int:
+    """Bytes of the tensors a runtime holds between steps: its parameters,
+    AdamW's ``m`` and ``v`` and the last step's gradients (the replicated
+    groups' copies counted each)."""
+    st = runtime.state
+    trees = [st.params, runtime.last_grads]
+    if st.opt_state is not None:
+        trees += [st.opt_state.m, st.opt_state.v]
+    return sum(
+        t.numel() * t.element_size()
+        for tree in trees if tree is not None
+        for t in flatten(tree).values()
+    )
+
+
+def build_fabric_fleet(
+    num_hosts: int = 2,
+    num_stages: int = 4,
+    seed: int = 0,
+    backend: str = "reference",
+    tuning_interval: float = 0.0,
+    vote_timeout: float = 30.0,
+    boundary_lead: int = 2,
+    decision_fn=None,
+    d_model: int = 16,
+    seq_len: int = 64,
+    obs: Observability | None = None,
+    gpt: str | None = None,
+    num_layers: int | None = None,
+    device=None,
+):
+    """An N-host coordinator fabric over LocalTransport, sharing the Fig-10
+    scenario's model and candidates (:func:`fig10_parts`), on ``device``
+    (the card unless given ``"cpu"``).
+
+    Each host owns a full :class:`PlanRuntime` replica (its own step cache)
+    training its own data shard (``seed + host``) from the same draw; the
+    coordinator runs the unmodified AutoTuner over an *offline* profiler
+    fed only by the hosts' merged telemetry windows, and dispatches
+    switches through the two-phase barrier.  ``decision_fn`` (server ->
+    spec | None) scripts the switch trail; without it the passive tuner
+    decides.
+
+    Returns ``(server, workers)``: drive with
+    ``run_fabric_rounds(server, workers, n)``."""
+    cfg, costs, cands, B = fig10_parts(num_stages, d_model=d_model, gpt=gpt, num_layers=num_layers)
+    costs_for = lambda c: costs  # noqa: E731
+    # one observability bundle: every host's runtime spans, the coordinator's
+    # barrier and tuner tracks, and the flight ring land in one trace
+    obs = obs or Observability.create()
+    profiler = NetworkProfiler(None, window=4)  # offline: telemetry only
+    tuner = AutoTuner(
+        cands, costs_for, profiler, passive_staleness=float("inf"), flight=obs.flight, metrics=obs.metrics,
+    )
+    hosts = tuple(f"host{i}" for i in range(num_hosts))
+    server = CoordinatorServer(
+        hosts,
+        initial_spec=cands[0].spec,
+        tuner=tuner,
+        config=FabricConfig(tuning_interval=tuning_interval, vote_timeout=vote_timeout, boundary_lead=boundary_lead),
+        decision_fn=decision_fn,
+        obs=obs,
+    )
+    probe_links = fabric_probe_links(cands, costs_for)
+    workers = []
+    for i, host in enumerate(hosts):
+        opt = make_optimizer("adamw", schedule=constant_schedule(1e-3))
+        runtime = PlanRuntime(
+            cfg, num_stages, opt, global_batch=B, seq_len=seq_len, backend=backend,
+            init_key=seed, obs=obs, obs_track=host, device=device,
+        )
+        dataset = SyntheticTextDataset(cfg.vocab_size, seq_len, B, seed=seed + i)
+
+        def batch_fn(it: int, ds=dataset, dev=runtime.device):
+            batch = ds.batch_at(it, dev)
+            return batch.tokens, batch.labels
+
+        workers.append(
+            WorkerAgent(
+                host, runtime, LocalTransport(server, host), batch_fn,
+                costs=costs, initial_spec=cands[0].spec, probe_links=probe_links, obs=obs,
+            )
+        )
+    return server, workers
+
+
+def run_fabric_rounds(server, workers, num_iterations: int) -> dict:
+    """Drive every worker through ``num_iterations`` fabric rounds
+    (round-robin, the deterministic interleave the tests rely on) and
+    return the fleet summary: ``repro``'s keys, and per host each round's
+    plan, wall seconds, loss, K1 launches beside the attention forwards of
+    the plan's grid (:func:`expected_flash_launches`) and the card's peak
+    memory allocated during the host's round, per plan the step p50, and
+    the bytes of the state the host holds between steps
+    (:func:`host_state_bytes`)."""
+    counters = _RankCounters(workers[0].runtime.device)
+    rounds = {w.host: [] for w in workers}
+    for _ in range(num_iterations):
+        for w in workers:
+            r = w.step()
+            rounds[w.host].append({
+                "plan": r.plan_name, "kind": r.kind, "loss": r.loss, "seconds": r.seconds,
+                "attention_forwards": expected_flash_launches(w.runtime.current_table.plan, w.runtime.cfg),
+                **counters(),
+            })
+    per_host = {}
+    for w in workers:
+        runs = rounds[w.host]
+        per_plan = {}
+        for name in dict.fromkeys(r["plan"] for r in runs):
+            mine = [r for r in runs if r["plan"] == name]
+            per_plan[name] = {
+                "iterations": len(mine),
+                "step_ms_p50": 1e3 * statistics.median(r["seconds"] for r in mine),
+                "flash_launches": sorted({r["flash_launches"] for r in mine}),
+                "attention_forwards": mine[0]["attention_forwards"],
+            }
+        per_host[w.host] = {
+            "iterations": len(w.runtime.iterations),
+            "losses": [round(r.loss, 4) for r in w.runtime.iterations],
+            "spec": dataclasses.asdict(w.current_spec),
+            "switches": len(w.runtime.switch_events),
+            "precompile_hit_rate": w.runtime.cache.stats.hit_rate,
+            "per_iteration": runs,
+            "per_plan": per_plan,
+            "state_bytes": host_state_bytes(w.runtime),
+        }
+    return {"fabric": server.fabric_metrics(), "hosts": per_host}
+
+
+def _fabric_main(args, kw: dict) -> int:
+    """``main``'s ``--fabric N`` branch: the in-process fleet, its summary
+    printed and written to ``--out``, and with ``--trace`` the fleet's trace
+    beside the incumbent plan's predicted timeline."""
+    server, workers = build_fabric_fleet(
+        num_hosts=args.fabric, vote_timeout=args.vote_timeout, device=args.device, **kw
+    )
+    t0 = time.time()
+    try:
+        out = run_fabric_rounds(server, workers, args.iterations)
+    finally:
+        for w in workers:
+            w.runtime.cache.shutdown()
+    out["wall_seconds"] = round(time.time() - t0, 2)
+    out["decision_log"] = [{"t": d["t"], "chosen": d["chosen"]} for d in server.decision_log]
+    if args.trace:
+        # predicted side: the incumbent plan's simulated timeline on a stable
+        # 50 GB/s-class network (the fabric itself is offline, telemetry-fed)
+        spec, w0 = server.incumbent, workers[0]
+        plan = make_plan(w0.runtime.num_stages, w0.runtime.global_batch // spec.micro_batch_size, spec=spec)
+        render_simulated_trace(
+            plan, w0.costs, uniform_network(args.stages, lambda: StableTrace(50.0)), recorder=server.obs.trace
+        )
+        server.obs.trace.save(args.trace)
+        server.obs.flight.dump(args.trace + ".flight.json", reason="run end")
+        print(f"wrote trace {args.trace} (+ .flight.json)")
+    fm = out["fabric"]
+    print(f"fabric: {fm['hosts']} hosts, {fm['telemetry_windows']} telemetry windows, device "
+          f"{workers[0].runtime.device}")
+    print(f"barrier epochs: {fm['barrier_epochs']} (committed {fm['committed_switches']}, aborted "
+          f"{fm['aborted_switches']}), latency max {fm['barrier_latency_max']:.4f} s")
+    print(f"incumbent: {fm['incumbent']}")
+    print("tuner decisions: " + ", ".join(d["chosen"] for d in out["decision_log"]))
+    for host, h in out["hosts"].items():
+        plans = ", ".join(f"{n} {p['step_ms_p50']:.1f} ms" for n, p in h["per_plan"].items())
+        print(f"{host}: {h['iterations']} iterations, {h['switches']} switches, step p50 {plans}, "
+              f"loss {h['losses'][0]:.3f} -> {h['losses'][-1]:.3f}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+            f.write("\n")
+        print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--iterations", type=int, default=14)
@@ -546,12 +737,23 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=64, help="tokens a sequence")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="write the run summary JSON here")
+    ap.add_argument("--fabric", type=int, default=0, metavar="N",
+                    help="run an N-host coordinator fabric (in-process LocalTransport fleet: central "
+                    "tuner + barrier-safe switching) instead of the single-process harness")
+    ap.add_argument("--vote-timeout", type=float, default=600.0,
+                    help="fabric PREPARE->deadline span in seconds (a first build of the target's step "
+                    "must fit inside it, or the epoch aborts and is retried)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write a Chrome/Perfetto trace of the run here: the observed spans (rank 0's "
-                    "under spmd) plus the simulator's predicted timeline of the final plan")
+                    "under spmd; every host's and the coordinator's barrier and tuner tracks under "
+                    "--fabric) plus the simulator's predicted timeline of the final plan")
     args = ap.parse_args(argv)
 
     kw = dict(num_stages=args.stages, seq_len=args.seq, seed=args.seed, gpt=args.gpt)
+    if args.fabric:
+        if args.backend != "reference":
+            ap.error("--fabric currently supports the reference backend only")
+        return _fabric_main(args, kw)
     if args.backend == "spmd":
         out = run_fig10_spmd(args.iterations, device=args.device, trace=args.trace, **kw)
     else:

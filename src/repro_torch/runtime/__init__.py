@@ -1,7 +1,7 @@
 """Live plan-switch runtime: the adaptive loop on the port's engines.
 
-Port of ``repro.runtime`` (the reference and spmd backends; the fabric
-comes with ROADMAP queue 1, item 8):
+Port of ``repro.runtime`` (the reference and spmd backends, and the
+cross-host fabric on the reference backend):
 
 ``compile_cache``  step programs keyed by the lowered ``TabularPlan``, built
                    on a background worker for the tuner's top-N candidates
@@ -15,6 +15,12 @@ comes with ROADMAP queue 1, item 8):
 ``harness``        ``RealEngineHarness``: the coordinator's hook that mirrors
                    each tuner decision onto the live runtime (entry point:
                    ``python -m repro_torch.launch.train_adaptive``)
+``fabric``         the coordinator-worker control plane across hosts:
+                   ``CoordinatorServer``, the two-phase ``SwitchBarrier``,
+                   ``WorkerAgent`` around each host's ``PlanRuntime``, over
+                   ``LocalTransport`` or TCP (entry points:
+                   ``train_adaptive --fabric N`` and
+                   ``python -m repro_torch.launch.fabric_worker``)
 """
 
 from repro_torch.runtime.compile_cache import CacheStats, CompiledEntry, CompiledStepCache

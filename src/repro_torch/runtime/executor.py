@@ -376,7 +376,14 @@ class PlanRuntime:
     :class:`~repro_torch.pipeline.ranks.RankGroup`; every rank builds its
     runtime with the same arguments.  ``rank_probe`` (spmd) is called on
     every rank after each step; its dict joins the rank's record in
-    :attr:`IterationResult.ranks`."""
+    :attr:`IterationResult.ranks`.
+
+    ``cache`` may be a :class:`CompiledStepCache` borrowed from another
+    runtime of the same config, as ``repro``'s fleets share one across
+    hosts: a reference-backend step closes over the plan, its frozen
+    ``StagedModel`` and the stateless optimizer only, so it is a pure
+    function of (state, batch) that any such runtime can run.  A borrowed
+    cache keeps its owner's factory and registry."""
 
     def __init__(
         self,
@@ -394,6 +401,7 @@ class PlanRuntime:
         device=None,
         group=None,
         rank_probe: Callable[[], dict] | None = None,
+        cache: CompiledStepCache | None = None,
     ) -> None:
         if backend not in ("reference", "spmd"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -437,8 +445,9 @@ class PlanRuntime:
         self.current_v = 1
         #: the placement the owned state is laid out in (the flat layout's at first)
         self.placement = Placement.build("kfkb", num_stages, 1)
-        # the cache joins the shared registry, its series labelled by track
-        self.cache = CompiledStepCache(
+        # a fresh cache joins the shared registry, its series labelled by
+        # track; a borrowed cache keeps whatever registry its owner gave it
+        self.cache = cache or CompiledStepCache(
             program_factory or self._program_for,
             metrics=obs.metrics if obs is not None else None,
             labels={"track": obs_track} if obs is not None else None,

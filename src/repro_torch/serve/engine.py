@@ -28,12 +28,19 @@ Decoding is greedy (temperature 0), so serving runs are reproducible token
 for token; emitted tokens accumulate in ``outputs[rid]``.  Matrices and the
 embedding table are held in ``cfg.dtype`` (cast once at load), norm scales
 and biases in ``cfg.param_dtype``.  The cache is updated in place.
+
+The engine is not part of a reference cycle (``repro``'s is: its runtime's
+factory is the engine's bound method), so dropping the last reference frees
+its weights and cache at once, without a garbage collection: the runtime
+holds the factory through a weak reference to the engine, and the decode
+programs close over the non-finite flag, not the engine.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Callable
+import weakref
 
 import torch
 
@@ -75,7 +82,7 @@ class ServeEngine:
         self.positions = torch.zeros((max_slots,), dtype=torch.long, device=self.device)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.long, device=self.device)
         self.outputs: dict[int, list[int]] = {}
-        self.prompt_fn = prompt_fn or self.default_prompt
+        self.prompt_fn = prompt_fn  # None: default_prompt (a bound method here would be a cycle)
         self.prefill_seconds: list[float] = []  # wall time of each prefill call
         self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
         # stateless runtime: no TrainState, programs come from our factory,
@@ -86,7 +93,7 @@ class ServeEngine:
             optimizer=None,
             global_batch=max_slots,
             seq_len=max_len,
-            program_factory=self._program_for,
+            program_factory=_weak_factory(self),
             obs=obs,
             obs_track=track,
             device=self.device,
@@ -100,16 +107,16 @@ class ServeEngine:
         if self.max_slots % M:
             raise ValueError(f"plan {plan.name} needs M={M} | max_slots={self.max_slots}")
         b = self.max_slots // M
-        cfg = self.cfg
+        cfg, nonfinite = self.cfg, self._nonfinite
 
         def step(params, cache, positions, tokens):
             new_tok = torch.empty_like(tokens)
             for g in range(M):
                 rows = slice(g * b, (g + 1) * b)
                 logits, _ = api.decode_fn(
-                    params, cfg, self._rows(cache, rows), positions[rows], {"tokens": tokens[rows]}
+                    params, cfg, ServeEngine._rows(cache, rows), positions[rows], {"tokens": tokens[rows]}
                 )
-                new_tok[rows, 0] = self._greedy(logits)
+                new_tok[rows, 0] = _greedy(logits, nonfinite)
             return new_tok
 
         return step
@@ -130,10 +137,6 @@ class ServeEngine:
         """Views of the slot rows ``rows`` of every cache leaf."""
         return tree_map(lambda x: x[rows], cache)
 
-    def _greedy(self, logits) -> torch.Tensor:
-        last = logits[:, -1, :]
-        self._nonfinite |= ~torch.isfinite(last).all()
-        return last.argmax(dim=-1)
 
     def default_prompt(self, rid: int, prompt_len: int) -> torch.Tensor:
         """The seeded prompt of request ``rid``: [1, prompt_len] tokens."""
@@ -151,7 +154,7 @@ class ServeEngine:
         """Fused-prefill each admitted request's prompt into its slot row."""
         for inf in admitted:
             req = inf.request
-            prompt = torch.as_tensor(self.prompt_fn(req.rid, req.prompt_len))
+            prompt = torch.as_tensor((self.prompt_fn or self.default_prompt)(req.rid, req.prompt_len))
             prompt = prompt.to(self.device, torch.long).reshape(1, -1)
             if prompt.shape[1] != req.prompt_len:
                 raise ValueError(
@@ -163,7 +166,7 @@ class ServeEngine:
             row = self._rows(self.cache, slice(s, s + 1))
             tree_map(torch.Tensor.zero_, row)
             logits, _ = api.prefill_with_cache(self.params, self.cfg, row, {"tokens": prompt})
-            tok = self._greedy(logits)
+            tok = _greedy(logits, self._nonfinite)
             self.positions[s] = req.prompt_len
             self.tokens[s, 0] = tok[0]
             first = int(tok[0])  # reads the token back: the prefill has finished
@@ -189,3 +192,25 @@ class ServeEngine:
         for s in slots:
             self.positions[s] = 0
             self.tokens[s] = 0
+
+
+def _greedy(logits, nonfinite: torch.Tensor) -> torch.Tensor:
+    """The last position's argmax; ``nonfinite`` (a bool scalar) is or-ed,
+    in place, with whether any of its logits is not finite."""
+    last = logits[:, -1, :]
+    nonfinite |= ~torch.isfinite(last).all()
+    return last.argmax(dim=-1)
+
+
+def _weak_factory(engine: ServeEngine) -> Callable:
+    """``engine._program_for`` through a weak reference: the runtime's cache
+    keeps the factory, and a bound method there would keep the engine."""
+    ref = weakref.ref(engine)
+
+    def factory(table):
+        engine = ref()
+        if engine is None:
+            raise RuntimeError("the ServeEngine this runtime served was dropped; build a new engine")
+        return engine._program_for(table)
+
+    return factory

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.data import SyntheticTextDataset
-from repro_torch.launch import dryrun_pipeline, serve_adaptive, serve_decode, train, train_adaptive
+from repro_torch.launch import dryrun_pipeline, fabric_worker, serve_adaptive, serve_decode, train, train_adaptive
 from repro_torch.models import api
 from repro_torch.serve import ServeEngine
 
@@ -35,10 +35,13 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flash_attention.ops" in mods and "repro_torch.kernels.ssd_scan.ops" in mods
     assert "repro_torch.launch.train" in mods and "repro_torch.launch.train_adaptive" in mods
-    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 77
+    assert "repro_torch.runtime.executor" in mods and "repro_torch.obs.trace" in mods and len(mods) >= 85
     assert "repro_torch.serve.slo" in mods and "repro_torch.launch.serve_adaptive" in mods
     assert "repro_torch.pipeline.ranks" in mods and "repro_torch.pipeline.rank_checks" in mods
     for mod in ("core.devicespec", "core.calibrate", "launch.op_counts", "launch.dryrun_pipeline"):
+        assert f"repro_torch.{mod}" in mods, mod
+    fabric = ("messages", "protocols", "barrier", "coordinator", "transport", "worker")
+    for mod in ("runtime.fabric", *(f"runtime.fabric.{m}" for m in fabric), "launch.fabric_worker"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -99,6 +102,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         train_adaptive.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_adaptive.main(["--iterations", "1", "--backend", "spmd"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_adaptive.main(["--iterations", "1", "--fabric", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fabric_worker.main(["--connect", "127.0.0.1:1", "--host", "host0", "--host-index", "0"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SyntheticTextDataset(64, 8, 2).batch_at(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
