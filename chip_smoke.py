@@ -18,10 +18,27 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 beside the plain version and the PyTorch library call
                 (yardstick only; K2 has none); K1 at all four serving
                 lengths (16 tokens: serve-adaptive's prompts, under one
-                query tile)
+                query tile) and at the dense archs' shapes: gemma3-12b's
+                local (window 1024) and global layers at hd 256 with 16
+                heads over 8 (T 1536; T 2048 for train-dense), qwen2.5-14b's
+                GQA prefill (40 heads over 8 at hd 128, B 2 x T 512), hd 256
+                on fp32 (the fma route) and fp16; the build logs each
+                kernel's registers and spill bytes (nvcc -Xptxas -v)
 4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
                 through K1 and through the plain attention; logits and greedy
-                tokens agree
+                tokens agree; each layer's K1 output in the prefill, at every
+                position, holds the plain version on that layer's q/k/v, and
+                K1 on the same inputs with a planted fault (KV heads shifted
+                by one; on a windowed layer, the window dropped) must fail
+                that gate
+4a. model-dense
+                the same check at full width on the dense archs:
+                qwen2.5-14b cut to 2 layers (a prefill of 300 tokens) and
+                gemma3-12b cut to one 5:1 period of 6 layers (a prefill of
+                1100 tokens, past the 1024-token window, so the local
+                layers' ring buffers wrap), 4 decode steps each; K1 once per
+                layer of each prefill; the logits held to an fp32 run, and
+                the per-layer gate and its planted faults as in ``model``
 5. train-model  a 2-layer, full-width mamba2-780m: loss and gradients of one
                 micro-batch through K2 and through the plain SSD agree
 6. serve        GPT-2.7B at full width and depth served through
@@ -55,10 +72,30 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 runs (SSM serving is the recurrence); one request's fused
                 prefill bitwise equal, logits and state, to stepping
                 mamba_decode over its prompt on the card; a traced tick
+6c. serve-dense
+                qwen1.5-4b, qwen2.5-14b, internlm2-20b and gemma3-12b at
+                full size, one after the other, through ``serve_decode
+                --config <arch id>`` (8 slots on M=4 x b=2, 8 requests,
+                16-32 new tokens; prompts 128-512 and max_len 544, gemma3's
+                1024-1536 past its window and max_len 1568), the weights
+                drawn and cast a layer at a time: every request completes
+                with finite logits; K1 = prefills x layers; the peak, setup
+                and serving, under the bf16 weights + the cache + 4 GiB;
+                once serve_decode returned, memory_allocated is back within
+                256 MiB of where it was, before any collection; a traced
+                decode tick and longest-prompt prefill of each are printed
 7. train        mamba2-780m at full width and depth trained through
                 ``repro_torch.launch.train``: 6 steps of batch 8 x 1024 tokens
                 in M=2 micro-batches; K2 ran once per layer per micro-batch,
                 and the loss is finite and falls, with finite gradient norms
+7a. train-dense
+                ``launch.train.train`` (--mode spmd) at full width, 4 steps
+                and one traced: gemma3-12b cut to 6 layers (b 1 x T 2048,
+                M=1: past the window, the global layer included) and
+                qwen1.5-4b cut to 24 of 40 layers (b 2 x T 1024, M=2);
+                finite losses and clip norms; every parameter leaf changed
+                by the steps; K1 = layers x micro-batches x steps (the
+                backward recomputes the plain attention)
 8. pipeline-model
                 a 4-layer, full-width GPT-2.7B in S=2 stages, M=4 micro-batches
                 of 1 x 512 tokens: the reference pipeline engine's loss and
@@ -195,7 +232,8 @@ them after its run and returns them.
 The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
-ranks and the fabric in one process and across two, each at its own shape);
+ranks, the fabric in one process and across two, and the dense archs'
+model check, serving and training, each at its own shape);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -218,8 +256,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "kernels", "model", "train-model", "serve", "serve-adaptive", "serve-ssm", "train",
-    "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
+    "device", "build", "kernels", "model", "model-dense", "train-model", "serve", "serve-adaptive", "serve-ssm",
+    "serve-dense", "train", "train-dense", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
     "adaptive-ranks", "fabric", "fabric-tcp",
 )
 
@@ -247,6 +285,23 @@ REL_TOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 2e-6}
 #: model check, kernel vs plain attention: logits after 2 bf16 layers; a
 #: hidden-state rounding flip moves a logit by a few bf16 ulps (7.8e-3 at 1.0)
 MODEL_TOL = 5e-2
+#: model-dense: the absolute limit above does not carry to other logit
+#: scales and depths (qwen2.5-14b's untied head over d 5120 gives logits of
+#: rms 1.43, gemma3-12b's 6 layers and 262,144 logits a longer tail: on an
+#: H100 the K1 and plain bf16 runs part by 0.0625 and 0.087 at their
+#: prefills, 2-3 bf16 ulps at |logit| 4-8).  So both bf16 runs are held to an fp32 run of the
+#: same weights: K1's largest logit error there at most twice the plain
+#: version's.  Both round the probabilities to bf16 once, at other points
+#: of the softmax, so their errors are of one size; a wrong mask, window or
+#: KV head would put K1's at the logits' own scale (rms ~1.2-1.4)
+MODEL_ORACLE_FACTOR = 2.0
+#: model and model-dense: greedy decode steps after the prefill
+MODEL_DECODE_STEPS = 4
+#: model-dense: (arch, layers, prompt tokens) at full width: qwen2.5-14b cut
+#: to 2 layers (GQA 40 over 8 at hd 128, QKV bias); gemma3-12b cut to one
+#: 5:1 period of 6 layers, its prompt past the 1024-token window so that the
+#: local layers' ring buffers wrap
+MODEL_DENSE = (("qwen2.5-14b", 2, 300), ("gemma3-12b", 6, 1100))
 
 # (name, B, T, S, H, K, hd, dtype, causal, window); the first is the
 # serve-adaptive phase's prefill (16 tokens, under one query tile), the next
@@ -270,6 +325,17 @@ FLASH_CASES = [
     ("hd96", 1, 333, 333, 16, 16, 96, torch.bfloat16, True, None),
     ("hd128", 1, 333, 333, 16, 16, 128, torch.bfloat16, True, None),
     ("fp16_window", 1, 333, 333, 8, 8, 80, torch.float16, True, 100),
+    # the dense archs: gemma3-12b's local (window 1024) and global layers at
+    # hd 256 with 16 heads over 8 KV heads, past the window so that the loop
+    # range cuts tiles on both sides, and one train-dense micro-batch;
+    # qwen2.5-14b's serving prefill (GQA 40 over 8 at hd 128); hd 256 on the
+    # fma route (fp32) and on fp16 with T < S
+    ("gemma3-12b_local_t1536", 1, 1536, 1536, 16, 8, 256, torch.bfloat16, True, 1024),
+    ("gemma3-12b_global_t1536", 1, 1536, 1536, 16, 8, 256, torch.bfloat16, True, None),
+    ("gemma3-12b_train_t2048", 1, 2048, 2048, 16, 8, 256, torch.bfloat16, True, 1024),
+    ("qwen2.5-14b_gqa_b2_t512", 2, 512, 512, 40, 8, 128, torch.bfloat16, True, None),
+    ("fp32_hd256", 1, 200, 200, 4, 2, 256, torch.float32, True, 64),
+    ("fp16_hd256_t_lt_s", 1, 100, 333, 8, 4, 256, torch.float16, True, None),
 ]
 TIMED_CASE = "gpt2.7b_t512"
 #: K1's shape on each main path: the longest serving prefill, the adaptive
@@ -280,10 +346,14 @@ PATH_CASES = {
     "calibrate": "gpt2.7b_train_b2_t1024", "adaptive": "gpt2.7b_train_b2_t1024",
     "ranks": "gpt2.7b_train_t1024", "adaptive-ranks": "gpt2.7b_train_b2_t1024",
     "fabric": "gpt2.7b_train_b2_t1024", "fabric-tcp": "gpt2.7b_train_b2_t1024",
+    "model-dense": "gemma3-12b_local_t1536", "serve-dense": "qwen2.5-14b_gqa_b2_t512",
+    "train-dense": "gemma3-12b_train_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
     "gpt2.7b_t16", "gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024",
+    "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
+    "fp32_hd256",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -380,6 +450,27 @@ SERVE_SSM_ARGS = {
 }
 #: the adaptive phase: repro's Fig-10 scenario (train_adaptive.build_fig10_scenario)
 #: with GPT-2.7B at full size, sequences of 1024 tokens, 14 coordinator iterations
+#: serve-dense: each dense arch at full size through serve_decode, 8 slots
+#: on an M=4 x b=2 grid, 8 requests; gemma3-12b's prompts pass its window
+SERVE_DENSE_ARGS = {"slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "new-tokens": (16, 32)}
+SERVE_DENSE = (
+    ("qwen1.5-4b", (128, 512), 544),
+    ("qwen2.5-14b", (128, 512), 544),
+    ("internlm2-20b", (128, 512), 544),
+    ("gemma3-12b", (1024, 1536), 1568),
+)
+#: serve-dense's memory gate: the peak over the bf16 weights plus the cache
+SERVE_DENSE_HEADROOM = 4 * 2**30
+#: what may stay allocated once serve_decode returned, before any collection
+SERVE_DENSE_LEFT = 2**28
+#: train-dense: (arch, layers, batch, seq, micro-batches), 4 steps each at
+#: full width: gemma3-12b cut to one 5:1 period (T past the window, the
+#: global layer included); qwen1.5-4b cut to 24 of its 40 layers (its full
+#: depth's ~63 GB of fp32 state and AdamW moments, plus casts, activations
+#: and logits, come too close to the card's 80 GB)
+TRAIN_DENSE = (("gemma3-12b", 6, 1, 2048, 1), ("qwen1.5-4b", 24, 2, 1024, 2))
+TRAIN_DENSE_ARGS = dict(steps=4, lr=1e-4, warmup=1, seed=0)
+
 ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
 ADAPTIVE_ITERATIONS = 14
 #: adaptive check, the engine's gradients on the switched and restacked state
@@ -513,10 +604,21 @@ def phase_build() -> None:
     for m, b in zip(mods, builds):
         m._kernel()  # load and bind it
         log(f"build {os.path.relpath(b.source, ROOT)}: {b.seconds:.1f} s")
-        for line in b.ptxas_lines():
-            log(f"  {line}")
-        for name, n in _hmma_counts(b.library).items():
-            log(f"  HMMA {n:5d}  {name}")
+        hmma = _hmma_counts(b.library)
+        ptxas = b.ptxas_summary()
+        for name, r in zip(_demangle(list(ptxas)), ptxas.values()):
+            log(f"  {r.get('registers', '?'):>3} registers, stack {r.get('stack', '?')} B, spill stores "
+                f"{r.get('spill_stores', '?')} B, loads {r.get('spill_loads', '?')} B, HMMA "
+                f"{hmma.get(name, '?'):>4}  {name}")
+
+
+def _demangle(names: list) -> list:
+    """C++ names through cu++filt, where the toolkit has it; else as given."""
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not (os.path.exists(filt) and names):
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True).stdout.split("\n")
+    return [(n.strip() or k) for k, n in zip(names, out)]
 
 
 def _hmma_counts(library) -> dict:
@@ -534,11 +636,7 @@ def _hmma_counts(library) -> dict:
             counts[name] = 0
         elif name is not None and "HMMA" in line:
             counts[name] += 1
-    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
-    if os.path.exists(filt) and counts:
-        names = subprocess.run([filt], input="\n".join(counts), capture_output=True, text=True).stdout.split("\n")
-        counts = {(n.strip() or k): counts[k] for k, n in zip(counts, names)}
-    return counts
+    return dict(zip(_demangle(list(counts)), counts.values()))
 
 
 def _qkv(B, T, S, H, K, hd, dtype, seed=0):
@@ -606,6 +704,17 @@ def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, st
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _flash_agrees(out, want) -> tuple[bool, float, float]:
+    """K1's output against its plain version's: (within TOL as an allclose
+    and REL_TOL as a norm ratio, max_abs_err, rel_norm_err)."""
+    diff = out.float() - want.float()
+    err = float(diff.abs().max())
+    rel = float(diff.norm() / want.float().norm())
+    tol = TOL[out.dtype]
+    excess = float((diff.abs() - tol * want.float().abs()).max())
+    return bool(torch.isfinite(out).all()) and excess <= tol and rel <= REL_TOL[out.dtype], err, rel
+
+
 def _flash_kernels() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -616,16 +725,11 @@ def _flash_kernels() -> dict:
         torch.cuda.synchronize()
         want = ref.attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        diff = out.float() - want.float()
-        err = float(diff.abs().max())
-        rel = float(diff.norm() / want.float().norm())
-        tol, rel_tol = TOL[dtype], REL_TOL[dtype]
-        excess = float((diff.abs() - tol * want.float().abs()).max())
-        ok = bool(torch.isfinite(out).all()) and excess <= tol and rel <= rel_tol
+        ok, err, rel = _flash_agrees(out, want)
         log(f"flash {name:14s} B={B} T={T} S={S} H={H} K={K} hd={hd} "
             f"{str(dtype).split('.')[-1]} causal={causal} window={window} route {ops.route(dtype)}: "
-            f"max_abs_err {err:.3e} (allclose atol=rtol={tol:g}), "
-            f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
+            f"max_abs_err {err:.3e} (allclose atol=rtol={TOL[dtype]:g}), "
+            f"rel_norm_err {rel:.3e} (<= {REL_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version on {name}")
         if name in TIMED_FLASH:
@@ -640,7 +744,12 @@ def _flash_kernels() -> dict:
         flash = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
         plain = lambda: ref.attention(q, k, v, causal=causal, window=window)  # noqa: E731
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
+        # the same function in one library call: native GQA, and a window
+        # as a boolean mask (SDPA has no window argument)
+        mask = None if window is None else ref.causal_window_mask(T, S, causal, window, q.device)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=K != H
+        )
         ms, plain_ms, library_ms = _device_ms(flash), _device_ms(plain), _device_ms(sdpa)
         call_ms, sdpa_call_ms = _time_ms(flash), _time_ms(sdpa)
         bound_ms, bound_by = _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window)
@@ -772,48 +881,132 @@ def phase_kernels() -> dict:
 
 def phase_model() -> None:
     from repro_torch.configs.gpt import GPT_CONFIGS
+
+    _model_check(GPT_CONFIGS["GPT-2.7B"].replace(num_layers=2), 512)
+
+
+def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
+    """``cfg`` served through K1 and through the plain attention: a prefill
+    of ``prompt_len`` tokens, then MODEL_DECODE_STEPS greedy decode steps
+    (the plain run fed the kernel run's tokens).  Without ``oracle``: logits
+    within MODEL_TOL.  With it, the same weights also run in fp32 through
+    the plain attention, and the K1 run's largest logit error against that
+    run is at most MODEL_ORACLE_FACTOR times the plain bf16 run's (or
+    MODEL_TOL).  Either way the greedy tokens are equal, or their top-2 gap
+    is under MODEL_TOL.  Then each layer's K1 output in the prefill, at every
+    position, is held to the plain version on the q/k/v the layer gave K1
+    (:func:`_layer_gate`).  Returns K1's launches in the kernel run."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import api
+    from repro_torch.tree import tree_map
 
-    cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=2)
-    params = api.cast_for_serving(api.init_params(cfg, seed=0, device="cuda"), cfg)
+    steps = MODEL_DECODE_STEPS
+    params = api.init_serving_params(cfg, seed=0, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=g, device="cuda")
-    steps = 4
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g, device="cuda")
 
-    def run(plain: bool, feed=None):
-        cache = api.init_cache(cfg, 1, 576, device="cuda")
+    def run(cfg, params, plain: bool, feed=None):
+        cache = api.init_cache(cfg, 1, prompt_len + 64, device="cuda")
         logits, cache = api.prefill_with_cache(
             params, cfg, cache, {"tokens": prompt}, plain_attention=plain
         )
         out = [logits[:, -1].float()]
         for i in range(steps):
             tok = feed[i] if feed is not None else out[-1].argmax(-1, keepdim=True)
-            logits, cache = api.decode_fn(params, cfg, cache, 512 + i, {"tokens": tok})
+            logits, cache = api.decode_fn(params, cfg, cache, prompt_len + i, {"tokens": tok})
             out.append(logits[:, -1].float())
         torch.cuda.synchronize()
         return out
 
-    kern = run(False)
+    flash, calls = ops.flash_attention, []
+
+    def capture(q, k, v, causal=True, window=None):  # each layer's K1 call of the prefill
+        out = flash(q, k, v, causal=causal, window=window)
+        calls.append((q, k, v, causal, window, out))
+        return out
+
+    n0 = ops.launches
+    with mock.patch.object(ops, "flash_attention", capture):
+        kern = run(cfg, params, False)
+    launches = ops.launches - n0
     feed = [x.argmax(-1, keepdim=True) for x in kern[:steps]]
-    plain = run(True, feed)
-    for i, (a, b) in enumerate(zip(kern, plain)):
+    plain = run(cfg, params, True, feed)
+    truth = [None] * len(kern)
+    if oracle:  # the same (bf16-rounded) weights, everything else in fp32
+        params32 = tree_map(lambda t: t.float(), params)
+        truth = run(cfg.replace(dtype=torch.float32), params32, True, feed)
+        del params32
+    log(f"model {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, hd {cfg.hd}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads}, windows {cfg.window_pattern or cfg.attn_window}), prefill of {prompt_len} "
+        f"tokens + {steps} decode steps: K1 launches {launches}")
+    if launches != cfg.num_layers or len(calls) != cfg.num_layers:
+        raise AssertionError(f"K1 ran {launches} times in a {cfg.num_layers}-layer prefill")
+    for i, (a, b, t) in enumerate(zip(kern, plain, truth)):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"non-finite logits at step {i}")
         err = float((a - b).abs().max())
-        ok = torch.allclose(a, b, atol=MODEL_TOL, rtol=MODEL_TOL)
+        rel = float((a - b).norm() / b.norm())
         ta, tb = int(a.argmax()), int(b.argmax())
         top2 = b[0].topk(2).values
         gap = float(top2[0] - top2[1])
-        log(f"model step {i} ({'prefill' if i == 0 else 'decode'}): logits max_abs_err "
-            f"{err:.3e} (atol=rtol={MODEL_TOL}), greedy {ta} vs {tb}, top-2 gap {gap:.3e}")
+        what = f"model step {i} ({'prefill' if i == 0 else 'decode'}): logits max_abs_err {err:.3e}, rel_norm_err {rel:.3e}"
+        if t is None:
+            ok = torch.allclose(a, b, atol=MODEL_TOL, rtol=MODEL_TOL)
+            what += f" (atol=rtol={MODEL_TOL})"
+        else:
+            err_k, err_p = float((a - t).abs().max()), float((b - t).abs().max())
+            ok = err_k <= max(MODEL_ORACLE_FACTOR * err_p, MODEL_TOL)
+            what += (f"; against fp32: K1 {err_k:.3e}, plain bf16 {err_p:.3e} "
+                     f"(K1 <= max({MODEL_ORACLE_FACTOR:g} x plain, {MODEL_TOL}))")
+        log(f"{what}, greedy {ta} vs {tb}, top-2 gap {gap:.3e}")
         if not ok:
             raise AssertionError(f"kernel and plain logits disagree at step {i}")
         if ta != tb:
             if gap >= MODEL_TOL:
                 raise AssertionError(f"greedy tokens differ at step {i} with gap {gap}")
             log(f"  greedy disagreement at step {i} within tolerance (gap {gap:.3e})")
-    del params
+    _layer_gate(calls, flash)
+    del params, calls
     torch.cuda.empty_cache()
+    return launches
+
+
+def _layer_gate(calls: list, flash) -> None:
+    """Each prefill layer's K1 output, at every position, against the plain
+    version on that layer's own q/k/v, under the kernels phase's TOL and
+    REL_TOL.  The gate is then shown to see the faults the logits can hide:
+    K1 on the same inputs with the KV heads shifted by one (a wrong GQA
+    mapping), and, on a layer whose window is shorter than its keys, with the
+    window dropped, must each fail it.  These launches are comparisons and
+    fall outside the path's count."""
+    from repro_torch.kernels.flash_attention import ref
+
+    for layer, (q, k, v, causal, window, out) in enumerate(calls):
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        ok, err, rel = _flash_agrees(out, want)
+        faults = {"KV heads shifted": flash(q, k.roll(1, 2), v.roll(1, 2), causal=causal, window=window)}
+        if window is not None and window < k.shape[1]:
+            faults["window dropped"] = flash(q, k, v, causal=causal, window=None)
+        seen = {name: _flash_agrees(bad, want) for name, bad in faults.items()}
+        log(f"  layer {layer} (window {window}): K1 vs plain over {q.shape[1]} positions max_abs_err {err:.3e}, "
+            f"rel_norm_err {rel:.3e} (<= {REL_TOL[q.dtype]:g}) {'ok' if ok else 'FAIL'}; planted faults: "
+            + ", ".join(f"{name} rel_norm_err {r[2]:.3e} {'FAIL (unseen)' if r[0] else 'rejected'}"
+                        for name, r in seen.items()))
+        if not ok:
+            raise AssertionError(f"K1 disagrees with the plain attention at layer {layer}")
+        if any(r[0] for r in seen.values()):
+            raise AssertionError(f"the layer gate passes a planted fault at layer {layer}")
+
+
+def phase_model_dense() -> int:
+    from repro_torch.configs import get_arch
+
+    launches = 0
+    for arch, layers, prompt_len in MODEL_DENSE:
+        launches += _model_check(get_arch(arch).model.replace(num_layers=layers), prompt_len, oracle=True)
+    return launches
 
 
 def phase_train_model() -> None:
@@ -1094,6 +1287,93 @@ def phase_serve_ssm() -> None:
         f"(busy {100 * prof['device_ms'] / wall_ms:.1f}%)")
     for op in prof["top"][:6]:
         log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+
+
+def phase_serve_dense() -> int:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve_decode
+
+    launches = 0
+    for arch, prompt_len, max_len in SERVE_DENSE:
+        before = torch.cuda.memory_allocated()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "serve.json")
+            argv = ["--config", arch, "--prompt-len", *map(str, prompt_len), "--max-len", str(max_len),
+                    "--device", "cuda", "--profile", "--out", out]
+            for k, v in SERVE_DENSE_ARGS.items():
+                argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
+            n0 = ops.launches
+            rc = serve_decode.main(argv)
+            n = ops.launches - n0
+            with open(out) as f:
+                s = json.load(f)
+        left = torch.cuda.memory_allocated() - before  # the engine dropped, no collection yet
+        launches += n
+        limit = s["weight_bytes"] + s["cache_bytes"] + SERVE_DENSE_HEADROOM
+        peak = max(s["setup_max_memory_allocated"], s["max_memory_allocated"])
+        log(f"serve-dense {arch} ({s['num_layers']} layers, d_model {s['d_model']}), {s['slots']} slots on "
+            f"{s['grid']}, prompts {prompt_len[0]}-{prompt_len[1]}, max_len {max_len}: "
+            f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
+            f"{s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
+            f"{s['tokens_per_second_wall']:.2f} tokens/s (wall)")
+        log(f"  weights {s['weight_bytes'] / 2**30:.2f} GiB (bf16 matrices), cache {s['cache_bytes'] / 2**30:.2f} "
+            f"GiB; max_memory_allocated setup {s['setup_max_memory_allocated'] / 2**30:.2f} GiB, serving "
+            f"{s['max_memory_allocated'] / 2**30:.2f} GiB (<= {limit / 2**30:.2f}); left after the run "
+            f"{left / 2**30:.3f} GiB before any collection; K1 launches {s['flash_launches']} (prefill calls "
+            f"{s['prefill_calls']} x {s['num_layers']} layers), {n} with the traced prefills")
+        for name, p in s["profile"].items():
+            log(f"  traced {name}: wall {p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms (busy "
+                f"{100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
+        if rc != 0 or s["requests_completed"] < s["requests"] or s["nonfinite_logits"]:
+            raise AssertionError(f"{arch}: not every request completed, or a non-finite logit")
+        # where_time_goes prefills three more times: a warm-up, a timed and a traced run
+        if s["flash_launches"] != s["prefill_calls"] * s["num_layers"] or n != s["flash_launches"] + 3 * s["num_layers"]:
+            raise AssertionError(f"{arch}: K1 did not run once per layer per prefill")
+        if peak > limit:
+            raise AssertionError(f"{arch}: peak {peak} over weights + cache + {SERVE_DENSE_HEADROOM} bytes")
+        if left > SERVE_DENSE_LEFT:
+            raise AssertionError(f"{arch}: {left} bytes stayed allocated after the engine was dropped")
+    return launches
+
+
+def phase_train_dense() -> int:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+
+    launches = 0
+    for arch, layers, batch, seq, M in TRAIN_DENSE:
+        args = argparse.Namespace(
+            arch=arch, smoke=False, batch=batch, seq=seq, microbatches=M, device="cuda", log_every=1,
+            profile=True, **TRAIN_DENSE_ARGS,
+        )
+        n0 = ops.launches
+        s = train.train(args, num_layers=layers)
+        n = ops.launches - n0
+        launches += n
+        want = layers * M * s["steps"]
+        p = s["profile"]
+        log(f"train-dense {arch} ({layers} layers, d_model {s['d_model']}, {s['param_count']:,} parameters): "
+            f"{s['steps']} steps of {batch} x {seq} in M={M}; loss {s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}; "
+            f"step p50 {s['step_ms_p50']:.1f} ms (first {s['step_ms'][0]:.1f} ms), {s['tokens_per_second']:,.0f} "
+            f"tokens/s, max_memory_allocated {s['max_memory_allocated'] / 2**30:.2f} GiB")
+        log(f"  parameter norm {s['param_norm'][0]!r} -> {s['param_norm'][1]!r}, {s['leaves_updated']} of "
+            f"{s['leaves']} leaves changed by the steps")
+        log(f"  grad norms {[round(v, 4) for v in s['grad_norms']]}; traced step: wall {p['wall_ms']:.1f} ms, "
+            f"device {p['device_ms']:.1f} ms (busy {100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
+        for op in p["top"][:6]:
+            log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        log(f"  K1 launches {s['flash_launches']} ({layers} layers x {M} micro-batches x {s['steps']} steps = "
+            f"{want}), {n} with the traced steps")
+        if s["flash_launches"] != want or n != layers * M * (s["steps"] + 2):
+            raise AssertionError(f"{arch}: K1 did not run once per layer per micro-batch")
+        if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
+            raise AssertionError(f"{arch}: non-finite loss or clip norm")
+        if s["leaves_updated"] != s["leaves"]:
+            raise AssertionError(f"{arch}: the steps left {s['leaves'] - s['leaves_updated']} parameter leaves as drawn")
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _rel_norm_err(got: list, want: list) -> float:
@@ -2146,6 +2426,10 @@ def main(argv=None) -> int:
             kernels = phase_kernels()
         elif name == "model":
             phase_model()
+        elif name == "model-dense":
+            launches = phase_model_dense()
+            if kernels:
+                kernels["flash"]["per_path"]["model-dense"]["launches"] = launches
         elif name == "train-model":
             phase_train_model()
         elif name == "serve":
@@ -2158,10 +2442,18 @@ def main(argv=None) -> int:
                 kernels["flash"]["per_path"]["serve-adaptive"]["launches"] = launches
         elif name == "serve-ssm":
             phase_serve_ssm()
+        elif name == "serve-dense":
+            launches = phase_serve_dense()
+            if kernels:
+                kernels["flash"]["per_path"]["serve-dense"]["launches"] = launches
         elif name == "train":
             launches = phase_train()
             if kernels:
                 kernels["ssd"]["launches"] = launches
+        elif name == "train-dense":
+            launches = phase_train_dense()
+            if kernels:
+                kernels["flash"]["per_path"]["train-dense"]["launches"] = launches
         elif name == "pipeline-model":
             phase_pipeline_model()
         elif name == "pipeline":

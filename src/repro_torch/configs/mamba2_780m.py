@@ -2,15 +2,18 @@
 
 Port of ``repro/configs/mamba2_780m.py``: 48 layers, d_model 1536,
 ssm_state 128, head_dim 64, expand 2, vocab 50 280, tied embeddings.  No
-attention and no FFN: the Mamba2 block is the whole layer.  ``OPTIMIZER`` is
-the optimizer the reference's ``ArchSpec`` names for it.
+attention and no FFN: the Mamba2 block is the whole layer.  ``SPEC`` is
+registered with the arch registry as the reference registers it.
+
+long_500k: NATIVE -- decode state is O(1) per layer ([B, H, P, N]).
 """
 
 from __future__ import annotations
 
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["FULL", "SMOKE", "OPTIMIZER"]
+__all__ = ["FULL", "SMOKE", "SPEC"]
 
 FULL = ModelConfig(
     name="mamba2-780m",
@@ -44,4 +47,14 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
 )
 
-OPTIMIZER = "adamw"
+SPEC = register(
+    ArchSpec(
+        arch_id="mamba2-780m",
+        citation="arXiv:2405.21060",
+        model=FULL,
+        smoke=SMOKE,
+        long_context="native",
+        notes="attention-free; kFkB still applies (layer-partitionable, "
+        "cross-stage tensor is the hidden stream) — DESIGN.md §5",
+    )
+)

@@ -15,6 +15,7 @@ import dataclasses
 import hashlib
 import os
 from pathlib import Path
+import re
 import shutil
 import subprocess
 import time
@@ -36,8 +37,21 @@ class Build:
     seconds: float  # 0.0 when an earlier build was reused
     log: str  # nvcc's output, with the -Xptxas -v register/shared-memory lines
 
-    def ptxas_lines(self) -> list[str]:
-        return [ln.strip() for ln in self.log.splitlines() if "ptxas info" in ln]
+    def ptxas_summary(self) -> dict[str, dict[str, int]]:
+        """Per kernel (mangled name), what ``-Xptxas -v`` reports:
+        ``registers``, ``stack`` bytes, ``spill_stores`` and ``spill_loads``
+        bytes.  Empty when the build was reused (no log)."""
+        out: dict[str, dict[str, int]] = {}
+        name = None
+        for ln in self.log.splitlines():
+            if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln):
+                name = m.group(1)
+                out.setdefault(name, {})
+            elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+                out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+            elif name and (m := re.search(r"Used (\d+) registers", ln)):
+                out[name]["registers"] = int(m.group(1))
+        return out
 
 
 _libraries: dict[Path, ctypes.CDLL] = {}

@@ -19,20 +19,32 @@
 //   reduce with two xor shuffles, so the softmax needs no shared memory and no
 //   block barrier).  S = Q K^T is mma.sync.m16n8k16 with bf16/fp16 operands and
 //   fp32 accumulation: Q's fragments come once from shared memory with
-//   ldmatrix, K's per tile.  exp(scale (s - m)) is one FFMA and one SFU
+//   ldmatrix and stay in registers up to hd 128; at hd 256 they are read
+//   again from shared memory at every k-step, as K's are (below); K's come
+//   per tile.  exp(scale (s - m)) is one FFMA and one SFU
 //   ex2.approx; it is rounded to the input type in registers (ref.py's
 //   probs.astype(v.dtype)) and the accumulator fragment is
 //   reused as the A operand of O += P V (the m16n8k16 register identity); V is
 //   read with ldmatrix.trans.  K and V tiles arrive by 16-byte cp.async into a
 //   two-stage ring, so tile j+1 loads while tile j computes, with one block
-//   barrier per tile.  Rows are padded by 16 bytes (hd + 8 elements), which
-//   makes every ldmatrix phase and the epilogue's staging free of bank
-//   conflicts at hd 64, 80, 96 and 128; q/k/v pointers and row strides must be
-//   16-byte aligned (the wrapper checks).  The output is staged through the
+//   barrier per tile.  Rows are padded by 16 bytes (hd + 8 elements): a row
+//   then starts 4 banks (hd 64, 96, 128, 256) or 12 banks (hd 80) after the
+//   one before, so the 8 rows of every ldmatrix phase, and the epilogue's
+//   staging, fall on 8 disjoint groups of 4 banks: free of bank conflicts at
+//   every instantiated hd (64, 80, 96, 128, 256); q/k/v pointers and row
+//   strides must be 16-byte aligned (the wrapper checks).
+//   hd 256 (gemma3-12b): the accumulator alone is 32 x 4 = 128 registers a
+//   thread and the score tile 32 more, so Q's 64 fragment registers would
+//   push a thread past 224 before addresses and spill under
+//   __launch_bounds__(128); Q is re-read per k-step instead (one ldmatrix.x4
+//   beside each k-step's four of K): ptxas (sm_90a, -O3) then gives it 251
+//   registers and 0 spill bytes.  Its shared memory, 2 x 5 x 64 x 264 =
+//   168,960 bytes, allows one block per SM.  The output is staged through the
 //   warp's own rows of the Q buffer and written with 16-byte stores.
 // * fma (fp32): flash_fwd_fma_kernel, the first version of this kernel,
 //   unchanged: fp32 FMAs out of shared memory.  Tensor-core TF32 would break
-//   the fp32 tolerance, and no caller of the main path sends fp32.
+//   the fp32 tolerance, and no caller of the main path sends fp32.  At hd 256
+//   its layout is 53,632 floats (214,528 bytes), under the 227 KB opt-in.
 //
 // Both routes: one block loops over the 64-key tiles of its query tile (the
 // TPU kernel's sequential k grid axis); tiles that the causal or window mask
@@ -367,11 +379,15 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const Params p) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   static_assert(BQ == 64 && BK == 64, "4 warps of 16 rows, 8 key tiles of 8");
+  static_assert(sizeof(T) == 2, "16-bit operands");
   constexpr int STR = MmaLayout<HD>::STR;
   constexpr int TILE = MmaLayout<HD>::TILE;
   constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
   constexpr int DTILES = HD / 8;   // 8-column tiles of the output
   constexpr int CHUNKS = HD / 8;   // 16-byte chunks in a row
+  // Q's fragments held in registers for the whole sweep, or re-read from
+  // shared memory at every k-step (hd 256: see the note at the top)
+  constexpr bool Q_IN_REGS = HD <= 128;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][STR]; the output is staged here
@@ -435,7 +451,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const Params
   for (int j = 0; j < DTILES; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m0 = NEG, m1 = NEG;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;  // this lane's part of their denominators
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  const uint32_t q_addr = smem_addr(sQ + (warp * 16 + (lane & 15)) * STR + (lane >> 4) * 8);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int stage = (kt - kt_begin) & 1;
@@ -446,10 +463,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const Params
       load_rows(sV + (stage ^ 1) * TILE, vg, p.v_ss, (kt + 1) * BK, p.S);
       cp_async_commit();
     }
-    if (kt == kt_begin) {
+    if (Q_IN_REGS && kt == kt_begin) {
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        ldmatrix_x4(qf[ks], smem_addr(sQ + (warp * 16 + (lane & 15)) * STR + ks * 16 + (lane >> 4) * 8));
+      for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[Q_IN_REGS ? ks : 0], q_addr + ks * 32);
     }
     const T* cK = sK + stage * TILE;
     const T* cV = sV + stage * TILE;
@@ -461,13 +477,15 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const Params
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int qi = Q_IN_REGS ? ks : 0;
+      if (!Q_IN_REGS) ldmatrix_x4(qf[qi], q_addr + ks * 32);  // 16 elements of 2 bytes
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {  // two key tiles per ldmatrix.x4
         uint32_t kb[4];
         ldmatrix_x4(kb, smem_addr(cK + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * STR + ks * 16 +
                                   ((lane >> 3) & 1) * 8));
-        mma16816<T>(s[2 * jj], qf[ks], kb[0], kb[1]);
-        mma16816<T>(s[2 * jj + 1], qf[ks], kb[2], kb[3]);
+        mma16816<T>(s[2 * jj], qf[qi], kb[0], kb[1]);
+        mma16816<T>(s[2 * jj + 1], qf[qi], kb[2], kb[3]);
       }
     }
 
@@ -597,6 +615,7 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
     case 80: return LAUNCH<T, 80>(p, stream);       \
     case 96: return LAUNCH<T, 96>(p, stream);       \
     case 128: return LAUNCH<T, 128>(p, stream);     \
+    case 256: return LAUNCH<T, 256>(p, stream);     \
     default: return cudaErrorInvalidValue;          \
   }
 

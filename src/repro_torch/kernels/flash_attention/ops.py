@@ -61,8 +61,9 @@ from repro_torch.kernels.flash_attention import ref as _ref
 __all__ = ["flash_attention", "flash_attention_train", "route", "SOURCE", "HEAD_DIMS", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-#: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, and 128
-HEAD_DIMS = (64, 80, 96, 128)
+#: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, 128
+#: (qwen2.5-14b, internlm2-20b, qwen1.5-4b) and 256 (gemma3-12b)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _ROUTES = {"fma": 0, "mma": 1}
 
@@ -132,16 +133,22 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     return _launch(q, k, v, causal, window)
 
 
+def _check_kernel_shape(B: int, H: int, hd: int) -> None:
+    """What the kernel takes beyond :func:`_check`: an instantiated head
+    width, and B*H within the fma route's grid rows."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535 rows")
+
+
 def _launch(q, k, v, causal: bool, window: int | None):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535 rows")
+    _check_kernel_shape(B, H, hd)
     path = route(q.dtype)
     if path == "mma":
         for name, t in (("q", q), ("k", k), ("v", v)):

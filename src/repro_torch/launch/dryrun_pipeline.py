@@ -1,8 +1,10 @@
-"""Calibration of a Table-1 GPT config's pipeline stages, and the offline tune.
+"""Calibration of a config's pipeline stages, and the offline tune.
 
 Port of the ``--calibrate`` half of ``repro/launch/dryrun_pipeline.py``.
 :func:`calibrate` runs :mod:`repro_torch.core.calibrate` on the config's
-stage bodies: per-stage fwd / BWD_INPUT / BWD_WEIGHT / saved-residual
+stage bodies (``--config``: a Table-1 GPT, or any arch id the registry
+builds, as ``repro``'s ``_config`` falls back to ``get_arch(name).model``):
+per-stage fwd / BWD_INPUT / BWD_WEIGHT / saved-residual
 BWD_WEIGHT seconds and activation bytes (the heterogeneous ``StageCosts``
 the scheduler stack consumes instead of ``StageCosts.uniform``), the
 matching per-stage ``MemoryModel``, and the per-stage warmup vector
@@ -43,6 +45,7 @@ import os
 
 import torch
 
+from repro_torch.configs.base import get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core.calibrate import METHODS, calibrate_stage_costs, resolve_spec
 from repro_torch.core.candidates import largest_admissible_warmup
@@ -60,10 +63,7 @@ ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experi
 def _config(name: str):
     if name in GPT_CONFIGS:  # the paper's Table-1 ladder (GPT-Medium .. 2.7B)
         return GPT_CONFIGS[name]
-    raise ValueError(
-        f"config {name!r} is not one of the Table-1 GPT configs {sorted(GPT_CONFIGS)}; "
-        "the other architectures come with ROADMAP queue 1, item 6"
-    )
+    return get_arch(name).model
 
 
 def _tune_on_spec(cal, spec, S: int, b_mb: int) -> dict:
@@ -188,7 +188,7 @@ def calibrate(
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", default="GPT-2.7B", help="a Table-1 GPT config")
+    ap.add_argument("--config", default="GPT-2.7B", help="a Table-1 GPT config or a ported arch id")
     ap.add_argument("--stages", type=int, default=4)
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8)

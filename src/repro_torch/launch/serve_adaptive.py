@@ -58,9 +58,8 @@ import weakref
 
 import torch
 
+from repro_torch.configs.base import PORTED_ARCH_IDS, get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
-from repro_torch.configs.mamba2_780m import FULL as MAMBA2_780M
-from repro_torch.configs.mamba2_780m import SMOKE as MAMBA2_SMOKE
 from repro_torch.core import (
     AutoTuner,
     BurstyTrace,
@@ -93,7 +92,7 @@ __all__ = [
     "DEVICE_SPEC",
     "ENGINE_ARGS",
     "TINY",
-    "CONFIGS",
+    "CONFIG_NAMES",
     "build_config",
     "serve_costs",
     "build_serve_network",
@@ -122,17 +121,18 @@ DEVICE_SPEC = "h100-sxm"
 #: the engine ``--engine`` builds (``examples/serve_decode.py``'s)
 ENGINE_ARGS = dict(num_stages=4, max_slots=8, max_len=80)
 #: the narrow GPT variant ``--tiny`` serves: 2 layers, head_dim 80 kept
-#: (a Mamba2 config's ``--tiny`` is its smoke config)
+#: (an arch id's ``--tiny`` is its registered smoke config)
 TINY = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
-#: the configurations the serving entry points take
-CONFIGS: dict[str, ModelConfig] = {**GPT_CONFIGS, MAMBA2_780M.name: MAMBA2_780M}
+#: the names the serving entry points take: the Table-1 GPTs and every arch
+#: id the port builds
+CONFIG_NAMES = (*GPT_CONFIGS, *PORTED_ARCH_IDS)
 
 
 def build_config(name: str, tiny: bool = False) -> ModelConfig:
-    cfg = CONFIGS[name]
-    if tiny:
-        cfg = MAMBA2_SMOKE if cfg.family == "ssm" else cfg.replace(**TINY)
-    return cfg
+    if name in GPT_CONFIGS:
+        return GPT_CONFIGS[name].replace(**TINY) if tiny else GPT_CONFIGS[name]
+    spec = get_arch(name)
+    return spec.smoke if tiny else spec.model
 
 
 def serve_costs(device: str = "tpu-v5e") -> tuple[StageCosts, StageCosts]:
@@ -365,7 +365,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device-spec", default=DEVICE_SPEC, help="the specs/<name>.json ticks are priced on")
     ap.add_argument("--engine", action="store_true", help="serve real tokens through a ServeEngine per run")
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="GPT-2.7B")
+    ap.add_argument("--config", choices=CONFIG_NAMES, default="GPT-2.7B")
     ap.add_argument("--tiny", action="store_true", help="the config's narrow 2-layer variant, for CPU runs")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="write the comparison JSON here")

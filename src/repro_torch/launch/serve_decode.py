@@ -2,7 +2,8 @@
 
 Seeded arrivals feed a continuous batcher over fixed decode slots; each
 admitted request is prefilled in one fused pass (flash-attention kernel on
-the card for a GPT configuration; the Mamba2 recurrence for mamba2-780m)
+the card for a GPT or dense arch's configuration; the Mamba2 recurrence for
+mamba2-780m)
 and then decoded greedily in the grouped ``[M, b]`` grid.  The tick loop is
 :class:`~repro_torch.serve.runtime.ServeRuntime` under ``repro``'s static
 baseline: one ``kfkb`` k = 1 plan of ``--microbatches`` groups, no retune,
@@ -13,12 +14,14 @@ measured.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
-      [--config GPT-2.7B|mamba2-780m] [--slots 8] [--microbatches 4] \\
+      [--config GPT-2.7B|qwen2.5-14b|gemma3-12b|...] [--slots 8] [--microbatches 4] \\
       [--requests 16] [--prompt-len 128 512] [--new-tokens 16 48] \\
       [--max-len 576] [--seed 0] [--device cuda] [--out summary.json]
 
-``--tiny`` swaps in a narrow 2-layer variant of the configuration for a
-quick CPU run (``--device cpu``).  Without ``--device`` the run needs a CUDA
+``--config`` takes a Table-1 GPT or any arch id of the registry
+(``configs.base.PORTED_ARCH_IDS``).  ``--tiny`` swaps in a narrow 2-layer
+variant of the configuration (an arch id's smoke config) for a quick CPU
+run (``--device cpu``).  Without ``--device`` the run needs a CUDA
 card and fails if there is none.
 """
 
@@ -32,9 +35,11 @@ import torch
 
 from repro_torch.core import Candidate, ScheduleSpec, make_plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.profiling import device_profile
-from repro_torch.launch.serve_adaptive import CONFIGS, ENGINE_ARGS, build_config, build_serve_scenario
+from repro_torch.launch.serve_adaptive import CONFIG_NAMES, ENGINE_ARGS, build_config, build_serve_scenario
 from repro_torch.serve import ArrivalProcess, InFlight, Request, ServeEngine
+from repro_torch.tree import flatten
 
 __all__ = ["static_candidate", "where_time_goes", "serve", "main"]
 
@@ -80,12 +85,18 @@ def where_time_goes(engine, prompt_len: int) -> dict:
     return out
 
 
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
 def serve(args) -> dict:
     device = resolve_device(args.device)
     cfg = build_config(args.config, args.tiny)
     if args.prompt_len[1] + args.new_tokens[1] - 1 > args.max_len:
         raise ValueError("--max-len must hold the longest prompt plus its new tokens")
     cand = static_candidate(NUM_STAGES, args.slots, args.microbatches)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, NUM_STAGES, args.slots, args.max_len, seed=args.seed, device=device)
     engine.synchronize()
@@ -98,9 +109,14 @@ def serve(args) -> dict:
         seed=args.seed, max_slots=args.slots, adaptive=False, engine=engine,
         arrivals=arrivals, candidates=[cand],
     )
+    # the engine's setup peak (drawing and casting the weights) before the
+    # serving peak is taken on its own
+    setup_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    launches0 = flash_ops.launches
     summary = sc.runtime.run(args.requests)
+    launches = flash_ops.launches - launches0
     summary.update(
         config=cfg.name,
         num_layers=cfg.num_layers,
@@ -111,6 +127,10 @@ def serve(args) -> dict:
         plan=cand.name,
         device=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         setup_seconds=setup,
+        weight_bytes=_nbytes(engine.params),
+        cache_bytes=_nbytes(engine.cache),
+        setup_max_memory_allocated=setup_peak,
+        flash_launches=launches,
         max_memory_allocated=(
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
@@ -123,7 +143,7 @@ def serve(args) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="GPT-2.7B")
+    ap.add_argument("--config", choices=CONFIG_NAMES, default="GPT-2.7B")
     ap.add_argument("--tiny", action="store_true", help="narrow 2-layer variant for CPU runs")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=4, help="M of the [M, b] decode grid")

@@ -3,10 +3,14 @@
 
 Two modes, as in the reference:
 
-* ``--mode spmd`` (default) trains ``--arch`` (mamba2-780m): a train step
-  that averages the loss and the gradients over ``--microbatches``
-  micro-batches.  Every Mamba2 layer's forward runs the chunked SSD scan in
-  kernel K2 on the card.
+* ``--mode spmd`` (default) trains ``--arch``, any architecture the arch
+  registry builds (``configs.base.PORTED_ARCH_IDS``: qwen2.5-14b,
+  internlm2-20b, gemma3-12b, qwen1.5-4b and mamba2-780m, the default),
+  with the optimizer its ``ArchSpec`` names: a train step that averages the
+  loss and the gradients over ``--microbatches`` micro-batches on one
+  device (the reference's pjit data/tensor-parallel step comes with ROADMAP
+  queue 1, item 9).  Every attention layer's forward runs the flash kernel
+  K1 on the card, every Mamba2 layer's the chunked SSD scan in kernel K2.
 * ``--mode pipeline`` trains a Table-1 GPT cut into ``--stages`` stages
   under a kFkB plan of group size ``--k``, as the reference's
   ``run_pipeline`` runs ``make_pipeline_step``: one process per stage
@@ -26,7 +30,7 @@ Both draw synthetic token streams (``data/synthetic.py``) and train with
 AdamW under a linear-warmup cosine schedule, clipping at norm 1.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m|qwen1.5-4b|... \\
       [--smoke] [--steps 100] [--batch 8] [--seq 128] [--microbatches 1] \\
       [--lr 3e-4] [--warmup 20] [--seed 0] [--log-every 10] \\
       [--device cuda] [--profile] [--out summary.json]
@@ -52,7 +56,7 @@ import time
 
 import torch
 
-from repro_torch.configs import mamba2_780m
+from repro_torch.configs.base import PORTED_ARCH_IDS, get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core import ScheduleSpec, make_plan
 from repro_torch.data import SyntheticTextDataset
@@ -65,6 +69,7 @@ from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, param_count
 from repro_torch.optim import linear_warmup_cosine, make_optimizer
 from repro_torch.pipeline import StagedModel, ranks
+from repro_torch.tree import flatten
 from repro_torch.training import (
     create_train_state,
     make_pipeline_train_step,
@@ -72,10 +77,7 @@ from repro_torch.training import (
     pipeline_train_step,
 )
 
-__all__ = ["ARCHS", "train", "run_pipeline", "main"]
-
-#: arch id -> (full config, smoke config, optimizer name)
-ARCHS = {"mamba2-780m": (mamba2_780m.FULL, mamba2_780m.SMOKE, mamba2_780m.OPTIMIZER)}
+__all__ = ["train", "run_pipeline", "main"]
 
 
 def _steady(xs: list) -> list:
@@ -97,13 +99,25 @@ def _profile(run, device: torch.device, kernels: dict) -> dict:
     return {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
 
 
-def train(args) -> dict:
+def _leaf_norms(params) -> list:
+    """Each parameter leaf's L2 norm, summed in fp64 a slice at a time."""
+    return [
+        math.sqrt(sum(float(c.double().square().sum()) for c in t.detach().reshape(-1).split(1 << 26)))
+        for t in flatten(params).values()
+    ]
+
+
+def train(args, num_layers: int | None = None) -> dict:
+    """``--mode spmd``'s run; ``num_layers`` cuts the config's depth (a
+    caller's, e.g. a smoke run on one card; no flag sets it)."""
     device = resolve_device(args.device)
-    full, smoke, opt_name = ARCHS[args.arch]
-    cfg = smoke if args.smoke else full
+    spec = get_arch(args.arch)
+    cfg = spec.smoke if args.smoke else spec.model
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=args.seed, device=device)
-    opt = make_optimizer(opt_name, linear_warmup_cosine(args.lr, args.warmup, args.steps))
+    opt = make_optimizer(spec.optimizer, linear_warmup_cosine(args.lr, args.warmup, args.steps))
     state = create_train_state(params, opt)
     step_fn = make_train_step(
         lambda p, b: api.loss_fn(p, cfg, b), opt, num_microbatches=args.microbatches
@@ -116,9 +130,10 @@ def train(args) -> dict:
         b = ds.batch_at(i, device)
         return {"tokens": b.tokens, "labels": b.labels}
 
+    norms0 = _leaf_norms(state.params)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    launches0 = ssd_ops.launches
+    launches0, flash0 = ssd_ops.launches, flash_ops.launches
     losses, grad_norms, lrs, step_seconds = [], [], [], []
     for i in range(args.steps):
         b = batch(i)
@@ -133,7 +148,8 @@ def train(args) -> dict:
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {lrs[-1]:.2e}  "
                   f"grad_norm {grad_norms[-1]:.3e}  {1e3 * step_seconds[-1]:.1f} ms", flush=True)
-    launches = ssd_ops.launches - launches0
+    launches, flash_launches = ssd_ops.launches - launches0, flash_ops.launches - flash0
+    norms = _leaf_norms(state.params)
     tokens = args.batch * args.seq
     steady = _steady(step_seconds)
     summary = {
@@ -151,6 +167,11 @@ def train(args) -> dict:
         "losses": losses,
         "grad_norms": grad_norms,
         "lrs": lrs,
+        # the parameters' L2 norm before and after the steps, and how many
+        # leaves the steps changed
+        "param_norm": [math.hypot(*norms0), math.hypot(*norms)],
+        "leaves_updated": sum(a != b for a, b in zip(norms0, norms)),
+        "leaves": len(norms),
         "step_ms": [1e3 * s for s in step_seconds],
         "step_ms_p50": 1e3 * statistics.median(steady),
         "tokens_per_second": tokens * len(steady) / sum(steady),
@@ -158,13 +179,14 @@ def train(args) -> dict:
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
         "ssd_launches": launches,
+        "flash_launches": flash_launches,
     }
     if args.profile:
         def run():
             step_fn(state, batch(args.steps))
             synchronize(device)
 
-        summary["profile"] = _profile(run, device, {"ssd": "ssd_fwd"})
+        summary["profile"] = _profile(run, device, {"ssd": "ssd_fwd", "flash": "flash_fwd"})
     return summary
 
 
@@ -410,7 +432,7 @@ def _run_ranks(cfg, plan, plan_spec, *, steps, batch, seq, lr, warmup, seed, log
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--mode", choices=("spmd", "pipeline"), default="spmd")
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="mamba2-780m")
+    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="mamba2-780m")
     ap.add_argument("--gpt", choices=sorted(GPT_CONFIGS), default="GPT-Medium", help="pipeline mode: GPT config")
     ap.add_argument("--layers", type=int, default=8, help="pipeline mode: layers")
     ap.add_argument("--stages", type=int, default=4, help="pipeline mode: pipeline stages")
@@ -449,8 +471,9 @@ def main(argv=None) -> int:
         s = train(args)
         print(f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}, {s['param_count']:,} "
               f"parameters) on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
-              f"{s['tokens_per_second']:,.0f} tokens/s, {s['ssd_launches']} SSD kernel launches")
-        kernel = "ssd"
+              f"{s['tokens_per_second']:,.0f} tokens/s, {s['ssd_launches']} SSD and "
+              f"{s['flash_launches']} flash kernel launches")
+        kernel = "ssd" if s["ssd_launches"] else "flash"
     if "profile" in s:
         p = s["profile"]
         print(f"profiled step: wall {p['wall_ms']:.3f} ms, device busy {p['device_ms']:.3f} ms "

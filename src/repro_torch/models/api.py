@@ -1,6 +1,8 @@
 """Model API of the ported slices, after ``repro/models/api.py``.
 
 * ``init_params(cfg, seed, device)``   -- weights from a seeded ``torch.Generator``
+* ``init_serving_params(cfg, seed, device)`` -- the same weights, cast for
+  serving a layer at a time (``cast_for_serving(init_params(...))``, bitwise)
 * ``loss_fn(params, cfg, batch)``      -> (loss, metrics), the training loss
 * ``cast_for_serving(params, cfg)``    -- matrices and the embedding table to ``cfg.dtype``
 * ``init_cache(cfg, batch, max_len, device)``
@@ -25,6 +27,7 @@ from repro_torch.models.common import ModelConfig, check_ported
 
 __all__ = [
     "init_params",
+    "init_serving_params",
     "loss_fn",
     "cast_for_serving",
     "init_cache",
@@ -44,6 +47,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     check_ported(cfg, "serve", "train")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return tf.init_decoder(gen, cfg)
+
+
+def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """``cast_for_serving(init_params(cfg, seed, device), cfg)``, bitwise,
+    without the whole fp32 tree: the embedding and then each layer are cast
+    as soon as they are drawn, from the same generator stream, so the peak
+    is the serving tree plus one part in ``param_dtype``."""
+    check_ported(cfg, "serve")
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return tf.init_decoder(gen, cfg, finish=lambda part: cast_for_serving(part, cfg))
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):

@@ -54,6 +54,7 @@ class ModelConfig:
     # numerics
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
+    max_seq_len: int = 131_072
 
     # ---------------------------------------------------------------
 

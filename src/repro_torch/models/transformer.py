@@ -152,10 +152,15 @@ def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
 # ---------------------------------------------------------------------------
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig):
-    params: dict[str, Any] = {"embed": embedding_init(gen, cfg)}
-    params["layers"] = [init_layer(gen, cfg, spec) for spec in layer_specs(cfg)]
-    params["final_norm"] = norm_init(cfg.d_model, cfg, gen.device)
+def init_decoder(gen: torch.Generator, cfg: ModelConfig, finish=None):
+    """The decoder's parameters, drawn from ``gen`` in order: the embedding,
+    the layers, the final norm.  ``finish`` (default: none) maps each of
+    those parts as soon as it is drawn, before the next is, so that a cast
+    holds one part at a time in ``param_dtype``."""
+    finish = finish or (lambda part: part)
+    params: dict[str, Any] = {"embed": finish(embedding_init(gen, cfg))}
+    params["layers"] = [finish(init_layer(gen, cfg, spec)) for spec in layer_specs(cfg)]
+    params["final_norm"] = finish(norm_init(cfg.d_model, cfg, gen.device))
     return params
 
 

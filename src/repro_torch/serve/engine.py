@@ -75,9 +75,10 @@ class ServeEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.device = resolve_device(device)
-        if params is None:
-            params = api.init_params(cfg, seed=seed, device=self.device)
-        self.params = api.cast_for_serving(params, cfg)
+        if params is None:  # drawn and cast a layer at a time
+            self.params = api.init_serving_params(cfg, seed=seed, device=self.device)
+        else:
+            self.params = api.cast_for_serving(params, cfg)
         self.cache = api.init_cache(cfg, max_slots, max_len, device=self.device)
         self.positions = torch.zeros((max_slots,), dtype=torch.long, device=self.device)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.long, device=self.device)

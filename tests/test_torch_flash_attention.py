@@ -23,10 +23,13 @@ from repro_torch.kernels.flash_attention import ops, ref
 from test_kernels import FLASH_CASES
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-# the slice's head width (GPT-2.7B), not a power of two
+# the slice's head width (GPT-2.7B), not a power of two; gemma3-12b's hd 256,
+# with a window shorter than T
 CASES = FLASH_CASES + [
     (128, 128, 80, True, None, 64, 64, jnp.float32, 2e-6),
     (96, 96, 80, True, None, 32, 32, jnp.bfloat16, 2e-2),
+    (64, 64, 256, True, None, 32, 32, jnp.float32, 2e-6),
+    (96, 96, 256, True, 40, 32, 32, jnp.bfloat16, 2e-2),
 ]
 
 
@@ -73,6 +76,10 @@ REF_ONLY = [
     (1, 24, 40, 4, 4, 80, True, 12),
     (2, 16, 16, 6, 2, 32, True, None),
     (1, 9, 30, 8, 2, 80, False, None),
+    # hd 256 with native GQA (gemma3-12b's 2 query heads a KV head), under a
+    # window, and at T < S
+    (1, 40, 40, 4, 2, 256, True, 16),
+    (2, 12, 30, 6, 3, 256, True, None),
 ]
 
 
@@ -108,6 +115,28 @@ def test_wrapper_refuses(name, qs, ks, dtype, kw, err):
             torch.zeros(qs, dtype=dtype), torch.zeros(ks, dtype=dtype), torch.zeros(ks, dtype=dtype), **kw
         )
     assert ops.launches == before
+
+
+KERNEL_SHAPES = [
+    # (B, H, hd, accepted): every instantiated head width, and what the
+    # kernel has no instantiation or grid rows for
+    *[(1, 16, hd, True) for hd in (64, 80, 96, 128, 256)],
+    (1, 16, 192, False),
+    (1, 16, 32, False),
+    (2, 40000, 128, False),
+]
+
+
+@pytest.mark.parametrize("B,H,hd,ok", KERNEL_SHAPES)
+def test_kernel_shape_check(B, H, hd, ok):
+    """What the CUDA launch refuses beyond the wrapper's checks (the CPU
+    plain version takes any head width, as repro's kernel does)."""
+    assert ops.HEAD_DIMS == (64, 80, 96, 128, 256)
+    if ok:
+        ops._check_kernel_shape(B, H, hd)
+    else:
+        with pytest.raises(ValueError, match="head_dim 192 not in|head_dim 32 not in|exceeds the grid"):
+            ops._check_kernel_shape(B, H, hd)
 
 
 def test_wrapper_refuses_strided_head_dim():
@@ -183,6 +212,13 @@ GPU_CASES = [
     (1, 100, 333, 8, 8, 80, torch.bfloat16, True, None, 2e-2),
     # serve_adaptive's prefill: 16 tokens, under one query tile
     (1, 16, 16, 32, 32, 80, torch.bfloat16, True, None, 2e-2),
+    # hd 256: gemma3-12b's local (window 1024, cut on both sides at T 1536)
+    # and global layers, 16 heads over 8; the fma route in fp32
+    (1, 1536, 1536, 16, 8, 256, torch.bfloat16, True, 1024, 2e-2),
+    (1, 1536, 1536, 16, 8, 256, torch.bfloat16, True, None, 2e-2),
+    (1, 200, 200, 4, 2, 256, torch.float32, True, 64, 2e-5),
+    # qwen2.5-14b's serving prefill: 40 heads over 8 at hd 128
+    (2, 512, 512, 40, 8, 128, torch.bfloat16, True, None, 2e-2),
 ]
 
 
@@ -200,6 +236,17 @@ def test_kernel_matches_plain_on_card(B, T, S, H, K, hd, dtype, causal, window, 
     assert ops.launches == before + 1
     want = ref.attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_an_uninstantiated_head_dim_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q = torch.zeros((1, 64, 4, 192), dtype=torch.bfloat16, device="cuda")
+    before = ops.launches
+    with pytest.raises(ValueError, match="head_dim 192"):
+        ops.flash_attention(q, q, q)
+    assert ops.launches == before
 
 
 TRAIN_CPU_CASES = [
@@ -249,9 +296,11 @@ def test_train_entry_refuses_what_the_kernel_refuses():
 
 
 GPU_TRAIN_CASES = [
-    # (B, T, H, hd, dtype): one micro-batch of the pipeline phase, and fp32
+    # (B, T, H, hd, dtype): one micro-batch of the pipeline phase, and fp32;
+    # gemma3-12b's global layer at hd 256
     (1, 1024, 32, 80, torch.bfloat16),
     (2, 200, 8, 64, torch.float32),
+    (1, 512, 16, 256, torch.bfloat16),
 ]
 
 

@@ -43,6 +43,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     fabric = ("messages", "protocols", "barrier", "coordinator", "transport", "worker")
     for mod in ("runtime.fabric", *(f"runtime.fabric.{m}" for m in fabric), "launch.fabric_worker"):
         assert f"repro_torch.{mod}" in mods, mod
+    archs = ("qwen1_5_4b", "qwen2_5_14b", "internlm2_20b", "gemma3_12b", "mamba2_780m")
+    for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs)):
+        assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -110,6 +113,12 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         SyntheticTextDataset(64, 8, 2).batch_at(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dryrun_pipeline.main(["--calibrate", "--config", "GPT-Medium"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "gemma3-12b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_decode.main(["--config", "qwen2.5-14b", "--tiny", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_serving_params(cfg)
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
