@@ -22,8 +22,12 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 local (window 1024) and global layers at hd 256 with 16
                 heads over 8 (T 1536; T 2048 for train-dense), qwen2.5-14b's
                 GQA prefill (40 heads over 8 at hd 128, B 2 x T 512), hd 256
-                on fp32 (the fma route) and fp16; the build logs each
-                kernel's registers and spill bytes (nvcc -Xptxas -v)
+                on fp32 (the fma route) and fp16; the MoE and hybrid archs:
+                kimi-k2's GQA 64 over 8 at hd 112 (T 512, and T 2048 for
+                train-moe), hd 112 on fp32 (the fma route), jamba's 32 over
+                8 at hd 128 (T 512); K2 at jamba's (P 64, N 16, Q 64) with
+                128 heads (T 2048, and fp32); the build logs each kernel's
+                registers and spill bytes (nvcc -Xptxas -v)
 4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
                 through K1 and through the plain attention; logits and greedy
                 tokens agree; each layer's K1 output in the prefill, at every
@@ -40,8 +44,10 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 layer of each prefill; the logits held to an fp32 run, and
                 the per-layer gate and its planted faults as in ``model``
 5. train-model  a 2-layer, full-width mamba2-780m: loss and gradients of one
-                micro-batch through K2 and through the plain SSD agree
-6. serve        GPT-2.7B at full width and depth served through
+                micro-batch through K2 and through the plain SSD agree (the
+                gradient gap under 2e-2 and under 1.5 x that of K2's sound
+                peer, the plain SSD forward in TF32; a planted fault fails)
+6. serve        GPT-2.7B at full width and depth (32 layers) served through
                 ``repro_torch.launch.serve_decode``: 16 requests over 8 slots
                 on an M=4 x b=2 grid (repro's static 1F1B baseline, admissions
                 on its simulated prices); every request completes, no NaN,
@@ -50,7 +56,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 Ada-Grouper's adaptive serving: ``launch/serve_adaptive``'s
                 adaptive-vs-static comparison (repro's Fig-10 serving world,
                 24 requests, seed 0, ticks priced on specs/h100-sxm.json)
-                with GPT-2.7B at full size behind each run, every tuner
+                with GPT-2.7B (full width, 16 layers) behind each run, every tuner
                 decision switched live into the engine through the
                 stateless PlanRuntime.  Gates: every request completes with
                 exactly its max_new_tokens; no non-finite logit; every
@@ -58,7 +64,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the engine-free run's, and the trail crosses >= 2 kinds; the
                 bursty and exclusive regimes end on different plans; each
                 plan built once (cache misses = distinct plans dispatched,
-                every later switch a hit); K1 = prefills x 32 layers; every
+                every later switch a hit); K1 = prefills x 16 layers; every
                 request's first token equal in both runs.  The simulated
                 TTFT/token-latency p99 and SLO attainment, and the measured
                 prefill and per-plan decode tick p50, wall tokens/s, switch
@@ -66,15 +72,17 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the engines are dropped: torch.cuda.memory_allocated must
                 fall before any garbage collection (no reference cycle
                 keeps an engine's weights)
-6b. serve-ssm   mamba2-780m at full size through ``serve_decode`` (8 slots,
-                M=4, 8 requests, prompts 64-128, 16-32 new tokens, max_len
-                160): every request completes, no non-finite logit, K2 never
+6b. serve-ssm   mamba2-780m at full width and depth (48 layers) through
+                ``serve_decode`` (8 slots,
+                M=4, 8 requests, prompts 16-32, 16-32 new tokens, max_len
+                64): every request completes, no non-finite logit, K2 never
                 runs (SSM serving is the recurrence); one request's fused
                 prefill bitwise equal, logits and state, to stepping
                 mamba_decode over its prompt on the card; a traced tick
 6c. serve-dense
                 qwen1.5-4b, qwen2.5-14b, internlm2-20b and gemma3-12b at
-                full size, one after the other, through ``serve_decode
+                full width and half depth (20, 24, 24, 24 layers), one
+                after the other, through ``serve_decode
                 --config <arch id>`` (8 slots on M=4 x b=2, 8 requests,
                 16-32 new tokens; prompts 128-512 and max_len 544, gemma3's
                 1024-1536 past its window and max_len 1568), the weights
@@ -96,6 +104,46 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 finite losses and clip norms; every parameter leaf changed
                 by the steps; K1 = layers x micro-batches x steps (the
                 backward recomputes the plain attention)
+7b. model-moe
+                the model check at full width on the MoE and hybrid archs:
+                jamba-v0.1-52b cut to one 8-layer period (attention at layer
+                4, MoE on the odd layers), kimi-k2 to its dense prefix layer
+                and one MoE layer (384 experts, top-8 sigmoid, a shared
+                expert), llama4-maverick to 2 layers (dense, then 128
+                experts top-1 with a shared expert); a prefill of 300 tokens
+                and 4 decode steps through K1 and through the plain
+                attention: K1 once per attention layer, each layer's K1
+                output and its planted fault as in ``model``, greedy tokens
+                equal (a top-2 tie reported), the logits reported (a
+                rounding may move a token across a top-k boundary); each
+                MoE layer's prefill output held to a per-expert fp32 loop
+                on a routing recomputed apart from the port's (top-k of the
+                fp32 scores, weights the scores over their sum, entries
+                kept by a running count per expert against the capacity),
+                its dropped_frac equal to the count's, and the loop with
+                the experts shifted by one (a planted fault) rejected
+7c. serve-moe   the three at full width through ``serve_decode`` (8 slots on
+                M=4 x b=2, 8 requests, 16-32 new tokens; each decode row
+                routed as its own MoE group): jamba cut to 16 layers (two
+                periods, prompts 16-32: its Mamba layers prefill a token at
+                a time), kimi-k2 and llama4 at 2 layers (prompts 128-512),
+                the weights drawn and cast an expert bank at a time; every
+                request completes with finite logits; K1 = prefills x
+                attention layers; the serving peak under the bf16 weights +
+                cache + 1.5 GiB, the setup's under that plus one fp32 expert
+                bank; nothing left allocated once serving returns; a traced
+                tick and longest-prompt prefill of each
+7d. train-moe   ``launch.train.train`` at full width, one device, 4 steps and
+                2 traced of b 1 x T 2048: jamba cut to layers 0-4 with 4 of
+                its 16 experts (AdamW), kimi-k2 to 2 layers with 16 of its
+                384 experts (Adafactor, top-8 kept); finite losses, clip
+                norms and MoE terms; every parameter leaf changed; K1 and
+                K2 launches = attention and Mamba2 layers x steps; first,
+                jamba's first micro-batch through K2 and through the plain
+                SSD (the loss under train-model's limit, the gradient gap
+                under 1.5 x that of K2's sound peer, the plain SSD forward in
+                TF32, and a planted fault failing it; the MoE routing of the
+                other runs pinned to K2's, the moved top-k choices printed)
 8. pipeline-model
                 a 4-layer, full-width GPT-2.7B in S=2 stages, M=4 micro-batches
                 of 1 x 512 tokens: the reference pipeline engine's loss and
@@ -105,12 +153,12 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 path against the plain attention; K1 launches in every run
                 equal the attention forwards of the plan's grid
                 (M*L*(2S-1)/S under kfkb)
-9. pipeline     GPT-2.7B at full width and depth trained through
+9. pipeline     GPT-2.7B at full width cut to GPT_LAYERS = 16 trained through
                 ``repro_torch.launch.train.run_pipeline`` on the one-process
                 reference engine (``engine="reference"``): S=4 stages under
                 kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
                 one profiled step; the loss is finite and falls, and K1 ran
-                M*L*(2S-1)/S = 448 times a step
+                M*L*(2S-1)/S = 224 times a step
 10. calibrate   GPT-2.7B at full width and depth calibrated through
                 ``repro_torch.launch.dryrun_pipeline.calibrate`` (S=4, the
                 adaptive phase's micro-batch b=2 x T=1024, seed 0), once
@@ -129,8 +177,9 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 wall-clock run.  Spec and wall-clock ms per program with the
                 spread of the timed runs, the warmup vectors and the
                 tuner's choice on both costs are printed
-11. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width and
-                depth trained through ``repro_torch.launch.train_adaptive``'s
+11. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width cut
+                to GPT_LAYERS = 16 trained through
+                ``repro_torch.launch.train_adaptive``'s
                 Fig-10 scenario (S=4, M=4 micro-batches of 2 x 1024 tokens,
                 the tuner choosing among 1F1B, 2F2B, ZB-H1, ZB-H2(w=2) and
                 interleaved-ZB(v=2) on a simulated regime network, 14
@@ -148,11 +197,14 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 gathered to rank 0 against autograd of ``full_loss``, and
                 beside the one-process engine's; K1 launches summed over the
                 ranks equal the grid's attention forwards
-13. ranks       GPT-2.7B at full width and depth trained through
+13. ranks       GPT-2.7B at full width trained through
                 ``repro_torch.launch.train.run_pipeline`` on S=4 ranks (kfkb
-                k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps, seed 0):
-                the first loss equals the pipeline phase's, the loss falls,
-                K1 ran M*L*(2S-1)/S = 448 times a step summed over the ranks;
+                k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps, seed 0),
+                all 32 layers on four cards, cut to GPT_LAYERS = 16 on one:
+                the first loss equals the one-process engine's at that depth
+                (on one card the pipeline phase's), the loss falls, K1 ran
+                M*L*(2S-1)/S times a step summed over the ranks (224 at 16
+                layers);
                 the transport, the card count and each rank's breakdown
                 (compute, blocked in receives and sends, staging copies,
                 the replicated reduce, read from CUDA events) are printed,
@@ -232,8 +284,9 @@ them after its run and returns them.
 The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
-ranks, the fabric in one process and across two, and the dense archs'
-model check, serving and training, each at its own shape);
+ranks, the fabric in one process and across two, the dense archs'
+model check, serving and training, and the MoE and hybrid archs', each at
+its own shape; K2's per main path: train and train-moe);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -257,7 +310,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "kernels", "model", "model-dense", "train-model", "serve", "serve-adaptive", "serve-ssm",
-    "serve-dense", "train", "train-dense", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
+    "serve-dense", "train", "train-dense", "model-moe", "serve-moe", "train-moe", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
     "adaptive-ranks", "fabric", "fabric-tcp",
 )
 
@@ -336,8 +389,20 @@ FLASH_CASES = [
     ("qwen2.5-14b_gqa_b2_t512", 2, 512, 512, 40, 8, 128, torch.bfloat16, True, None),
     ("fp32_hd256", 1, 200, 200, 4, 2, 256, torch.float32, True, 64),
     ("fp16_hd256_t_lt_s", 1, 100, 333, 8, 4, 256, torch.float16, True, None),
+    # the MoE and hybrid archs: kimi-k2's GQA 64 over 8 at hd 112 (its
+    # serving prefill, and one train-moe micro-batch), hd 112 on the fma
+    # route (fp32), jamba's attention layers (32 over 8 at hd 128)
+    ("kimi-k2_gqa_t512", 1, 512, 512, 64, 8, 112, torch.bfloat16, True, None),
+    ("kimi-k2_train_t2048", 1, 2048, 2048, 64, 8, 112, torch.bfloat16, True, None),
+    ("fp32_hd112", 1, 200, 200, 8, 1, 112, torch.float32, True, None),
+    ("jamba_gqa_t512", 1, 512, 512, 32, 8, 128, torch.bfloat16, True, None),
 ]
 TIMED_CASE = "gpt2.7b_t512"
+#: the serve-adaptive phase's GPT-2.7B, at full width cut to 16 of its 32
+#: layers; the pipeline and adaptive phases' too, and the ranks' on fewer
+#: cards than ranks (the cuts that keep the whole script inside its time
+#: limit on a slower host; PERF.md, section 4).  The serve phase runs all 32
+GPT_LAYERS = 16
 #: K1's shape on each main path: the longest serving prefill, the adaptive
 #: serving prefill, one pipeline micro-batch, one calibrated or adaptive
 #: micro-batch, one micro-batch on the ranks
@@ -348,12 +413,13 @@ PATH_CASES = {
     "fabric": "gpt2.7b_train_b2_t1024", "fabric-tcp": "gpt2.7b_train_b2_t1024",
     "model-dense": "gemma3-12b_local_t1536", "serve-dense": "qwen2.5-14b_gqa_b2_t512",
     "train-dense": "gemma3-12b_train_t2048",
+    "model-moe": "kimi-k2_gqa_t512", "serve-moe": "kimi-k2_gqa_t512", "train-moe": "kimi-k2_train_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
     "gpt2.7b_t16", "gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024",
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
-    "fp32_hd256",
+    "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -389,8 +455,14 @@ SSD_KERNEL_CASES = [
     ("mamba2-780m_t128", 2, 128, 8, 64, 128, 64, _BF16, _BF16),
     ("ssd_cases_2_bf16", 2, 64, 4, 64, 128, 32, _BF16, _BF16),
     ("mamba2-780m_mixed", 1, 128, 4, 64, 128, 64, _BF16, _F32),
+    # jamba-v0.1-52b's Mamba layers (P 64, N 16, Q 64; 128 heads): one
+    # train-moe micro-batch (mma route, 4 warps a block), and fp32 (fma)
+    ("jamba_train", 1, 2048, 128, 64, 16, 64, _BF16, _BF16),
+    ("jamba_fp32", 1, 256, 8, 64, 16, 64, _F32, _F32),
 ]
 SSD_TIMED_CASE = "mamba2-780m_train"
+#: K2's shape on each main path: mamba2-780m's train phase, jamba's train-moe
+SSD_PATH_CASES = {"train": SSD_TIMED_CASE, "train-moe": "jamba_train"}
 #: train-model check, K2 vs plain SSD, 2 bf16 layers at full width.  The
 #: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL; on
 #: the mma route in more of them); that perturbs everything downstream by a
@@ -400,6 +472,18 @@ SSD_TIMED_CASE = "mamba2-780m_train"
 #: five bf16 unit roundoffs.
 TRAIN_MODEL_LOSS_TOL = 1e-3
 TRAIN_MODEL_GRAD_TOL = 2e-2
+#: K2's gradient gap against that of its sound peer: the plain SSD whose
+#: forward runs its products in TF32 (each layer's output as far from the
+#: fp32 plain as K2's: 1.148e-3 against 1.149e-3 at jamba's shape) under the
+#: same backward.  A bf16 model carries any change of rounding in an SSD's
+#: output into every layer after it, so the gap is the model's, not K2's:
+#: on H100 the plain SSD at chunk 32 (the same math in another fp32 order)
+#: reads a gap well above 0, of the peer's order,
+#: and so does the plain SSD with dt rounded to bf16, while K2 with a planted
+#: fault (head 0's output taken from head 1) reads several times the peer's
+#: (the readings: PERF.md, section 6).  The gate is K2 <= 1.5 x the peer, and
+#: the fault must fail it.
+K2_PEER_FACTOR = 1.5
 #: the train phase: mamba2-780m, batch 8 x 1024 tokens in M = 2 micro-batches
 TRAIN_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=2, lr=1e-3, warmup=2)
 #: pipeline-model check, the engine against autograd of the unpipelined
@@ -426,7 +510,7 @@ PIPE_MODEL_PLANS = (
     dict(kind="interleaved", k=2, num_virtual=2),
     dict(kind="interleaved_zb", num_virtual=2),
 )
-#: the pipeline phase: GPT-2.7B at full size in S = 4 stages under kfkb k = 2,
+#: the pipeline phase: GPT-2.7B (full width, GPT_LAYERS) in S = 4 stages under kfkb k = 2,
 #: batch 8 x 1024 tokens in M = 8 micro-batches (b = 1)
 PIPE_STAGES, PIPE_K = 4, 2
 PIPE_ARGS = dict(steps=6, batch=8, seq=1024, microbatches=8, lr=1e-4, warmup=2)
@@ -440,24 +524,28 @@ CALIBRATE_METHODS = ("spec", "wallclock")
 CALIBRATE_FLOPS_TOL = 1e-9
 #: the serve-adaptive phase: launch/serve_adaptive's comparison (repro's
 #: Fig-10 serving world, seed 0, ticks priced on specs/h100-sxm.json) with
-#: GPT-2.7B at full size behind each run (its ENGINE_ARGS: 4 stages, 8
+#: GPT-2.7B (full width, GPT_LAYERS) behind each run (its ENGINE_ARGS: 4 stages, 8
 #: slots, max_len 80; 16-token prompts, 16-48 new tokens)
 SERVE_ADAPTIVE_ARGS = dict(max_requests=24, regime="fig10", seed=0, device_spec="h100-sxm")
-#: the serve-ssm phase: mamba2-780m at full size through serve_decode
+#: the serve-ssm phase: mamba2-780m at full width and depth through
+#: serve_decode; its prompts 16-32 tokens, since SSM serving prefills a token
+#: at a time (~1.25 ms a token a layer)
 SERVE_SSM_ARGS = {
-    "config": "mamba2-780m", "slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "max-len": 160,
-    "prompt-len": (64, 128), "new-tokens": (16, 32),
+    "config": "mamba2-780m", "slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "max-len": 64,
+    "prompt-len": (16, 32), "new-tokens": (16, 32),
 }
 #: the adaptive phase: repro's Fig-10 scenario (train_adaptive.build_fig10_scenario)
-#: with GPT-2.7B at full size, sequences of 1024 tokens, 14 coordinator iterations
-#: serve-dense: each dense arch at full size through serve_decode, 8 slots
+#: with GPT-2.7B (full width, GPT_LAYERS), sequences of 1024 tokens, 14 coordinator iterations
+#: serve-dense: each dense arch at full width through serve_decode, 8 slots
 #: on an M=4 x b=2 grid, 8 requests; gemma3-12b's prompts pass its window
 SERVE_DENSE_ARGS = {"slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "new-tokens": (16, 32)}
+#: (arch, layers, prompt tokens, max_len): each at full width and half its
+#: depth (gemma3-12b: four 5:1 periods)
 SERVE_DENSE = (
-    ("qwen1.5-4b", (128, 512), 544),
-    ("qwen2.5-14b", (128, 512), 544),
-    ("internlm2-20b", (128, 512), 544),
-    ("gemma3-12b", (1024, 1536), 1568),
+    ("qwen1.5-4b", 20, (128, 512), 544),
+    ("qwen2.5-14b", 24, (128, 512), 544),
+    ("internlm2-20b", 24, (128, 512), 544),
+    ("gemma3-12b", 24, (1024, 1536), 1568),
 )
 #: serve-dense's memory gate: the peak over the bf16 weights plus the cache
 SERVE_DENSE_HEADROOM = 4 * 2**30
@@ -470,6 +558,38 @@ SERVE_DENSE_LEFT = 2**28
 #: and logits, come too close to the card's 80 GB)
 TRAIN_DENSE = (("gemma3-12b", 6, 1, 2048, 1), ("qwen1.5-4b", 24, 2, 1024, 2))
 TRAIN_DENSE_ARGS = dict(steps=4, lr=1e-4, warmup=1, seed=0)
+#: model-moe: (arch, layers, prompt tokens) at full width: jamba-v0.1-52b cut
+#: to one 8-layer period (attention at layer 4, MoE on the odd layers, 13.27 B
+#: parameters), kimi-k2 to its dense prefix layer and one MoE layer (19.58 B),
+#: llama4-maverick to 2 layers, dense then MoE (18.55 B)
+MODEL_MOE = (("jamba-v0.1-52b", 8, 300), ("kimi-k2-1t-a32b", 2, 300), ("llama4-maverick-400b-a17b", 2, 300))
+#: model-moe, each MoE layer's bf16 output against the per-expert fp32 loop
+#: over the same kept (token, expert) pairs, as ||y - y_ref|| / ||y_ref||:
+#: the layer rounds to bf16 after the gate and up products, their SwiGLU
+#: product, the down product and the weighting (2^-9 relative each) and sums
+#: the k outputs and the shared expert in bf16; five bf16 unit roundoffs
+MOE_REL_TOL = 2e-2
+#: serve-moe: (arch, layers, prompt tokens, max_len) at full width through
+#: serve_decode, 8 slots on M=4 x b=2, 8 requests, 16-32 new tokens:
+#: jamba-v0.1-52b cut to two 8-layer periods (26.00 B parameters, 52.0 GB of
+#: bf16; all 32 layers, 103 GB, do not fit one card), its prompts 16-32
+#: tokens since its Mamba layers prefill a token at a time (~1.25 ms a token a
+#: layer); kimi-k2 and llama4-maverick at 2 layers (39.2 and 37.1 GB of bf16)
+SERVE_MOE = (
+    ("jamba-v0.1-52b", 16, (16, 32), 64),
+    ("kimi-k2-1t-a32b", 2, (128, 512), 544),
+    ("llama4-maverick-400b-a17b", 2, (128, 512), 544),
+)
+#: serve-moe's memory gate: the serving peak over the bf16 weights plus the
+#: cache (the setup peak may add one fp32 expert bank, drawn and cast a bank
+#: at a time and freed before serving)
+SERVE_MOE_HEADROOM = 3 * 2**29
+#: train-moe: (arch, layers, experts, batch, seq) at full width, 4 steps and
+#: 2 more traced, M=1: jamba-v0.1-52b cut to layers 0-4 (attention at 4, MoE
+#: at 1 and 3) with 16 -> 4 experts, top-2 kept (2.92 B, AdamW); kimi-k2 at 2
+#: layers with 384 -> 16 experts, top-8 kept (3.37 B, Adafactor)
+TRAIN_MOE = (("jamba-v0.1-52b", 5, 4, 1, 2048), ("kimi-k2-1t-a32b", 2, 16, 1, 2048))
+TRAIN_MOE_ARGS = dict(steps=4, lr=1e-4, warmup=1, seed=0)
 
 ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
 ADAPTIVE_ITERATIONS = 14
@@ -825,7 +945,7 @@ def _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype) -> tuple[float, str]:
 def _ssd_kernels() -> dict:
     from repro_torch.kernels.ssd_scan import ops, ref
 
-    timed = None
+    timed = {}
     for name, B, T, H, P, N, Q, x_dtype, bc_dtype in SSD_KERNEL_CASES:
         x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, x_dtype, bc_dtype)
         out = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
@@ -843,35 +963,38 @@ def _ssd_kernels() -> dict:
             f"rel_norm_err {rel:.3e} (<= {rel_tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"SSD kernel disagrees with its plain version on {name}")
-        if name == SSD_TIMED_CASE:
-            timed = (B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err)
+        if name in SSD_PATH_CASES.values():
+            timed[name] = (B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err)
 
-    B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err = timed
-    ssd = lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
-    plain = lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
-    ms, plain_ms = _device_ms(ssd), _device_ms(plain, iters=5)
-    call_ms = _time_ms(ssd)
-    bound_ms, bound_by = _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype)
-    log(f"ssd timing at {SSD_TIMED_CASE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device time); "
-        f"per call {call_ms:.4f} ms (events); no library call, bound {bound_ms:.4f} ms ({bound_by})")
-    # what one layer's SSD costs a training step: K2 forward, then the
-    # backward that recomputes and differentiates the plain version
-    inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
-    gy = torch.randn(x.shape, device="cuda").to(x.dtype)
-    train_ms = _time_ms(lambda: torch.autograd.grad(ops.ssd_chunked(*inputs, chunk=Q), inputs, gy), iters=5)
-    log(f"ssd forward (K2) + backward (plain recompute) at {SSD_TIMED_CASE}: {train_ms:.4f} ms")
+    figures = {}
+    for name, (B, T, H, P, N, Q, x_dtype, bc_dtype, x, dt, A, Bm, Cm, err) in timed.items():
+        ssd = lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
+        plain = lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
+        ms, plain_ms = _device_ms(ssd), _device_ms(plain, iters=5)
+        call_ms = _time_ms(ssd)
+        bound_ms, bound_by = _ssd_bound_ms(B, T, H, P, N, Q, x_dtype, bc_dtype)
+        log(f"ssd timing at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device time); "
+            f"per call {call_ms:.4f} ms (events); no library call, bound {bound_ms:.4f} ms ({bound_by})")
+        # what one layer's SSD costs a training step: K2 forward, then the
+        # backward that recomputes and differentiates the plain version
+        inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        gy = torch.randn(x.shape, device="cuda").to(x.dtype)
+        train_ms = _time_ms(lambda: torch.autograd.grad(ops.ssd_chunked(*inputs, chunk=Q), inputs, gy), iters=5)
+        log(f"ssd forward (K2) + backward (plain recompute) at {name}: {train_ms:.4f} ms")
+        figures[name] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the chunked SSD
+        }
     return {
         "name": "ssd_chunked_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:65",
-        "launches": None,  # filled from the train phase (the main path)
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes the chunked SSD
+        "launches": None,  # the sum over the main paths (the train and train-moe phases)
+        **figures[SSD_TIMED_CASE],
+        "per_path": {
+            path: {"shape": name, "launches": None, **figures[name]} for path, name in SSD_PATH_CASES.items()
+        },
     }
 
 
@@ -885,7 +1008,7 @@ def phase_model() -> None:
     _model_check(GPT_CONFIGS["GPT-2.7B"].replace(num_layers=2), 512)
 
 
-def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
+def _model_check(cfg, prompt_len: int, oracle: bool = False, moe_gate: bool = False) -> int:
     """``cfg`` served through K1 and through the plain attention: a prefill
     of ``prompt_len`` tokens, then MODEL_DECODE_STEPS greedy decode steps
     (the plain run fed the kernel run's tokens).  Without ``oracle``: logits
@@ -895,11 +1018,17 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
     MODEL_TOL).  Either way the greedy tokens are equal, or their top-2 gap
     is under MODEL_TOL.  Then each layer's K1 output in the prefill, at every
     position, is held to the plain version on the q/k/v the layer gave K1
-    (:func:`_layer_gate`).  Returns K1's launches in the kernel run."""
+    (:func:`_layer_gate`).  With ``moe_gate`` (an MoE config) the logits are
+    reported and not gated: a rounding of K1 against the plain attention may
+    move a token across a router's top-k boundary; instead each MoE layer's
+    prefill output is held to a per-expert loop in fp32 (:func:`_moe_gate`).
+    Returns K1's launches in the kernel run."""
     from unittest import mock
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import layer_specs
     from repro_torch.tree import tree_map
 
     steps = MODEL_DECODE_STEPS
@@ -927,8 +1056,17 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
         calls.append((q, k, v, causal, window, out))
         return out
 
+    moe_apply, moe_calls = moe_mod.moe_apply, []
+
+    def capture_moe(p, x, cfg_, capacity_factor=None):  # each MoE layer's call of the prefill
+        y, aux = moe_apply(p, x, cfg_, capacity_factor)
+        if x.shape[0] == prompt_len:  # batch 1: the prefill's (a decode step routes 1 token)
+            cf = cfg_.capacity_factor if capacity_factor is None else capacity_factor
+            moe_calls.append((p, x.detach().clone(), y.detach().clone(), float(aux["dropped_frac"]), cf))
+        return y, aux
+
     n0 = ops.launches
-    with mock.patch.object(ops, "flash_attention", capture):
+    with mock.patch.object(ops, "flash_attention", capture), mock.patch.object(moe_mod, "moe_apply", capture_moe):
         kern = run(cfg, params, False)
     launches = ops.launches - n0
     feed = [x.argmax(-1, keepdim=True) for x in kern[:steps]]
@@ -938,11 +1076,13 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
         params32 = tree_map(lambda t: t.float(), params)
         truth = run(cfg.replace(dtype=torch.float32), params32, True, feed)
         del params32
-    log(f"model {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, hd {cfg.hd}, {cfg.num_heads} heads "
-        f"over {cfg.num_kv_heads}, windows {cfg.window_pattern or cfg.attn_window}), prefill of {prompt_len} "
+    attn_layers = sum(spec.kind == "attn" for spec in layer_specs(cfg))
+    log(f"model {cfg.name} ({cfg.num_layers} layers, {attn_layers} attention, d_model {cfg.d_model}, hd {cfg.hd}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads}, windows {cfg.window_pattern or cfg.attn_window}, "
+        f"experts {cfg.num_experts} top-{cfg.num_experts_per_tok}), prefill of {prompt_len} "
         f"tokens + {steps} decode steps: K1 launches {launches}")
-    if launches != cfg.num_layers or len(calls) != cfg.num_layers:
-        raise AssertionError(f"K1 ran {launches} times in a {cfg.num_layers}-layer prefill")
+    if launches != attn_layers or len(calls) != attn_layers:
+        raise AssertionError(f"K1 ran {launches} times in a prefill of {attn_layers} attention layers")
     for i, (a, b, t) in enumerate(zip(kern, plain, truth)):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"non-finite logits at step {i}")
@@ -952,7 +1092,10 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
         top2 = b[0].topk(2).values
         gap = float(top2[0] - top2[1])
         what = f"model step {i} ({'prefill' if i == 0 else 'decode'}): logits max_abs_err {err:.3e}, rel_norm_err {rel:.3e}"
-        if t is None:
+        if moe_gate:
+            ok = True
+            what += " (reported: routing may part)"
+        elif t is None:
             ok = torch.allclose(a, b, atol=MODEL_TOL, rtol=MODEL_TOL)
             what += f" (atol=rtol={MODEL_TOL})"
         else:
@@ -968,9 +1111,69 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False) -> int:
                 raise AssertionError(f"greedy tokens differ at step {i} with gap {gap}")
             log(f"  greedy disagreement at step {i} within tolerance (gap {gap:.3e})")
     _layer_gate(calls, flash)
-    del params, calls
+    if moe_gate:
+        _moe_gate(cfg, moe_calls)
+    del params, calls, moe_calls
     torch.cuda.empty_cache()
     return launches
+
+
+def _moe_gate(cfg, calls: list) -> None:
+    """Each MoE layer's prefill output against an independent per-expert loop
+    on the card, in fp32.  The routing is recomputed here, apart from the
+    port's: the top-k experts of the fp32 router scores (sigmoid or softmax
+    per ``cfg.router_scoring``), their weights the top-k scores over their
+    sum, and the entries kept by a running count per expert in token order
+    against the capacity C = floor(T*k*cf/E) + 1.  Over the kept entries each
+    expert's SwiGLU is applied to its tokens with fp32 weights and sums and
+    weighted, plus the shared expert.  The output is held under MOE_REL_TOL
+    and the layer's ``dropped_frac`` to the count's; the same loop with every
+    expert's weights taken from the next expert (a planted fault) must fail
+    the first."""
+    import torch.nn.functional as F
+
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    for layer, (p, x, y, dropped, cf) in enumerate(calls):
+        T, d = x.shape
+        logits = x.float() @ p["router"]["w"].float()
+        scores = torch.sigmoid(logits) if cfg.router_scoring == "sigmoid" else torch.softmax(logits, dim=-1)
+        top = scores.topk(k, dim=-1)
+        idx, w = top.indices, top.values / top.values.sum(-1, keepdim=True)
+        C = int(T * k * cf // E) + 1
+        seen, kept = [0] * E, []
+        for e in idx.flatten().tolist():  # token-major: token t's k choices in slot order
+            kept.append(seen[e] < C)
+            seen[e] += 1
+        keep = torch.tensor(kept, device=x.device).view(T, k)
+        count_dropped = 1.0 - sum(kept) / len(kept)
+        ex, xf = p["experts"], x.float()
+
+        def loop(shift):
+            out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+            for e in torch.unique(idx[keep]).tolist():
+                tok, slot = ((idx == e) & keep).nonzero(as_tuple=True)
+                we = (e + shift) % E
+                h = F.silu(xf[tok] @ ex["gate"][we].float()) * (xf[tok] @ ex["up"][we].float())
+                out.index_add_(0, tok, (h @ ex["down"][we].float()) * w[tok, slot, None])
+            if "shared" in p:
+                sh = p["shared"]
+                h = F.silu(xf @ sh["gate"]["w"].float()) * (xf @ sh["up"]["w"].float())
+                out += h @ sh["down"]["w"].float()
+            return out
+
+        want = loop(0)
+        rel = float((y.float() - want).norm() / want.norm())
+        rel_fault = float((loop(1) - want).norm() / want.norm())
+        log(f"  MoE layer {layer}: {T} tokens, top-{k} of {E} ({cfg.router_scoring}), capacity {C}; dropped_frac "
+            f"{dropped:.4f}, by the running count {count_dropped:.4f}; output vs per-expert fp32 loop "
+            f"rel_norm_err {rel:.3e} (<= {MOE_REL_TOL:g}); planted fault (experts shifted by one) rel_norm_err "
+            f"{rel_fault:.3e} {'rejected' if rel_fault > MOE_REL_TOL else 'FAIL (unseen)'}")
+        if rel > MOE_REL_TOL or not math.isfinite(rel):
+            raise AssertionError(f"MoE layer {layer} disagrees with the per-expert loop")
+        if abs(dropped - count_dropped) > 1e-6:
+            raise AssertionError(f"MoE layer {layer}: dropped_frac {dropped} against the running count's {count_dropped}")
+        if rel_fault <= MOE_REL_TOL:
+            raise AssertionError(f"the MoE gate passes a planted fault at layer {layer}")
 
 
 def _layer_gate(calls: list, flash) -> None:
@@ -1010,45 +1213,174 @@ def phase_model_dense() -> int:
 
 
 def phase_train_model() -> None:
+    from repro_torch.configs.mamba2_780m import FULL
+
+    _k2_against_plain(FULL.replace(num_layers=2), TRAIN_ARGS["batch"] // TRAIN_ARGS["microbatches"],
+                      TRAIN_ARGS["seq"], "train-model", grad_tol=TRAIN_MODEL_GRAD_TOL)
+
+
+def _ssd_forward_as(fwd):
+    """``ssd_chunked`` with ``fwd(x, dt, A, Bm, Cm, chunk)`` as its forward
+    and K2's backward (the plain SSD's gradient at the saved inputs)."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    class SSD(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, chunk):
+            ctx.save_for_backward(x, dt, A, Bm, Cm)
+            ctx.chunk = chunk
+            return fwd(x, dt, A, Bm, Cm, chunk)
+
+        backward = staticmethod(ops._SSDChunked.backward)
+
+    return lambda x, dt, A, Bm, Cm, chunk=64: SSD.apply(x, dt, A, Bm, Cm, chunk)
+
+
+def _ssd_tf32(x, dt, A, Bm, Cm, chunk):
+    """The plain SSD with its products in TF32: K2's sound peer."""
+    from repro_torch.kernels.ssd_scan import ref
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _ssd_head_fault(k2):
+    """The forward of ``k2`` (K2's wrapper) with a planted fault: head 0's
+    output taken from head 1."""
+
+    def fwd(x, dt, A, Bm, Cm, chunk):
+        y = k2(x, dt, A, Bm, Cm, chunk=chunk)
+        y[:, :, 0] = y[:, :, 1]
+        return y
+
+    return fwd
+
+
+def _k2_against_plain(cfg, micro_batch: int, seq: int, what: str, grad_tol: float | None = None) -> None:
+    """The loss and gradients of one micro-batch (seed 0's first) through K2
+    and through the plain SSD under autograd: the loss under
+    TRAIN_MODEL_LOSS_TOL, the gradient gap under K2_PEER_FACTOR times that
+    of K2's sound peer (the plain SSD forward in TF32, :func:`_ssd_tf32`) and
+    under ``grad_tol`` where given; K2 runs once per Mamba2 layer.  Printed
+    beside it: the plain SSD at chunk 32 and with dt rounded to bf16 (sound
+    controls, the first in fp32, the second with K2's backward), each
+    Mamba2 layer's SSD output in the K2 run against the plain run's, and K2's
+    and the peer's forward on K2's inputs against the plain's.  K2 with a
+    planted fault (:func:`_ssd_head_fault`) must fail the gate.  An MoE layer
+    in every run after K2's follows K2's routing (its experts, ranks and
+    drops; the weights recomputed from its own router scores), so that the
+    runs part only by the SSD: a rounding may move a token across a top-k
+    boundary, and the number of (token, slot) choices that moved is
+    printed."""
     from unittest import mock
 
-    from repro_torch.configs.mamba2_780m import FULL
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.kernels.ssd_scan import ops, ref
     from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import layer_specs
     from repro_torch.tree import flatten, tree_map
 
-    cfg = FULL.replace(num_layers=2)
     params = api.init_params(cfg, seed=0, device="cuda")
-    micro_batch = TRAIN_ARGS["batch"] // TRAIN_ARGS["microbatches"]
-    b = SyntheticTextDataset(cfg.vocab_size, TRAIN_ARGS["seq"], micro_batch).batch_at(0, "cuda")
+    b = SyntheticTextDataset(cfg.vocab_size, seq, micro_batch, seed=0).batch_at(0, "cuda")
     batch = {"tokens": b.tokens, "labels": b.labels}
+    route, routes, moved = moe_mod.route, [], [0]
 
-    def loss_and_grads():
+    def record(p, x, cfg_, capacity_factor=None):
+        r = route(p, x, cfg_, capacity_factor)
+        routes.append({key: r[key] for key in ("idx", "rank", "keep")})
+        return r
+
+    def pinned(count: bool = False):  # count: the plain run's moved choices
+        queue = list(routes)
+
+        def pin(p, x, cfg_, capacity_factor=None):
+            r, rec = route(p, x, cfg_, capacity_factor), queue.pop(0)
+            moved[0] += int((r["idx"] != rec["idx"]).sum()) if count else 0
+            scores = torch.sigmoid(r["logits"]) if cfg_.router_scoring == "sigmoid" else r["probs"]
+            w = scores.gather(-1, rec["idx"])
+            return {**r, **rec, "w": w / w.sum(-1, keepdim=True).clamp(min=1e-9)}
+
+        return pin
+
+    def loss_and_grads(ssd, route_fn, outs):
+        def capture(x, dt, A, Bm, Cm, chunk=64):
+            y = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+            outs.append((x.detach(), dt.detach(), A.detach(), Bm.detach(), Cm.detach(), chunk, y.detach()))
+            return y
+
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, _ = api.loss_fn(leaves, cfg, batch)
-        grads = torch.autograd.grad(loss, list(flatten(leaves).values()))
+        with mock.patch.object(ops, "ssd_chunked", capture), mock.patch.object(moe_mod, "route", route_fn):
+            loss, _ = api.loss_fn(leaves, cfg, batch)
+            grads = torch.autograd.grad(loss, list(flatten(leaves).values()))
         torch.cuda.synchronize()
         return float(loss.detach()), [g.float() for g in grads]
 
-    n0 = ops.launches
-    loss_k, grads_k = loss_and_grads()
-    if ops.launches - n0 != cfg.num_layers:
-        raise AssertionError(f"K2 ran {ops.launches - n0} times in a {cfg.num_layers}-layer forward")
-    with mock.patch.object(ops, "ssd_chunked", ref.ssd_chunked):  # the plain SSD, under autograd
-        loss_p, grads_p = loss_and_grads()
+    names = list(flatten(params))
+    mamba = sum(spec.kind == "mamba" for spec in layer_specs(cfg))
+    n0, outs_k, outs_p = ops.launches, [], []
+    loss_k, grads_k = loss_and_grads(ops.ssd_chunked, record, outs_k)
+    if ops.launches - n0 != mamba:
+        raise AssertionError(f"K2 ran {ops.launches - n0} times in a forward of {mamba} Mamba2 layers")
+    loss_p, grads_p = loss_and_grads(ref.ssd_chunked, pinned(True), outs_p)  # the plain SSD, under autograd
+    den = math.sqrt(sum(float(g.square().sum()) for g in grads_p))
+
+    def gap(grads):
+        sq = [float((a - b).square().sum()) for a, b in zip(grads, grads_p)]
+        return math.sqrt(sum(sq)) / den, sq
+
     finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k + grads_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    num = math.sqrt(sum(float((a - b).square().sum()) for a, b in zip(grads_k, grads_p)))
-    den = math.sqrt(sum(float(b.square().sum()) for b in grads_p))
-    grad_rel = num / den
-    log(f"train-model mamba2-780m (2 layers, d_model {cfg.d_model}, bf16), one micro-batch "
-        f"{micro_batch} x {TRAIN_ARGS['seq']}: loss K2 {loss_k:.6f} plain {loss_p:.6f} "
-        f"(rel {loss_rel:.3e} <= {TRAIN_MODEL_LOSS_TOL:g}), gradients rel_norm_err {grad_rel:.3e} "
-        f"(<= {TRAIN_MODEL_GRAD_TOL:g}), finite {finite}")
-    if not finite or loss_rel > TRAIN_MODEL_LOSS_TOL or grad_rel > TRAIN_MODEL_GRAD_TOL:
+    grad_rel, sq = gap(grads_k)
+    del grads_k
+    layers = []
+    for (x, dt, A, Bm, Cm, chunk, y), (*_, y_p) in zip(outs_k, outs_p):
+        want = ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk).float()
+        layers.append((_rel_norm_err([y], [want]), _rel_norm_err([_ssd_tf32(x, dt, A, Bm, Cm, chunk)], [want]),
+                       _rel_norm_err([y], [y_p])))
+    del outs_k, outs_p
+    controls = {}
+    def chunk32(x, dt, A, Bm, Cm, chunk=64):
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=32)
+
+    def dt_bf16(x, dt, A, Bm, Cm, chunk):
+        return ref.ssd_chunked(x, dt.bfloat16().float(), A, Bm, Cm, chunk=chunk)
+
+    for name, ssd in (("peer", _ssd_forward_as(_ssd_tf32)), ("chunk 32", chunk32),
+                      ("dt bf16", _ssd_forward_as(dt_bf16)),
+                      ("fault", _ssd_forward_as(_ssd_head_fault(ops.ssd_chunked)))):
+        loss_c, grads_c = loss_and_grads(ssd, pinned(), [])
+        controls[name] = gap(grads_c)[0]
+        finite = finite and math.isfinite(loss_c)
+        del grads_c
+    limit = K2_PEER_FACTOR * controls["peer"]
+    top = sorted(zip(sq, names), reverse=True)[:3]
+    log(f"  each Mamba2 layer's SSD on K2's inputs against the plain in fp32: K2 / the TF32 peer "
+        + ", ".join(f"{k:.3e} / {t:.3e}" for k, t, _ in layers) + "; its output in the K2 run against the plain "
+        "run's: " + ", ".join(f"{d:.3e}" for *_, d in layers))
+    log(f"  the leaves with the largest share of ||g_K2 - g_plain||^2: "
+        + ", ".join(f"{name} {100 * v / max(sum(sq), 1e-30):.1f}%" for v, name in top))
+    moe_note = f", routing pinned to K2's ({moved[0]} top-k choices moved)" if cfg.num_experts else ""
+    abs_note = f" and <= {grad_tol:g}" if grad_tol is not None else ""
+    log(f"{what} {cfg.name} ({cfg.num_layers} layers, {mamba} Mamba2, d_model {cfg.d_model}, bf16), one "
+        f"micro-batch {micro_batch} x {seq}: loss K2 {loss_k:.6f} plain {loss_p:.6f} "
+        f"(rel {loss_rel:.3e} <= {TRAIN_MODEL_LOSS_TOL:g}), gradients rel_norm_err {grad_rel:.4e} "
+        f"(<= {K2_PEER_FACTOR:g} x the TF32 peer's {controls['peer']:.4e} = {limit:.4e}{abs_note}); "
+        f"controls: plain at chunk 32 {controls['chunk 32']:.4e}, plain with dt rounded to bf16 "
+        f"{controls['dt bf16']:.4e}, K2 with head 0 from head 1 (planted fault) "
+        f"{controls['fault']:.4e} {'rejected' if controls['fault'] > limit else 'FAIL (unseen)'}; "
+        f"finite {finite}{moe_note}")
+    if not finite or loss_rel > TRAIN_MODEL_LOSS_TOL or grad_rel > limit:
         raise AssertionError("loss or gradients through K2 disagree with the plain SSD")
-    del params, grads_k, grads_p
+    if grad_tol is not None and grad_rel > grad_tol:
+        raise AssertionError("gradients through K2 disagree with the plain SSD")
+    if controls["fault"] <= limit:
+        raise AssertionError("the K2 gradient gate passes a planted fault")
+    del params, grads_p
     torch.cuda.empty_cache()
 
 
@@ -1088,24 +1420,25 @@ def phase_train() -> int:
     return launches
 
 
-def phase_serve() -> int:
-    from repro_torch.kernels.flash_attention import ops
+def _serve(argv: list, num_layers: int) -> dict:
+    """``serve_decode``'s run of ``argv`` with the config cut to ``num_layers``:
+    its summary (the caller gates completion and finite logits)."""
     from repro_torch.launch import serve_decode
 
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "serve.json")
-        argv = [
-            "--config", "GPT-2.7B", "--slots", "8", "--microbatches", "4",
-            "--requests", "16", "--prompt-len", "128", "512", "--new-tokens", "16", "48",
-            "--max-len", "576", "--seed", "0", "--device", "cuda", "--out", out,
-        ]
-        ops.launches = 0
-        rc = serve_decode.main(argv)
-        launches = ops.launches
-        with open(out) as f:
-            s = json.load(f)
-    if rc != 0:
-        raise AssertionError(f"serve_decode exited {rc}")
+    return serve_decode.serve(serve_decode.build_parser().parse_args(argv), num_layers=num_layers)
+
+
+def phase_serve() -> int:
+    from repro_torch.kernels.flash_attention import ops
+
+    argv = [
+        "--config", "GPT-2.7B", "--slots", "8", "--microbatches", "4",
+        "--requests", "16", "--prompt-len", "128", "512", "--new-tokens", "16", "48",
+        "--max-len", "576", "--seed", "0", "--device", "cuda",
+    ]
+    ops.launches = 0
+    s = _serve(argv, None)  # all 32 layers
+    launches = ops.launches
     log(f"serve GPT-2.7B ({s['num_layers']} layers, d_model {s['d_model']}): "
         f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']} tokens, "
         f"prefill p50 {s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
@@ -1146,7 +1479,7 @@ def phase_serve_adaptive() -> int:
     regimes = sa.chosen_specs_by_regime(
         max(12, args["max_requests"] // 3), seed=args["seed"], device_spec=args["device_spec"]
     )
-    cfg = GPT_CONFIGS["GPT-2.7B"]
+    cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=GPT_LAYERS)
     first = ServeEngine(cfg, seed=0, device="cuda", **sa.ENGINE_ARGS)
     engines = (first, ServeEngine(cfg, params=first.params, device="cuda", **sa.ENGINE_ARGS))
     torch.cuda.synchronize()
@@ -1231,18 +1564,12 @@ def phase_serve_ssm() -> None:
     from repro_torch.models import api
     from repro_torch.serve import ServeEngine
 
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "serve_ssm.json")
-        argv = ["--device", "cuda", "--out", out]
-        for k, v in SERVE_SSM_ARGS.items():
-            argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
-        ssd_ops.launches = 0
-        rc = serve_decode.main(argv)
-        k2 = ssd_ops.launches
-        with open(out) as f:
-            s = json.load(f)
-    if rc != 0:
-        raise AssertionError(f"serve_decode exited {rc}")
+    argv = ["--device", "cuda"]
+    for k, v in SERVE_SSM_ARGS.items():
+        argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
+    ssd_ops.launches = 0
+    s = _serve(argv, None)  # all 48 layers
+    k2 = ssd_ops.launches
     log(f"serve-ssm {s['config']} ({s['num_layers']} layers, d_model {s['d_model']}), {s['slots']} slots on "
         f"{s['grid']}: {s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
         f"{s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
@@ -1291,22 +1618,17 @@ def phase_serve_ssm() -> None:
 
 def phase_serve_dense() -> int:
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.launch import serve_decode
 
     launches = 0
-    for arch, prompt_len, max_len in SERVE_DENSE:
+    for arch, layers, prompt_len, max_len in SERVE_DENSE:
         before = torch.cuda.memory_allocated()
-        with tempfile.TemporaryDirectory() as tmp:
-            out = os.path.join(tmp, "serve.json")
-            argv = ["--config", arch, "--prompt-len", *map(str, prompt_len), "--max-len", str(max_len),
-                    "--device", "cuda", "--profile", "--out", out]
-            for k, v in SERVE_DENSE_ARGS.items():
-                argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
-            n0 = ops.launches
-            rc = serve_decode.main(argv)
-            n = ops.launches - n0
-            with open(out) as f:
-                s = json.load(f)
+        argv = ["--config", arch, "--prompt-len", *map(str, prompt_len), "--max-len", str(max_len),
+                "--device", "cuda", "--profile"]
+        for k, v in SERVE_DENSE_ARGS.items():
+            argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
+        n0 = ops.launches
+        s = _serve(argv, layers)
+        n = ops.launches - n0
         left = torch.cuda.memory_allocated() - before  # the engine dropped, no collection yet
         launches += n
         limit = s["weight_bytes"] + s["cache_bytes"] + SERVE_DENSE_HEADROOM
@@ -1315,7 +1637,7 @@ def phase_serve_dense() -> int:
             f"{s['grid']}, prompts {prompt_len[0]}-{prompt_len[1]}, max_len {max_len}: "
             f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
             f"{s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
-            f"{s['tokens_per_second_wall']:.2f} tokens/s (wall)")
+            f"{s['tokens_per_second_wall']:.2f} tokens/s (wall), setup {s['setup_seconds']:.1f} s")
         log(f"  weights {s['weight_bytes'] / 2**30:.2f} GiB (bf16 matrices), cache {s['cache_bytes'] / 2**30:.2f} "
             f"GiB; max_memory_allocated setup {s['setup_max_memory_allocated'] / 2**30:.2f} GiB, serving "
             f"{s['max_memory_allocated'] / 2**30:.2f} GiB (<= {limit / 2**30:.2f}); left after the run "
@@ -1324,7 +1646,7 @@ def phase_serve_dense() -> int:
         for name, p in s["profile"].items():
             log(f"  traced {name}: wall {p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms (busy "
                 f"{100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
-        if rc != 0 or s["requests_completed"] < s["requests"] or s["nonfinite_logits"]:
+        if s["requests_completed"] < s["requests"] or s["nonfinite_logits"]:
             raise AssertionError(f"{arch}: not every request completed, or a non-finite logit")
         # where_time_goes prefills three more times: a warm-up, a timed and a traced run
         if s["flash_launches"] != s["prefill_calls"] * s["num_layers"] or n != s["flash_launches"] + 3 * s["num_layers"]:
@@ -1368,6 +1690,123 @@ def phase_train_dense() -> int:
             raise AssertionError(f"{arch}: K1 did not run once per layer per micro-batch")
         if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
             raise AssertionError(f"{arch}: non-finite loss or clip norm")
+        if s["leaves_updated"] != s["leaves"]:
+            raise AssertionError(f"{arch}: the steps left {s['leaves'] - s['leaves_updated']} parameter leaves as drawn")
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_model_moe() -> int:
+    from repro_torch.configs import get_arch
+
+    launches = 0
+    for arch, layers, prompt_len in MODEL_MOE:
+        launches += _model_check(get_arch(arch).model.replace(num_layers=layers), prompt_len, moe_gate=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+
+    launches = 0
+    for arch, layers, prompt_len, max_len in SERVE_MOE:
+        before = torch.cuda.memory_allocated()
+        argv = ["--config", arch, "--prompt-len", *map(str, prompt_len), "--max-len", str(max_len),
+                "--device", "cuda", "--profile"]
+        for k, v in SERVE_DENSE_ARGS.items():
+            argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
+        n0 = ops.launches
+        s = _serve(argv, layers)
+        n = ops.launches - n0
+        left = torch.cuda.memory_allocated() - before  # the engine dropped, no collection yet
+        launches += n
+        cfg = get_arch(arch).model
+        bank = 4 * cfg.num_experts * cfg.d_model * cfg.expert_ff  # one fp32 expert bank
+        limit = s["weight_bytes"] + s["cache_bytes"] + SERVE_MOE_HEADROOM
+        A = s["attention_layers"]
+        log(f"serve-moe {arch} ({s['num_layers']} layers, {A} attention, d_model {s['d_model']}), {s['slots']} "
+            f"slots on {s['grid']}, prompts {prompt_len[0]}-{prompt_len[1]}, max_len {max_len}: "
+            f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
+            f"{s['prefill_ms_p50']:.2f} ms, decode tick p50 {s['decode_tick_ms_p50']:.2f} ms, "
+            f"{s['tokens_per_second_wall']:.2f} tokens/s (wall), setup {s['setup_seconds']:.1f} s")
+        log(f"  weights {s['weight_bytes'] / 2**30:.2f} GiB (bf16 matrices and expert banks), cache "
+            f"{s['cache_bytes'] / 2**30:.2f} GiB; max_memory_allocated setup "
+            f"{s['setup_max_memory_allocated'] / 2**30:.2f} GiB (<= {(limit + bank) / 2**30:.2f}, one fp32 bank "
+            f"{bank / 2**30:.2f} GiB in the draw), serving {s['max_memory_allocated'] / 2**30:.2f} GiB "
+            f"(<= {limit / 2**30:.2f}); left after the run {left / 2**30:.3f} GiB before any collection; K1 "
+            f"launches {s['flash_launches']} (prefill calls {s['prefill_calls']} x {A} attention layers), {n} "
+            f"with the traced prefills")
+        for name, p in s["profile"].items():
+            log(f"  traced {name}: wall {p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms (busy "
+                f"{100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
+            for op in p["top"][:5]:
+                log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        if s["requests_completed"] < s["requests"] or s["nonfinite_logits"]:
+            raise AssertionError(f"{arch}: not every request completed, or a non-finite logit")
+        # where_time_goes prefills three more times: a warm-up, a timed and a traced run
+        if s["flash_launches"] != s["prefill_calls"] * A or n != s["flash_launches"] + 3 * A:
+            raise AssertionError(f"{arch}: K1 did not run once per attention layer per prefill")
+        if s["max_memory_allocated"] > limit or s["setup_max_memory_allocated"] > limit + bank:
+            raise AssertionError(f"{arch}: peak over weights + cache + {SERVE_MOE_HEADROOM} bytes (+ one bank)")
+        if left > SERVE_DENSE_LEFT:
+            raise AssertionError(f"{arch}: {left} bytes stayed allocated after the engine was dropped")
+        del s
+    return launches
+
+
+def phase_train_moe() -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train
+    from repro_torch.models.common import layer_specs
+
+    launches = {"flash": 0, "ssd": 0}
+    for arch, layers, experts, batch, seq in TRAIN_MOE:
+        cfg = get_arch(arch).model.replace(num_layers=layers, num_experts=experts)
+        kinds = [spec.kind for spec in layer_specs(cfg)]
+        if "mamba" in kinds:  # the first micro-batch through K2 and through the plain SSD
+            _k2_against_plain(cfg, batch, seq, "train-moe")
+            gc.collect()
+        args = argparse.Namespace(
+            arch=arch, smoke=False, batch=batch, seq=seq, microbatches=1, device="cuda", log_every=1,
+            profile=True, **TRAIN_MOE_ARGS,
+        )
+        f0, s0 = flash_ops.launches, ssd_ops.launches
+        s = train.train(args, num_layers=layers, num_experts=experts)
+        nf, ns = flash_ops.launches - f0, ssd_ops.launches - s0
+        launches["flash"] += nf
+        launches["ssd"] += ns
+        A, Mb, steps = kinds.count("attn"), kinds.count("mamba"), s["steps"]
+        p = s["profile"]
+        log(f"train-moe {arch} ({layers} layers: {A} attention, {Mb} Mamba2, {sum(sp.moe for sp in layer_specs(cfg))} "
+            f"MoE of {experts} experts top-{cfg.num_experts_per_tok}; d_model {s['d_model']}, "
+            f"{s['param_count']:,} parameters, {s['optimizer']}): {steps} steps of {batch} x {seq}; loss "
+            f"{s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}; step p50 {s['step_ms_p50']:.1f} ms (first "
+            f"{s['step_ms'][0]:.1f} ms), {s['tokens_per_second']:,.0f} tokens/s, max_memory_allocated "
+            f"{s['max_memory_allocated'] / 2**30:.2f} GiB")
+        log(f"  moe_load_balance {[round(v, 4) for v in s['moe_load_balance']]}, moe_router_z "
+            f"{[round(v, 4) for v in s['moe_router_z']]}; grad norms {[round(v, 4) for v in s['grad_norms']]}")
+        log(f"  parameter norm {s['param_norm'][0]!r} -> {s['param_norm'][1]!r}, {s['leaves_updated']} of "
+            f"{s['leaves']} leaves changed by the steps")
+        log(f"  traced step: wall {p['wall_ms']:.1f} ms, device {p['device_ms']:.1f} ms (busy "
+            f"{100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms, K2 {p['ssd_ms']:.3f} ms")
+        for op in p["top"][:6]:
+            log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        log(f"  K1 launches {s['flash_launches']} ({A} x {steps} steps), K2 {s['ssd_launches']} ({Mb} x {steps}); "
+            f"{nf} and {ns} with the traced steps")
+        if (s["flash_launches"], s["ssd_launches"]) != (A * steps, Mb * steps) or (nf, ns) != (
+            A * (steps + 2), Mb * (steps + 2)
+        ):
+            raise AssertionError(f"{arch}: K1 or K2 did not run once per layer per step")
+        values = s["losses"] + s["grad_norms"] + s["moe_load_balance"] + s["moe_router_z"]
+        if len(s["moe_load_balance"]) != steps or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{arch}: non-finite loss, clip norm or MoE term")
         if s["leaves_updated"] != s["leaves"]:
             raise AssertionError(f"{arch}: the steps left {s['leaves'] - s['leaves_updated']} parameter leaves as drawn")
         del s
@@ -1451,7 +1890,7 @@ def phase_pipeline() -> int:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train
 
-    cfg = GPT_CONFIGS["GPT-2.7B"]
+    cfg = GPT_CONFIGS["GPT-2.7B"].replace(num_layers=GPT_LAYERS)
     ops.launches = 0
     s = train.run_pipeline(
         cfg, PIPE_STAGES, ScheduleSpec(kind="kfkb", k=PIPE_K), seed=0, log_every=1, device="cuda",
@@ -1612,7 +2051,7 @@ def phase_adaptive() -> int:
     from repro_torch.launch import train_adaptive
 
     ops.launches = 0
-    sc = train_adaptive.build_fig10_scenario(device="cuda", **ADAPTIVE_ARGS)
+    sc = train_adaptive.build_fig10_scenario(device="cuda", num_layers=GPT_LAYERS, **ADAPTIVE_ARGS)
     summary = sc.coordinator.run(ADAPTIVE_ITERATIONS)
     launches = ops.launches
     s = train_adaptive.summarize(sc, summary)
@@ -1783,10 +2222,22 @@ def phase_ranks(pipeline_first_loss) -> int:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train
 
+    # all 32 layers where each rank has a card of its own; on one card, the
+    # pipeline phase's depth
+    layers = None if torch.cuda.device_count() >= RANKS_STAGES else GPT_LAYERS
+    cfg = GPT_CONFIGS["GPT-2.7B"]
+    cfg = cfg if layers is None else cfg.replace(num_layers=layers)
+    first_from = "the pipeline phase's"
+    if layers != GPT_LAYERS:  # the one-process engine's first loss at this depth
+        r = train.run_pipeline(
+            cfg, PIPE_STAGES, ScheduleSpec(kind="kfkb", k=PIPE_K), seed=0, log_every=1, device="cuda",
+            engine="reference", **{**PIPE_ARGS, "steps": 1},
+        )
+        pipeline_first_loss, first_from = r["losses"][0], "the one-process engine's at this depth"
+        del r
     gc.collect()
     torch.cuda.empty_cache()  # the card is the ranks'
     log(f"parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB on the card while the ranks run")
-    cfg = GPT_CONFIGS["GPT-2.7B"]
     ops.launches = 0
     s = train.run_pipeline(
         cfg, RANKS_STAGES, ScheduleSpec(kind="kfkb", k=RANKS_K), seed=0, log_every=1, device="cuda",
@@ -1831,7 +2282,7 @@ def phase_ranks(pipeline_first_loss) -> int:
         log("  (the pipeline phase did not run: its first loss is not compared)")
     else:
         rel = abs(s["losses"][0] - pipeline_first_loss) / abs(pipeline_first_loss)
-        log(f"  first loss {s['losses'][0]:.6f} vs the pipeline phase's {pipeline_first_loss:.6f} "
+        log(f"  first loss {s['losses'][0]:.6f} vs {first_from} {pipeline_first_loss:.6f} "
             f"(rel {rel:.3e} <= {PIPE_ENGINE_LOSS_TOL:g})")
         if rel > PIPE_ENGINE_LOSS_TOL:
             raise AssertionError("the ranks' first loss differs from the one-process engine's")
@@ -2111,7 +2562,7 @@ def phase_adaptive_ranks(adaptive_first_loss) -> int:
 
     layers = None if torch.cuda.device_count() >= RANKS_STAGES else ADAPTIVE_RANKS_ONE_CARD_LAYERS
     first_loss, first_from = adaptive_first_loss, "the adaptive phase"
-    if layers is not None or first_loss is None:  # the one-process loop's first iteration at this depth
+    if layers != GPT_LAYERS or first_loss is None:  # the one-process loop's first iteration at this depth
         sc = train_adaptive.build_fig10_scenario(device="cuda", num_layers=layers, **ADAPTIVE_ARGS)
         sc.coordinator.run(1)
         first_loss, first_from = sc.runtime.iterations[0].loss, "its first iteration, run here"
@@ -2449,11 +2900,24 @@ def main(argv=None) -> int:
         elif name == "train":
             launches = phase_train()
             if kernels:
-                kernels["ssd"]["launches"] = launches
+                kernels["ssd"]["per_path"]["train"]["launches"] = launches
         elif name == "train-dense":
             launches = phase_train_dense()
             if kernels:
                 kernels["flash"]["per_path"]["train-dense"]["launches"] = launches
+        elif name == "model-moe":
+            launches = phase_model_moe()
+            if kernels:
+                kernels["flash"]["per_path"]["model-moe"]["launches"] = launches
+        elif name == "serve-moe":
+            launches = phase_serve_moe()
+            if kernels:
+                kernels["flash"]["per_path"]["serve-moe"]["launches"] = launches
+        elif name == "train-moe":
+            launches = phase_train_moe()
+            if kernels:
+                kernels["flash"]["per_path"]["train-moe"]["launches"] = launches["flash"]
+                kernels["ssd"]["per_path"]["train-moe"]["launches"] = launches["ssd"]
         elif name == "pipeline-model":
             phase_pipeline_model()
         elif name == "pipeline":
@@ -2496,7 +2960,8 @@ def main(argv=None) -> int:
     log(f"all phases {time.perf_counter() - t0:.1f} s")
     if set(only) != set(PHASES):
         return 0  # a partial run prints no result
-    kernels["flash"]["launches"] = sum(p["launches"] for p in kernels["flash"]["per_path"].values())
+    for k in ("flash", "ssd"):
+        kernels[k]["launches"] = sum(p["launches"] for p in kernels[k]["per_path"].values())
     log(json.dumps({"kernels": [kernels["flash"], kernels["ssd"]]}))
     log(device["smi"])
     log(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))

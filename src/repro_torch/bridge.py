@@ -7,13 +7,16 @@ keys and list indices joined by ``/``), e.g. ``embed/table`` or
 ``blocks/0/attn/wq/w``.  It imports no JAX: flattening a JAX tree to such a
 dictionary is the caller's work.
 
-The reference stacks its repeating block of layers into ``[n_blocks, ...]``
-leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every block,
-e.g. ``blocks/0/attn/wq/w`` or ``blocks/0/mamba/A_log``; its ``prefix``
-group of irregular leading layers is empty for the ported families); the
-port keeps one entry per layer under ``layers/<i>/...``.
-:func:`params_from_repro` unstacks and :func:`params_to_repro` stacks back,
-bitwise.
+The reference keeps its irregular leading layers unstacked under
+``prefix/<i>/...`` (kimi-k2's first dense layer; empty for the other
+families) and stacks its repeating block of the rest into ``[n_blocks,
+...]`` leaves (``blocks/<j>/...`` is layer ``j`` of the pattern in every
+block, e.g. ``blocks/0/attn/wq/w``, ``blocks/0/mamba/A_log`` or
+``blocks/1/moe/experts/gate``); the port keeps one entry per layer under
+``layers/<i>/...``, the prefix first.  :func:`params_from_repro` unstacks
+and :func:`params_to_repro` stacks back, bitwise.  A hybrid's layers hold
+``kv`` or ``ssm`` caches by kind (jamba's period-8 block mixes them), and
+:func:`cache_from_repro` carries each under its own key.
 
 A pipeline's parameters (``repro.pipeline.stage.StagedModel``) are stacked
 once more, over the ``V`` virtual stages: ``blocks/<j>/...`` leaves are
@@ -88,7 +91,7 @@ def _set(tree: dict, path: list[str], value) -> None:
 
 
 def _layer_index(st, idx: int, block: int) -> int:
-    return block * len(st.pattern) + idx
+    return len(st.prefix) + block * len(st.pattern) + idx
 
 
 def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=None) -> dict:
@@ -105,7 +108,10 @@ def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=N
             for n in range(st.n_blocks):
                 _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(arr[n], device))
         elif parts[0] == "prefix":
-            raise ValueError(f"{key}: the ported families have no prefix layers")
+            idx = int(parts[1])
+            if idx >= len(st.prefix):
+                raise ValueError(f"{key}: the config has {len(st.prefix)} prefix layers")
+            _set(layers.setdefault(idx, {}), parts[2:], _tensor(arr, device))
         else:
             _set(tree, parts, _tensor(arr, device))
     if sorted(layers) != list(range(st.num_layers)):
@@ -122,6 +128,9 @@ def params_to_repro(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
     for key, t in flatten({k: v for k, v in params.items() if k != "layers"}).items():
         out[key] = t.detach().cpu().numpy()
     layers = params["layers"]
+    for i in range(len(st.prefix)):
+        for key, t in flatten(layers[i]).items():
+            out[f"prefix/{i}/{key}"] = t.detach().cpu().numpy()
     for j in range(len(st.pattern)):
         per_block = [flatten(layers[_layer_index(st, j, n)]) for n in range(st.n_blocks)]
         for key in per_block[0]:
@@ -138,18 +147,23 @@ def cache_from_repro(
 
     ``slot_major=False``: the cache of ``api.init_cache(cfg, B, L)`` /
     ``prefill_with_cache``, leaves ``blocks/<j>/kv/k`` of shape
-    ``[n_blocks, B, L, K, hd]``.  ``slot_major=True``: ``ServeEngine.kv``,
-    leaves ``[max_slots, n_blocks, 1, L, K, hd]``.  Either way the port's
-    layer ``i`` holds ``{"kv": {"k", "v"}}`` of shape ``[B or max_slots, L, K, hd]``
-    (a Mamba2 layer ``{"ssm": {"state", "conv"}}``, in the same rows)."""
+    ``[n_blocks, B, L, K, hd]`` (``prefix/<i>/kv/k``: ``[B, L, K, hd]``).
+    ``slot_major=True``: ``ServeEngine.kv``, leaves ``[max_slots, n_blocks,
+    1, L, K, hd]`` (prefix: ``[max_slots, 1, L, K, hd]``).  Either way the
+    port's layer ``i`` holds ``{"kv": {"k", "v"}}`` of shape ``[B or
+    max_slots, L, K, hd]`` (a Mamba2 layer ``{"ssm": {"state", "conv"}}``,
+    in the same rows)."""
     st = structure(cfg)
     layers: dict[int, dict] = {}
     for key, arr in flat.items():
         parts = key.split("/")
         group, idx, rest = parts[0], int(parts[1]), parts[2:]
+        arr = np.asarray(arr)
+        if group == "prefix":
+            _set(layers.setdefault(idx, {}), rest, _tensor(arr[:, 0] if slot_major else arr, device))
+            continue
         if group != "blocks":
             raise ValueError(f"unexpected cache key {key!r}")
-        arr = np.asarray(arr)
         for n in range(st.n_blocks):
             rows = arr[:, n, 0] if slot_major else arr[n]
             _set(layers.setdefault(_layer_index(st, idx, n), {}), rest, _tensor(rows, device))

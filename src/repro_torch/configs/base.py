@@ -4,9 +4,9 @@ Port of ``repro/configs/base.py``.  Every ported architecture registers one
 :class:`ArchSpec`; the launchers go through ``get_arch(arch_id)`` /
 ``list_archs()``.  ``ALL_ARCH_IDS`` keeps the reference's ten ids in its
 order.  The port's :class:`~repro_torch.models.common.ModelConfig` has no
-MoE, hybrid, encoder-decoder or multimodal fields yet, so ``get_arch`` of
-those architectures raises ``NotImplementedError`` naming the ROADMAP item
-that brings them (:data:`UNPORTED`).
+encoder-decoder or multimodal fields yet, so ``get_arch`` of those
+architectures raises ``NotImplementedError`` naming the ROADMAP item that
+brings them (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -86,9 +86,6 @@ ALL_ARCH_IDS = [
 #: the architectures whose families the port does not build yet, and the
 #: ROADMAP.md queue-1 item that brings each
 UNPORTED = {
-    "kimi-k2-1t-a32b": "item 7 (the MoE family)",
-    "llama4-maverick-400b-a17b": "item 7 (the MoE family)",
-    "jamba-v0.1-52b": "item 7 (the hybrid family)",
     "seamless-m4t-medium": "item 9 (the encoder-decoder family)",
     "qwen2-vl-2b": "item 9 (the vision-language family)",
 }

@@ -19,7 +19,8 @@
 //   reduce with two xor shuffles, so the softmax needs no shared memory and no
 //   block barrier).  S = Q K^T is mma.sync.m16n8k16 with bf16/fp16 operands and
 //   fp32 accumulation: Q's fragments come once from shared memory with
-//   ldmatrix and stay in registers up to hd 128; at hd 256 they are read
+//   ldmatrix and stay in registers up to hd 128 (hd 112, kimi-k2: 7 k-steps
+//   of 16 and 14 output tiles of 8, 28 fragment registers); at hd 256 they are read
 //   again from shared memory at every k-step, as K's are (below); K's come
 //   per tile.  exp(scale (s - m)) is one FFMA and one SFU
 //   ex2.approx; it is rounded to the input type in registers (ref.py's
@@ -28,11 +29,14 @@
 //   read with ldmatrix.trans.  K and V tiles arrive by 16-byte cp.async into a
 //   two-stage ring, so tile j+1 loads while tile j computes, with one block
 //   barrier per tile.  Rows are padded by 16 bytes (hd + 8 elements): a row
-//   then starts 4 banks (hd 64, 96, 128, 256) or 12 banks (hd 80) after the
-//   one before, so the 8 rows of every ldmatrix phase, and the epilogue's
-//   staging, fall on 8 disjoint groups of 4 banks: free of bank conflicts at
-//   every instantiated hd (64, 80, 96, 128, 256); q/k/v pointers and row
-//   strides must be 16-byte aligned (the wrapper checks).
+//   then starts 4 banks (hd 64, 96, 128, 256), 12 banks (hd 80) or 28 banks
+//   (hd 112: 120 elements, 240 bytes, 60 words a row, so rows 0..7 start at
+//   banks 0, 28, 24, 20, 16, 12, 8, 4) after the one before, so the 8 rows of
+//   every ldmatrix phase, and the epilogue's staging, fall on 8 disjoint
+//   groups of 4 banks: free of bank conflicts at every instantiated hd (64,
+//   80, 96, 112, 128, 256); q/k/v pointers and row strides must be 16-byte
+//   aligned (the wrapper checks; a row of one head at hd 112 is 224 bytes,
+//   14 copies of 16).
 //   hd 256 (gemma3-12b): the accumulator alone is 32 x 4 = 128 registers a
 //   thread and the score tile 32 more, so Q's 64 fragment registers would
 //   push a thread past 224 before addresses and spill under
@@ -614,6 +618,7 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
     case 64: return LAUNCH<T, 64>(p, stream);       \
     case 80: return LAUNCH<T, 80>(p, stream);       \
     case 96: return LAUNCH<T, 96>(p, stream);       \
+    case 112: return LAUNCH<T, 112>(p, stream);     \
     case 128: return LAUNCH<T, 128>(p, stream);     \
     case 256: return LAUNCH<T, 256>(p, stream);     \
     default: return cudaErrorInvalidValue;          \

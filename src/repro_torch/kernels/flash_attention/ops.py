@@ -61,9 +61,10 @@ from repro_torch.kernels.flash_attention import ref as _ref
 __all__ = ["flash_attention", "flash_attention_train", "route", "SOURCE", "HEAD_DIMS", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-#: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, 128
-#: (qwen2.5-14b, internlm2-20b, qwen1.5-4b) and 256 (gemma3-12b)
-HEAD_DIMS = (64, 80, 96, 128, 256)
+#: head widths the kernel is instantiated for: Table 1's 64, 80 and 96, 112
+#: (kimi-k2: 7168 / 64), 128 (qwen2.5-14b, internlm2-20b, qwen1.5-4b,
+#: jamba-v0.1-52b, llama4-maverick) and 256 (gemma3-12b)
+HEAD_DIMS = (64, 80, 96, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _ROUTES = {"fma": 0, "mma": 1}
 

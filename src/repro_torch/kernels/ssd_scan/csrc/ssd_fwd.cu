@@ -710,8 +710,8 @@ cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// (P, N, Q): the rows of tests/test_kernels.py::SSD_CASES, mamba2-smoke and
-// mamba2-780m.  Keep in step with ops.py::SHAPES.  bf16 x with bf16 B/C at
+// (P, N, Q): the rows of tests/test_kernels.py::SSD_CASES, mamba2-smoke,
+// mamba2-780m and jamba-v0.1-52b.  Keep in step with ops.py::SHAPES.  bf16 x with bf16 B/C at
 // the shapes whose P, N and Q are multiples of 16 takes the mma route.
 template <typename TX, typename TB>
 cudaError_t dispatch_fma(int P, int N, int Q, const Params& p, int batch, cudaStream_t st) {
@@ -719,6 +719,7 @@ cudaError_t dispatch_fma(int P, int N, int Q, const Params& p, int batch, cudaSt
   if (P == PP && N == NN && Q == QQ) return launch_fma<TX, TB, PP, NN, QQ>(p, batch, st);
   if constexpr (!(std::is_same<TX, __nv_bfloat16>::value && std::is_same<TB, __nv_bfloat16>::value)) {
     SSD_CASE(64, 128, 64)  // mamba2-780m
+    SSD_CASE(64, 16, 64)   // jamba-v0.1-52b
     SSD_CASE(32, 16, 16)
     SSD_CASE(64, 128, 32)
   }
@@ -734,6 +735,8 @@ cudaError_t dispatch_mma(int P, int N, int Q, int ps, const Params& p, int batch
 #define SSD_CASE(PP, NN, QQ, SS) \
   if (P == PP && N == NN && Q == QQ && ps == SS) return launch_mma<PP, NN, QQ, SS>(p, batch, st);
   SSD_CASE(64, 128, 64, 32)  // mamba2-780m
+  SSD_CASE(64, 16, 64, 32)   // jamba-v0.1-52b: 4 warps (MmaWarps<32, 16>), each a 16-row band
+                             // of the chunk and one 16 x 8 tile of the 32 x 16 state slice
   SSD_CASE(32, 16, 16, 32)
   SSD_CASE(64, 128, 32, 32)
 #undef SSD_CASE

@@ -46,9 +46,10 @@ from repro_torch.kernels.ssd_scan import ref as _ref
 __all__ = ["ssd_chunked", "route", "P_SLICE", "SOURCE", "SHAPES", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
-#: (P, N, Q) the kernel is instantiated for: mamba2-780m, mamba2-smoke and
-#: the rows of the reference's kernel tests (tests/test_kernels.py::SSD_CASES)
-SHAPES = ((64, 128, 64), (32, 32, 8), (16, 8, 8), (32, 16, 16), (64, 128, 32), (8, 4, 16))
+#: (P, N, Q) the kernel is instantiated for: mamba2-780m, mamba2-smoke, the
+#: rows of the reference's kernel tests (tests/test_kernels.py::SSD_CASES)
+#: and jamba-v0.1-52b's Mamba layers (d_state 16)
+SHAPES = ((64, 128, 64), (32, 32, 8), (16, 8, 8), (32, 16, 16), (64, 128, 32), (8, 4, 16), (64, 16, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"fma": 0, "mma": 1}
 #: P columns one block of the mma route owns (mamba2-780m: 2 blocks a head)

@@ -28,7 +28,9 @@ and the memory footprint, as a ``WorkloadProfile`` that
 ``devicespec.derive_stage_costs`` prices on any spec.  Counting runs on the ``meta`` device, so a full-size config
 costs nothing to count.  The engine dry-run of ``repro``'s module (lowering
 ``make_pipeline_step`` on a 256-device mesh and counting its collectives)
-is ROADMAP queue 1, item 9.
+is ROADMAP queue 1, item 9, and so is the calibration of the MoE and
+hybrid families (counting FLOPs through the MoE dispatch on ``meta``):
+:func:`calibrate` of such a config raises ``NotImplementedError``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun_pipeline --calibrate \\
@@ -123,7 +125,13 @@ def calibrate(
     ``method="spec"`` also the offline tune (``record["tuned"]``).  Prints
     the table and writes the record; returns it."""
     dev = resolve_device(device)
-    staged = StagedModel.build(_config(config), S)
+    cfg = _config(config)
+    if cfg.family in ("moe", "hybrid"):
+        raise NotImplementedError(
+            f"calibrating the {cfg.family} family ({config}: the FLOP count through the MoE dispatch on "
+            "the meta device) comes with ROADMAP.md queue 1, item 9"
+        )
+    staged = StagedModel.build(cfg, S)
     spec = None
     if method == "spec":
         spec = resolve_spec(device_spec)

@@ -2,9 +2,9 @@
 
 Seeded arrivals feed a continuous batcher over fixed decode slots; each
 admitted request is prefilled in one fused pass (flash-attention kernel on
-the card for a GPT or dense arch's configuration; the Mamba2 recurrence for
-mamba2-780m)
-and then decoded greedily in the grouped ``[M, b]`` grid.  The tick loop is
+the card for every attention layer; the Mamba2 recurrence for mamba2-780m's
+layers and jamba's Mamba layers) and then decoded greedily in the grouped
+``[M, b]`` grid (an MoE layer routes each row of a group as its own group).  The tick loop is
 :class:`~repro_torch.serve.runtime.ServeRuntime` under ``repro``'s static
 baseline: one ``kfkb`` k = 1 plan of ``--microbatches`` groups, no retune,
 every tick priced on the simulated clock by ``simulate_plan`` on the Fig-10
@@ -19,10 +19,12 @@ Usage:
       [--max-len 576] [--seed 0] [--device cuda] [--out summary.json]
 
 ``--config`` takes a Table-1 GPT or any arch id of the registry
-(``configs.base.PORTED_ARCH_IDS``).  ``--tiny`` swaps in a narrow 2-layer
-variant of the configuration (an arch id's smoke config) for a quick CPU
-run (``--device cpu``).  Without ``--device`` the run needs a CUDA
-card and fails if there is none.
+(``configs.base.PORTED_ARCH_IDS``, the MoE and hybrid archs included).
+``--tiny`` swaps in a narrow 2-layer variant of the configuration (an arch
+id's smoke config) for a quick CPU run (``--device cpu``).  Without
+``--device`` the run needs a CUDA card and fails if there is none.
+``serve(args, num_layers=...)`` cuts the depth (a caller's, e.g. a run of a
+large arch on one card; no flag sets it).
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.profiling import device_profile
 from repro_torch.launch.serve_adaptive import CONFIG_NAMES, ENGINE_ARGS, build_config, build_serve_scenario
+from repro_torch.models.common import layer_specs
 from repro_torch.serve import ArrivalProcess, InFlight, Request, ServeEngine
 from repro_torch.tree import flatten
 
-__all__ = ["static_candidate", "where_time_goes", "serve", "main"]
+__all__ = ["static_candidate", "where_time_goes", "serve", "build_parser", "main"]
 
 #: arrivals per simulated second
 RATE = 4.0
@@ -89,9 +92,13 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in flatten(tree).values())
 
 
-def serve(args) -> dict:
+def serve(args, num_layers: int | None = None) -> dict:
+    """Serve ``args``' requests (``build_parser()``'s arguments);
+    ``num_layers`` cuts the config's depth."""
     device = resolve_device(args.device)
     cfg = build_config(args.config, args.tiny)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     if args.prompt_len[1] + args.new_tokens[1] - 1 > args.max_len:
         raise ValueError("--max-len must hold the longest prompt plus its new tokens")
     cand = static_candidate(NUM_STAGES, args.slots, args.microbatches)
@@ -120,6 +127,7 @@ def serve(args) -> dict:
     summary.update(
         config=cfg.name,
         num_layers=cfg.num_layers,
+        attention_layers=sum(spec.kind == "attn" for spec in layer_specs(cfg)),
         d_model=cfg.d_model,
         requests=args.requests,
         slots=args.slots,
@@ -141,7 +149,7 @@ def serve(args) -> dict:
     return summary
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", choices=CONFIG_NAMES, default="GPT-2.7B")
     ap.add_argument("--tiny", action="store_true", help="narrow 2-layer variant for CPU runs")
@@ -158,8 +166,11 @@ def main(argv=None) -> int:
         help="after serving, trace one decode tick and one longest-prompt prefill with torch.profiler",
     )
     ap.add_argument("--out", default=None, help="write the summary JSON here")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     s = serve(args)
     print(
         f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}) on {s['device']}: "

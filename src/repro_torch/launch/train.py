@@ -4,13 +4,16 @@
 Two modes, as in the reference:
 
 * ``--mode spmd`` (default) trains ``--arch``, any architecture the arch
-  registry builds (``configs.base.PORTED_ARCH_IDS``: qwen2.5-14b,
-  internlm2-20b, gemma3-12b, qwen1.5-4b and mamba2-780m, the default),
-  with the optimizer its ``ArchSpec`` names: a train step that averages the
-  loss and the gradients over ``--microbatches`` micro-batches on one
-  device (the reference's pjit data/tensor-parallel step comes with ROADMAP
-  queue 1, item 9).  Every attention layer's forward runs the flash kernel
-  K1 on the card, every Mamba2 layer's the chunked SSD scan in kernel K2.
+  registry builds (``configs.base.PORTED_ARCH_IDS``: kimi-k2-1t-a32b,
+  llama4-maverick-400b-a17b, qwen2.5-14b, internlm2-20b, gemma3-12b,
+  jamba-v0.1-52b, qwen1.5-4b and mamba2-780m, the default), with the
+  optimizer its ``ArchSpec`` names (Adafactor for kimi-k2 and llama4, in
+  the reference's stacked layout; AdamW for the rest): a train step that
+  averages the loss and the gradients over ``--microbatches`` micro-batches
+  on one device (the reference's pjit data/tensor-parallel step comes with
+  ROADMAP queue 1, item 9).  Every attention layer's forward runs the flash
+  kernel K1 on the card, every Mamba2 layer's the chunked SSD scan in
+  kernel K2.
 * ``--mode pipeline`` trains a Table-1 GPT cut into ``--stages`` stages
   under a kFkB plan of group size ``--k``, as the reference's
   ``run_pipeline`` runs ``make_pipeline_step``: one process per stage
@@ -26,8 +29,8 @@ Two modes, as in the reference:
   ``run_pipeline(..., engine="reference")`` runs the one-process reference
   engine instead (a send is a dict entry).
 
-Both draw synthetic token streams (``data/synthetic.py``) and train with
-AdamW under a linear-warmup cosine schedule, clipping at norm 1.
+Both draw synthetic token streams (``data/synthetic.py``) and train under a
+linear-warmup cosine schedule, clipping at norm 1 (the pipeline with AdamW).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m|qwen1.5-4b|... \\
@@ -66,6 +69,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.profiling import device_profile
 from repro_torch.models import api
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, param_count
 from repro_torch.optim import linear_warmup_cosine, make_optimizer
 from repro_torch.pipeline import StagedModel, ranks
@@ -107,17 +111,23 @@ def _leaf_norms(params) -> list:
     ]
 
 
-def train(args, num_layers: int | None = None) -> dict:
-    """``--mode spmd``'s run; ``num_layers`` cuts the config's depth (a
-    caller's, e.g. a smoke run on one card; no flag sets it)."""
+def train(args, num_layers: int | None = None, num_experts: int | None = None) -> dict:
+    """``--mode spmd``'s run; ``num_layers`` cuts the config's depth and
+    ``num_experts`` its expert count (top-k kept; a caller's, e.g. a smoke
+    run on one card; no flag sets them)."""
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
+    if num_experts is not None:
+        cfg = cfg.replace(num_experts=num_experts)
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=args.seed, device=device)
-    opt = make_optimizer(spec.optimizer, linear_warmup_cosine(args.lr, args.warmup, args.steps))
+    opt = make_optimizer(
+        spec.optimizer, linear_warmup_cosine(args.lr, args.warmup, args.steps),
+        layout=tf.reference_layout(cfg, params),
+    )
     state = create_train_state(params, opt)
     step_fn = make_train_step(
         lambda p, b: api.loss_fn(p, cfg, b), opt, num_microbatches=args.microbatches
@@ -134,7 +144,7 @@ def train(args, num_layers: int | None = None) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     launches0, flash0 = ssd_ops.launches, flash_ops.launches
-    losses, grad_norms, lrs, step_seconds = [], [], [], []
+    losses, grad_norms, lrs, step_seconds, aux = [], [], [], [], {"moe_load_balance": [], "moe_router_z": []}
     for i in range(args.steps):
         b = batch(i)
         synchronize(device)
@@ -145,6 +155,9 @@ def train(args, num_layers: int | None = None) -> dict:
         losses.append(float(m["loss"]))
         grad_norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
+        for k, v in aux.items():  # the MoE terms (a step of one micro-batch reports them)
+            if k in m:
+                v.append(float(m[k]))
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {lrs[-1]:.2e}  "
                   f"grad_norm {grad_norms[-1]:.3e}  {1e3 * step_seconds[-1]:.1f} ms", flush=True)
@@ -156,8 +169,10 @@ def train(args, num_layers: int | None = None) -> dict:
         "arch": args.arch,
         "config": cfg.name,
         "num_layers": cfg.num_layers,
+        "num_experts": cfg.num_experts,
         "d_model": cfg.d_model,
         "param_count": param_count(cfg),
+        "optimizer": spec.optimizer,
         "steps": args.steps,
         "batch": args.batch,
         "seq": args.seq,
@@ -180,6 +195,7 @@ def train(args, num_layers: int | None = None) -> dict:
         ),
         "ssd_launches": launches,
         "flash_launches": flash_launches,
+        **aux,
     }
     if args.profile:
         def run():
@@ -470,9 +486,11 @@ def main(argv=None) -> int:
     else:
         s = train(args)
         print(f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}, {s['param_count']:,} "
-              f"parameters) on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
+              f"parameters, {s['optimizer']}) on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
               f"{s['tokens_per_second']:,.0f} tokens/s, {s['ssd_launches']} SSD and "
               f"{s['flash_launches']} flash kernel launches")
+        if s["moe_load_balance"]:
+            print(f"moe_load_balance {s['moe_load_balance'][-1]:.4f}, moe_router_z {s['moe_router_z'][-1]:.4f}")
         kernel = "ssd" if s["ssd_launches"] else "flash"
     if "profile" in s:
         p = s["profile"]

@@ -10,9 +10,9 @@
 * ``decode_fn(params, cfg, cache, index, batch)``   -> (logits [B,1,V], cache)
 
 Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
-decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense
-and SSM families serve and train; every other family and path raises
-``NotImplementedError`` here.  Caches are updated in place.
+decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense,
+MoE, SSM and hybrid families serve and train; every other family and path
+raises ``NotImplementedError`` here.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -36,10 +36,15 @@ __all__ = [
 ]
 
 #: parameter leaves that are matrices (cast to cfg.dtype once for serving),
-#: and the Mamba2 conv bias, which mamba_decode casts to cfg.dtype at use;
-#: norm scales and biases stay in param_dtype, since layernorm upcasts them
-#: to fp32 and a bf16 round trip would change its results
-_MATRIX_LEAVES = ("w", "table", "head", "in_proj", "out_proj", "conv_w", "conv_b")
+#: the MoE expert banks (``experts/{gate,up,down}``, which the MoE layer casts
+#: to cfg.dtype at use), and the Mamba2 conv bias, which mamba_decode casts to
+#: cfg.dtype at use; norm scales and biases stay in param_dtype, since
+#: layernorm upcasts them to fp32 and a bf16 round trip would change its
+#: results
+_MATRIX_LEAVES = ("w", "table", "head", "in_proj", "out_proj", "conv_w", "conv_b", "gate", "up", "down")
+#: (parent, leaf) pairs that stay in param_dtype: the MoE router reads its
+#: weight in fp32, and a bf16 copy would change the routing
+_KEPT = (("router", "w"),)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -51,9 +56,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
     """``cast_for_serving(init_params(cfg, seed, device), cfg)``, bitwise,
-    without the whole fp32 tree: the embedding and then each layer are cast
-    as soon as they are drawn, from the same generator stream, so the peak
-    is the serving tree plus one part in ``param_dtype``."""
+    without the whole fp32 tree: the embedding, each layer and each MoE
+    expert bank are cast as soon as they are drawn, from the same generator
+    stream, so the peak is the serving tree plus one part (at most one
+    expert bank) in ``param_dtype``."""
     check_ported(cfg, "serve")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return tf.init_decoder(gen, cfg, finish=lambda part: cast_for_serving(part, cfg))
@@ -66,17 +72,20 @@ def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
 
 
 def cast_for_serving(params, cfg: ModelConfig):
-    """The same tree with matrices and the embedding table in ``cfg.dtype``.
+    """The same tree with matrices, expert banks and the embedding table in
+    ``cfg.dtype``; the MoE router's weight stays in ``param_dtype``.
 
     The reference casts ``param_dtype -> dtype`` at every use; one cast at
     load gives the same numbers with half the weight memory."""
 
-    def walk(node, name=None):
+    def walk(node, name=None, parent=None):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, k, name) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
-        return node.to(cfg.dtype) if name in _MATRIX_LEAVES else node
+        if name in _MATRIX_LEAVES and (parent, name) not in _KEPT:
+            return node.to(cfg.dtype)
+        return node
 
     return walk(params)
 
@@ -97,7 +106,12 @@ def prefill_with_cache(
     )
 
 
-def decode_fn(params, cfg: ModelConfig, cache, index, batch: Mapping[str, torch.Tensor]):
-    """One decode step; ``index`` is one position or a [B] vector of them."""
+def decode_fn(
+    params, cfg: ModelConfig, cache, index, batch: Mapping[str, torch.Tensor], *, per_row_moe: bool = False,
+):
+    """One decode step; ``index`` is one position or a [B] vector of them.
+    MoE layers route the batch as one group (the reference's
+    ``decode_fn``), or with ``per_row_moe`` each row as its own group (the
+    reference engine's per-slot decode)."""
     check_ported(cfg, "serve")
-    return tf.decode_step(params, cfg, cache, index, batch["tokens"])
+    return tf.decode_step(params, cfg, cache, index, batch["tokens"], per_row_moe=per_row_moe)

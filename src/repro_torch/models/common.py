@@ -1,13 +1,15 @@
 """Model configuration and per-layer structure description.
 
-Port of ``repro/models/common.py`` for the dense and SSM (Mamba2)
-decoder-only families, with ``torch`` dtypes in place of ``jnp`` ones.
-:class:`ModelConfig` holds only the fields the port reads; the MoE,
-hybrid, encoder-decoder and multimodal fields of the reference arrive with
-the slices that read them.  :func:`check_ported` says which family is
-ported on which path: the dense and SSM families serve and train.
-``layer_specs`` expands a config into a per-layer recipe (layer kind and
-sliding window) that :mod:`repro_torch.models.transformer` consumes.
+Port of ``repro/models/common.py`` for the decoder-only families (dense,
+MoE, SSM and the Mamba2/attention hybrid), with ``torch`` dtypes in place
+of ``jnp`` ones.  :class:`ModelConfig` holds the fields the port reads;
+the encoder-decoder and multimodal fields of the reference, and its
+sharding anchor, arrive with the slice that reads them (ROADMAP.md queue
+1, item 9).  :func:`check_ported` says which family is ported on which
+path: the dense, MoE, SSM and hybrid families serve and train.
+``layer_specs`` expands a config into a per-layer recipe (attention vs
+Mamba2, MoE vs dense FFN, sliding window) that
+:mod:`repro_torch.models.transformer` consumes.
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "check_ported"]
+__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "active_param_count", "check_ported"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" or "ssm" (see check_ported)
+    family: str  # dense | moe | ssm | hybrid (see check_ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,6 +45,17 @@ class ModelConfig:
     # e.g. gemma3: (1024, 1024, 1024, 1024, 1024, None) = 5 local : 1 global
     window_pattern: tuple[int | None, ...] = ()
 
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0  # per-expert hidden size (0 -> d_ff)
+    moe_every: int = 1  # a layer is MoE iff (layer_idx % moe_every == moe_offset)
+    moe_offset: int = 0
+    first_k_dense: int = 0  # kimi-k2: leading dense layers before the MoE stack
+    n_shared_experts: int = 0  # kimi-style always-on shared expert(s)
+    router_scoring: str = "softmax"  # softmax | sigmoid (kimi)
+    capacity_factor: float = 1.25
+
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0  # N
     ssm_heads: int = 0  # H (0 -> d_model * ssm_expand // ssm_head_dim)
@@ -50,6 +63,9 @@ class ModelConfig:
     ssm_conv_width: int = 4
     ssm_chunk: int = 64
     ssm_expand: int = 2
+    # hybrid interleave: a layer is attention iff (idx % attn_every == attn_offset)
+    attn_every: int = 1  # 1 -> all attention; jamba: 8 with attn_offset 4
+    attn_offset: int = 0
 
     # numerics
     dtype: Any = torch.bfloat16  # activation/compute dtype
@@ -71,6 +87,10 @@ class ModelConfig:
         return self.num_kv_heads * self.hd
 
     @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def n_ssm_heads(self) -> int:
         if self.ssm_heads:
             return self.ssm_heads
@@ -81,15 +101,13 @@ class ModelConfig:
 
 
 #: the families each path of the port runs
-_PORTED = {"serve": ("dense", "ssm"), "train": ("dense", "ssm")}
+_PORTED = {"serve": ("dense", "moe", "ssm", "hybrid"), "train": ("dense", "moe", "ssm", "hybrid")}
 #: what is missing for a family on a path, and the later slice that brings it
 #: (ROADMAP.md, queue 1)
 _LATER = {
-    ("moe", None): "the MoE layer (models/moe.py) comes with the MoE slice",
-    ("hybrid", None): "the Mamba2/attention hybrid family comes with the hybrid slice",
-    ("encdec", None): "the encoder-decoder family comes with a later slice",
-    ("audio", None): "the encoder-decoder family comes with a later slice",
-    ("vlm", None): "the vision-language family comes with a later slice",
+    ("encdec", None): "the encoder-decoder family comes with item 9",
+    ("audio", None): "the encoder-decoder family comes with item 9",
+    ("vlm", None): "the vision-language family comes with item 9",
 }
 
 
@@ -111,30 +129,39 @@ def check_ported(cfg: ModelConfig, *paths: str) -> None:
 class LayerSpec:
     index: int
     kind: str  # "attn" | "mamba"
+    moe: bool
     window: int | None  # sliding window size, None = full/global
 
 
-def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
+def layer_specs(cfg: ModelConfig, num_layers: int | None = None) -> list[LayerSpec]:
+    n = num_layers if num_layers is not None else cfg.num_layers
     specs = []
-    for i in range(cfg.num_layers):
-        kind = "mamba" if cfg.family == "ssm" else "attn"
+    for i in range(n):
+        if cfg.family == "ssm":
+            kind = "mamba"
+        elif cfg.family == "hybrid":
+            kind = "attn" if (i % cfg.attn_every) == cfg.attn_offset else "mamba"
+        else:
+            kind = "attn"
+        moe = bool(cfg.num_experts) and (i % cfg.moe_every) == cfg.moe_offset and i >= cfg.first_k_dense
         if kind != "attn":
             window = None
         elif cfg.window_pattern:
             window = cfg.window_pattern[i % len(cfg.window_pattern)]
         else:
             window = cfg.attn_window
-        specs.append(LayerSpec(index=i, kind=kind, window=window))
+        specs.append(LayerSpec(index=i, kind=kind, moe=moe, window=window))
     return specs
 
 
-def _layer_params(cfg: ModelConfig, kind: str) -> int:
-    """Parameters of one layer, counted as the reference counts them: the
-    attention layer's norms as 2·d and the FFN's as d (3·d in all for a
-    dense layer, whatever the norm's kind), the Mamba2 layer's ``ln1`` as d
-    plus d for the absent FFN's norm."""
+def _layer_params(cfg: ModelConfig, spec: LayerSpec) -> tuple[int, int]:
+    """(total, active) parameters of one layer, counted as the reference
+    counts them: the attention layer's norms as 2·d and the FFN's as d (3·d
+    in all for a dense layer, whatever the norm's kind), the Mamba2 layer's
+    ``ln1`` as d plus d for the FFN's norm; an MoE FFN as its experts, the
+    router and the shared experts (active: ``num_experts_per_tok`` experts)."""
     d = cfg.d_model
-    if kind == "attn":
+    if spec.kind == "attn":
         layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 2 * d
         if cfg.qkv_bias:
             layer += cfg.q_dim + 2 * cfg.kv_dim
@@ -148,13 +175,31 @@ def _layer_params(cfg: ModelConfig, kind: str) -> int:
             + d_in * d  # out_proj
             + d
         )
-    mult = 3 if cfg.mlp_act == "swiglu" else 2
-    return layer + mult * d * cfg.d_ff + d
+    if not spec.moe:
+        mult = 3 if cfg.mlp_act == "swiglu" else 2
+        ffn = mult * d * cfg.d_ff + d
+        return layer + ffn, layer + ffn
+    per_expert = 3 * d * cfg.expert_ff  # SwiGLU: gate, up, down
+    common = d * cfg.num_experts + cfg.n_shared_experts * per_expert + d  # router, shared, norm
+    return (
+        layer + cfg.num_experts * per_expert + common,
+        layer + cfg.num_experts_per_tok * per_expert + common,
+    )
+
+
+def _count(cfg: ModelConfig, which: int) -> int:
+    check_ported(cfg, "serve", "train")
+    embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    layers = sum(_layer_params(cfg, spec)[which] for spec in layer_specs(cfg))
+    return embed + layers + cfg.d_model
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the decoder, held to the reference's ``param_count``."""
-    check_ported(cfg, "serve", "train")
-    embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    layers = sum(_layer_params(cfg, spec.kind) for spec in layer_specs(cfg))
-    return embed + layers + cfg.d_model
+    return _count(cfg, 0)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only the routed experts), held to
+    the reference's ``active_param_count``."""
+    return _count(cfg, 1)

@@ -1,16 +1,24 @@
-"""Model assembly for the decoder-only families (dense and SSM): init,
-training forward and loss, prefill and decode.
+"""Model assembly for the decoder-only families (dense, MoE, SSM and the
+Mamba2/attention hybrid): init, training forward and loss, prefill and
+decode.
 
-Port of ``repro/models/transformer.py``.  The reference
-stacks the repeating block of layers into ``[n_blocks, ...]`` leaves for
+Port of ``repro/models/transformer.py``.  The reference keeps a ``prefix``
+of irregular leading layers (kimi-k2's first dense layer) unrolled and
+stacks the repeating block of the rest into ``[n_blocks, ...]`` leaves for
 ``lax.scan``; PyTorch runs eagerly, so here the layers are a plain list in
-model order (``params["layers"][i]`` is layer ``i``) and the weight bridge
-unstacks.  :func:`structure` is kept because the bridge maps the reference's
-``blocks`` keys through it.  The dense family has no irregular leading
-layers, so the reference's ``prefix`` group is always empty here.
+model order (``params["layers"][i]`` is layer ``i``, the prefix first) and
+the weight bridge unstacks.  :func:`structure` is kept because the bridge
+maps the reference's ``prefix`` and ``blocks`` keys through it.
 
-MoE layers and the encoder-decoder family come with later slices;
-:func:`repro_torch.models.common.check_ported` refuses them.
+A hybrid layer holds the cache of its kind: ``kv`` for attention, ``ssm``
+for Mamba2.  An MoE layer's FFN returns the router's load-balance and z
+terms, which :func:`decoder_loss` weighs in as the reference does.  Decode
+routes the batch as one MoE group (the reference's flat dispatch, as its
+``api.decode_fn``) unless ``per_row_moe`` routes each row as its own group
+(the serve engine's decode: the reference engine's per-slot ``vmap``).
+
+The encoder-decoder family comes with a later slice;
+:func:`repro_torch.models.common.check_ported` refuses it.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import LayerSpec, ModelConfig, layer_specs
 from repro_torch.models.layers import (
     cross_entropy_loss,
@@ -33,10 +42,12 @@ from repro_torch.models.layers import (
     norm_init,
     unembed,
 )
+from repro_torch.tree import flatten
 
 __all__ = [
     "Structure",
     "structure",
+    "reference_layout",
     "init_layer",
     "apply_layer_train",
     "init_decoder",
@@ -58,23 +69,56 @@ MOE_Z_WEIGHT = 1e-4
 
 @dataclasses.dataclass(frozen=True)
 class Structure:
+    prefix: tuple[LayerSpec, ...]  # irregular leading layers
     pattern: tuple[LayerSpec, ...]  # repeating block
     n_blocks: int
 
     @property
     def num_layers(self) -> int:
-        return len(self.pattern) * self.n_blocks
+        return len(self.prefix) + len(self.pattern) * self.n_blocks
+
+
+def _sig(s: LayerSpec) -> tuple:
+    return (s.kind, s.moe, s.window)
 
 
 def structure(cfg: ModelConfig) -> Structure:
-    """The shortest repeating block of layer kinds and windows, as the reference stacks it."""
+    """The ``first_k_dense`` leading layers, then the shortest repeating
+    block of layer kinds, FFN kinds and windows, as the reference stacks them."""
     specs = layer_specs(cfg)
-    sigs = [(s.kind, s.window) for s in specs]
-    n = len(specs)
+    k = cfg.first_k_dense
+    body = specs[k:]
+    sigs = [_sig(s) for s in body]
+    n = len(body)
     for p in range(1, n + 1):
         if n % p == 0 and all(sigs[i] == sigs[i % p] for i in range(n)):
-            return Structure(tuple(specs[:p]), n // p)
-    return Structure(tuple(specs), 1)
+            return Structure(tuple(specs[:k]), tuple(body[:p]), n // p)
+    return Structure(tuple(specs[:k]), tuple(body), 1)
+
+
+def reference_layout(cfg: ModelConfig, params) -> list:
+    """How the reference lays out this model's leaves, for an optimizer that
+    reads ranks or takes statistics over whole leaves (Adafactor; AdamW's
+    decay rule): a list of ``(name, paths, stacked)``.  A prefix layer's
+    leaf, the embedding and the final norm are their own unstacked groups;
+    layer ``j`` of the pattern in every block is one group, stacked in
+    block order.  ``name`` is the reference's path (``prefix/0/ln1/scale``,
+    ``blocks/1/moe/experts/gate``, ``embed/table``), ``paths`` the port's
+    (:func:`repro_torch.tree.flatten` of ``params``)."""
+    st = structure(cfg)
+    groups: dict[str, tuple[list, bool]] = {}
+    for key in flatten(params):
+        parts = key.split("/")
+        if parts[0] != "layers":
+            groups[key] = ([key], False)
+            continue
+        i, rest = int(parts[1]), "/".join(parts[2:])
+        if i < len(st.prefix):
+            groups[f"prefix/{i}/{rest}"] = ([key], False)
+        else:
+            name = f"blocks/{(i - len(st.prefix)) % len(st.pattern)}/{rest}"
+            groups.setdefault(name, ([], True))[0].append(key)
+    return [(name, paths, stacked) for name, (paths, stacked) in groups.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -82,36 +126,54 @@ def structure(cfg: ModelConfig) -> Structure:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=None):
+    """One layer's parameters; ``finish`` maps each expert bank of an MoE
+    layer as soon as it is drawn (:func:`moe_mod.moe_init`)."""
     p: dict[str, Any] = {"ln1": norm_init(cfg.d_model, cfg, gen.device)}
     if spec.kind == "attn":
         p["attn"] = attn.attn_init(gen, cfg)
     else:
         p["mamba"] = mamba_mod.mamba_init(gen, cfg)
-    if cfg.d_ff > 0:
+    if spec.moe:
+        p["ln2"] = norm_init(cfg.d_model, cfg, gen.device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, finish)
+    elif cfg.d_ff > 0:
         p["ln2"] = norm_init(cfg.d_model, cfg, gen.device)
         p["mlp"] = mlp_init(gen, cfg)
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
+    """The FFN sublayer: (delta, (load_balance, router_z)), the terms zero
+    for a dense FFN.  An MoE FFN routes the [B, T] tokens as one group, or
+    with ``per_row_moe`` each batch row as its own group."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.moe:
+        h = norm_apply(p["ln2"], x, cfg)
+        if per_row_moe:
+            y, aux = moe_mod.moe_apply_grouped(p["moe"], h, cfg)
+        else:
+            B, T, d = h.shape
+            y, aux = moe_mod.moe_apply(p["moe"], h.reshape(B * T, d), cfg)
+            y = y.reshape(B, T, d)
+        return y, (aux["load_balance"], aux["router_z"])
     if "mlp" in p:
-        return mlp(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
-    return torch.zeros_like(x)
+        return mlp(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg), (zero, zero)
+    return torch.zeros_like(x), (zero, zero)
 
 
 def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False):
     """Full-sequence training forward of one layer.  Returns (x, aux), aux
-    the MoE load-balance and router-z terms (zeros: no ported layer routes).
+    the MoE load-balance and router-z terms (zeros for a dense FFN).
     ``plain_attention`` is :func:`attn.attn_train`'s on-card comparison flag."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
         h = attn.attn_train(p["attn"], h, cfg, window=spec.window, plain_attention=plain_attention)
     else:
         h = mamba_mod.mamba_train(p["mamba"], h, cfg)
     x = x + h
-    return x + _ffn(p, x, cfg), (zero, zero)
+    delta, aux = _ffn(p, x, cfg, spec)
+    return x + delta, aux
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device=None):
@@ -134,17 +196,19 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain
         h = torch.cat([norm_apply(p["ln1"], x[:, t : t + 1], cfg) for t in range(x.shape[1])], dim=1)
         h, _ = mamba_mod.mamba_prefill(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
-    return x + _ffn(p, x, cfg), cache
+    delta, _ = _ffn(p, x, cfg, spec)
+    return x + delta, cache
 
 
-def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
+def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
         h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
     else:
         h, _ = mamba_mod.mamba_decode(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
-    return x + _ffn(p, x, cfg), cache
+    delta, _ = _ffn(p, x, cfg, spec, per_row_moe)
+    return x + delta, cache
 
 
 # ---------------------------------------------------------------------------
@@ -155,11 +219,12 @@ def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec):
 def init_decoder(gen: torch.Generator, cfg: ModelConfig, finish=None):
     """The decoder's parameters, drawn from ``gen`` in order: the embedding,
     the layers, the final norm.  ``finish`` (default: none) maps each of
-    those parts as soon as it is drawn, before the next is, so that a cast
-    holds one part at a time in ``param_dtype``."""
+    those parts as soon as it is drawn, before the next is, and each expert
+    bank of an MoE layer as soon as it is drawn, so that a cast holds one
+    part (or one bank) at a time in ``param_dtype``."""
     finish = finish or (lambda part: part)
     params: dict[str, Any] = {"embed": finish(embedding_init(gen, cfg))}
-    params["layers"] = [finish(init_layer(gen, cfg, spec)) for spec in layer_specs(cfg)]
+    params["layers"] = [finish(init_layer(gen, cfg, spec, finish)) for spec in layer_specs(cfg)]
     params["final_norm"] = finish(norm_init(cfg.d_model, cfg, gen.device))
     return params
 
@@ -206,11 +271,13 @@ def prefill_with_cache(params, cfg: ModelConfig, cache, tokens, *, plain_attenti
     return unembed(params["embed"], x, cfg), cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, index, tokens):
+def decode_step(params, cfg: ModelConfig, cache, index, tokens, *, per_row_moe: bool = False):
     """One-token decode.  tokens [B, 1]; ``index`` [B] per-row positions (or
-    one int).  Returns (logits [B, 1, V], cache), the cache updated in place."""
+    one int).  MoE layers route the B tokens as one group, or with
+    ``per_row_moe`` each row as its own.  Returns (logits [B, 1, V], cache),
+    the cache updated in place."""
     x = embed(params["embed"], tokens, cfg)
     for p, spec, c in zip(params["layers"], layer_specs(cfg), cache["layers"]):
-        x, _ = apply_layer_decode(p, x, c, index, cfg, spec)
+        x, _ = apply_layer_decode(p, x, c, index, cfg, spec, per_row_moe)
     x = norm_apply(params["final_norm"], x, cfg)
     return unembed(params["embed"], x, cfg), cache

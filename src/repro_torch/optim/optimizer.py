@@ -1,9 +1,16 @@
 """Optimizer facade: name -> (init, update) with clipping and a schedule.
 
-Port of ``repro/optim/optimizer.py``.  ``make_optimizer("adamw", schedule)``
-returns an :class:`Optimizer` whose ``update(params, grads, state)`` clips
-the gradients by their global norm, takes the rate from the schedule at the
-state's step and applies the update.  Adafactor comes with the MoE slice.
+Port of ``repro/optim/optimizer.py``.  ``make_optimizer("adamw" |
+"adafactor", schedule)`` returns an :class:`Optimizer` whose
+``update(params, grads, state)`` clips the gradients by their global norm,
+takes the rate from the schedule at the state's step and applies the
+update.
+
+``layout`` is the reference's stacking of a model's leaves
+(:func:`repro_torch.models.transformer.reference_layout`): Adafactor takes
+its ranks, statistics and RMS clip over those stacks; without it each leaf
+is its own group.  AdamW does not read it: its decay rule is
+:func:`~repro_torch.optim.adamw.decay_mask`'s.
 
 ``norm_reduce`` is for a model split over ranks: a function that sums the
 rank's squared gradient norm over the ranks (the pipeline stages), so that
@@ -16,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.optim.adafactor import adafactor_init, adafactor_update
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.clipping import clip_by_global_norm
 from repro_torch.optim.schedules import Schedule, constant_schedule
@@ -36,14 +44,22 @@ def make_optimizer(
     schedule: Schedule | None = None,
     max_grad_norm: float | None = 1.0,
     norm_reduce=None,
+    layout=None,
     **hyper,
 ) -> Optimizer:
     schedule = schedule or constant_schedule(3e-4)
-    if name != "adamw":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: Adafactor comes with the MoE slice "
-            "(ROADMAP.md, queue 1)"
-        )
+    if name == "adamw":
+        init_fn, update_fn = adamw_init, adamw_update
+    elif name == "adafactor":
+
+        def init_fn(params):
+            return adafactor_init(params, layout)
+
+        def update_fn(params, grads, state, lr, **h):
+            return adafactor_update(params, grads, state, lr, layout=layout, **h)
+
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
 
     def update(params, grads, state):
         lr = schedule(state.step)
@@ -51,7 +67,7 @@ def make_optimizer(
         if max_grad_norm is not None:
             grads, norm = clip_by_global_norm(grads, max_grad_norm, norm_reduce)
             metrics["grad_norm"] = norm
-        new_params, new_state = adamw_update(params, grads, state, lr, **hyper)
+        new_params, new_state = update_fn(params, grads, state, lr, **hyper)
         return new_params, new_state, metrics
 
-    return Optimizer(name=name, init=adamw_init, update=update, schedule=schedule)
+    return Optimizer(name=name, init=init_fn, update=update, schedule=schedule)

@@ -1,8 +1,8 @@
 """Stage partitioning for pipeline parallelism.
 
 Port of ``repro/pipeline/stage.py``.  A :class:`StagedModel` cuts a
-decoder-only config into ``num_stages`` contiguous stages of equal layer
-count.  Every stage holds the same parameter structure: its layers, and the
+decoder-only config (dense, MoE, SSM or hybrid, without irregular prefix
+layers) into ``num_stages`` contiguous stages of equal layer count.  Every stage holds the same parameter structure: its layers, and the
 embedding and final norm, which are present on every stage but used only by
 the first (``embed_tokens``) and the last (``head_loss``; the unembedding
 is tied).  Their copies elsewhere get zero gradient, and the engine's
@@ -55,6 +55,11 @@ class StagedModel:
     def build(cls, cfg: ModelConfig, num_stages: int, plain_attention: bool = False) -> "StagedModel":
         check_ported(cfg, "train")
         st = tf.structure(cfg)
+        if st.prefix:
+            raise ValueError(
+                f"{cfg.name}: irregular prefix layers not supported by the "
+                "stage partitioner (fold into cfg or use the SPMD path)"
+            )
         L = cfg.num_layers
         if L % num_stages:
             raise ValueError(f"layers {L} % stages {num_stages} != 0")
@@ -110,7 +115,9 @@ class StagedModel:
     # -- compute --------------------------------------------------------------
 
     def stage_hidden(self, params, x):
-        """The stage body: hidden [b, T, d] -> hidden [b, T, d]."""
+        """The stage body: hidden [b, T, d] -> hidden [b, T, d].  An MoE
+        layer's aux losses are dropped, as the reference's stage body drops
+        them."""
         for p, spec in zip(params["layers"], self.layer_specs()):
             x, _ = tf.apply_layer_train(p, x, self.cfg, spec, plain_attention=self.plain_attention)
         return x

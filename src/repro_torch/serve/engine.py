@@ -115,7 +115,8 @@ class ServeEngine:
             for g in range(M):
                 rows = slice(g * b, (g + 1) * b)
                 logits, _ = api.decode_fn(
-                    params, cfg, ServeEngine._rows(cache, rows), positions[rows], {"tokens": tokens[rows]}
+                    params, cfg, ServeEngine._rows(cache, rows), positions[rows], {"tokens": tokens[rows]},
+                    per_row_moe=True,
                 )
                 new_tok[rows, 0] = _greedy(logits, nonfinite)
             return new_tok

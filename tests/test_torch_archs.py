@@ -1,8 +1,10 @@
 """The port's arch registry and its dense architectures against ``repro``.
 
 Registry: the ids, every ``ArchSpec`` and ``ModelConfig`` field (dtypes
-mapped) and ``param_count`` equal to ``repro``'s; the unported archs raise
-naming their ROADMAP item; twins of ``tests/test_archs.py``'s config checks.
+mapped) and ``param_count`` equal to ``repro``'s for every ported arch
+(the dense, SSM, MoE and hybrid ones; ``tests/test_torch_hybrid.py`` holds
+the MoE and hybrid models); the unported archs raise naming their ROADMAP
+item; twins of ``tests/test_archs.py``'s config checks.
 ``configs/io.py``: ``make_batch``, ``serving_config`` and ``input_specs``
 equal to ``repro``'s.
 
@@ -37,6 +39,7 @@ from repro.configs.io import input_specs as jax_input_specs
 from repro.configs.io import make_batch as jax_make_batch
 from repro.configs.io import serving_config as jax_serving_config
 from repro.models import api as jax_api
+from repro.models.common import active_param_count as jax_active_param_count
 from repro.models.common import param_count as jax_param_count
 from repro.optim import make_optimizer as jax_make_optimizer
 from repro.optim import schedules as jax_schedules
@@ -47,7 +50,7 @@ from repro_torch.configs import ALL_ARCH_IDS, INPUT_SHAPES, get_arch, list_archs
 from repro_torch.configs.base import PORTED_ARCH_IDS, UNPORTED
 from repro_torch.configs.io import AUDIO_SUBSAMPLE, input_specs, make_batch, serving_config
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig, param_count
+from repro_torch.models.common import ModelConfig, active_param_count, param_count
 from repro_torch.optim import make_optimizer, schedules
 from repro_torch.training import create_train_state, make_train_step
 from repro_torch.tree import flatten, tree_map
@@ -93,7 +96,9 @@ def _config_fields_equal(port: ModelConfig, ref) -> None:
 
 def test_list_archs_equals_reference():
     assert list_archs() == jax_list_archs() == ALL_ARCH_IDS == JAX_ALL_ARCH_IDS
-    assert PORTED_ARCH_IDS == [*DENSE[:3], "qwen1.5-4b", "mamba2-780m"]
+    assert PORTED_ARCH_IDS == [
+        "kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", *DENSE[:3], "jamba-v0.1-52b", "qwen1.5-4b", "mamba2-780m",
+    ]
     assert sorted(PORTED_ARCH_IDS + list(UNPORTED)) == sorted(ALL_ARCH_IDS)
     assert list(INPUT_SHAPES) == list(JAX_INPUT_SHAPES)
     for name, shape in INPUT_SHAPES.items():
@@ -114,8 +119,7 @@ def test_arch_spec_and_configs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", list(UNPORTED))
 def test_unported_arch_raises_naming_its_item(arch):
-    item = "item 7" if arch in ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b") else "item 9"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 9"):
         get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("gpt-5")
@@ -126,10 +130,11 @@ def test_param_count_equals_reference(arch):
     spec, ref = get_arch(arch), jax_get_arch(arch)
     assert param_count(spec.model) == jax_param_count(ref.model)
     assert param_count(spec.smoke) == jax_param_count(ref.smoke)
+    assert active_param_count(spec.model) == jax_active_param_count(ref.model)
+    assert active_param_count(spec.smoke) == jax_active_param_count(ref.smoke)
 
 
-# twins of tests/test_archs.py's config checks, on the port's registry (the
-# port's ModelConfig has no expert fields: the ported archs have none)
+# twins of tests/test_archs.py's config checks, on the port's registry
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
@@ -137,24 +142,32 @@ def test_smoke_constraints(arch):
     cfg = get_arch(arch).smoke
     assert cfg.num_layers <= 2
     assert cfg.d_model <= 512
+    assert cfg.num_experts <= 4
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_full_config_matches_assignment(arch):
     expected = {
-        "qwen2.5-14b": (48, 5120, 40, 8, 152_064),
-        "internlm2-20b": (48, 6144, 48, 8, 92_544),
-        "gemma3-12b": (48, 3840, 16, 8, 262_144),
-        "qwen1.5-4b": (40, 2560, 20, 20, 151_936),
-        "mamba2-780m": (48, 1536, 0, 0, 50_280),
+        "kimi-k2-1t-a32b": (61, 7168, 64, 8, 163_840, 384, 8),
+        "llama4-maverick-400b-a17b": (48, 5120, 40, 8, 202_048, 128, 1),
+        "qwen2.5-14b": (48, 5120, 40, 8, 152_064, 0, 0),
+        "internlm2-20b": (48, 6144, 48, 8, 92_544, 0, 0),
+        "gemma3-12b": (48, 3840, 16, 8, 262_144, 0, 0),
+        "jamba-v0.1-52b": (32, 4096, 32, 8, 65_536, 16, 2),
+        "qwen1.5-4b": (40, 2560, 20, 20, 151_936, 0, 0),
+        "mamba2-780m": (48, 1536, 0, 0, 50_280, 0, 0),
     }[arch]
     cfg = get_arch(arch).model
-    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size) == expected
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size, cfg.num_experts,
+            cfg.num_experts_per_tok) == expected
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_param_counts_in_band(arch):
     bands = {
+        "kimi-k2-1t-a32b": (0.9e12, 1.2e12),
+        "llama4-maverick-400b-a17b": (3.5e11, 4.5e11),
+        "jamba-v0.1-52b": (4.5e10, 6e10),
         "qwen2.5-14b": (1.2e10, 1.7e10),
         "internlm2-20b": (1.7e10, 2.3e10),
         "gemma3-12b": (0.9e10, 1.4e10),

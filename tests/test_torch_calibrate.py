@@ -460,8 +460,12 @@ def test_cli_spec_on_gpt_medium(tmp_path):
         dryrun_pipeline.main(["--config", "GPT-Medium", "--device", "cpu"])
     # the arch ids of the registry are taken since ROADMAP queue 1, item 6
     # (tests/test_torch_launch_dense.py calibrates qwen1.5-4b); an arch whose
-    # family is not ported raises naming its item
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # family is not ported raises naming its item, and so does calibrating
+    # the MoE and hybrid families (item 9: the FLOP count through the MoE
+    # dispatch on meta)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        dryrun_pipeline.main(["--calibrate", "--config", "qwen2-vl-2b", "--device", "cpu", "--out", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 9"):
         dryrun_pipeline.main(["--calibrate", "--config", "jamba-v0.1-52b", "--device", "cpu", "--out", str(tmp_path)])
 
 

@@ -120,7 +120,7 @@ def test_wrapper_refuses(name, qs, ks, dtype, kw, err):
 KERNEL_SHAPES = [
     # (B, H, hd, accepted): every instantiated head width, and what the
     # kernel has no instantiation or grid rows for
-    *[(1, 16, hd, True) for hd in (64, 80, 96, 128, 256)],
+    *[(1, 16, hd, True) for hd in (64, 80, 96, 112, 128, 256)],
     (1, 16, 192, False),
     (1, 16, 32, False),
     (2, 40000, 128, False),
@@ -131,7 +131,7 @@ KERNEL_SHAPES = [
 def test_kernel_shape_check(B, H, hd, ok):
     """What the CUDA launch refuses beyond the wrapper's checks (the CPU
     plain version takes any head width, as repro's kernel does)."""
-    assert ops.HEAD_DIMS == (64, 80, 96, 128, 256)
+    assert ops.HEAD_DIMS == (64, 80, 96, 112, 128, 256)
     if ok:
         ops._check_kernel_shape(B, H, hd)
     else:
@@ -212,6 +212,9 @@ GPU_CASES = [
     (1, 100, 333, 8, 8, 80, torch.bfloat16, True, None, 2e-2),
     # serve_adaptive's prefill: 16 tokens, under one query tile
     (1, 16, 16, 32, 32, 80, torch.bfloat16, True, None, 2e-2),
+    # kimi-k2's hd 112 (64 heads over 8) on both routes
+    (1, 200, 200, 16, 2, 112, torch.bfloat16, True, None, 2e-2),
+    (1, 100, 200, 8, 1, 112, torch.float32, True, None, 2e-5),
     # hd 256: gemma3-12b's local (window 1024, cut on both sides at T 1536)
     # and global layers, 16 heads over 8; the fma route in fp32
     (1, 1536, 1536, 16, 8, 256, torch.bfloat16, True, 1024, 2e-2),

@@ -43,8 +43,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     fabric = ("messages", "protocols", "barrier", "coordinator", "transport", "worker")
     for mod in ("runtime.fabric", *(f"runtime.fabric.{m}" for m in fabric), "launch.fabric_worker"):
         assert f"repro_torch.{mod}" in mods, mod
-    archs = ("qwen1_5_4b", "qwen2_5_14b", "internlm2_20b", "gemma3_12b", "mamba2_780m")
-    for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs)):
+    archs = ("qwen1_5_4b", "qwen2_5_14b", "internlm2_20b", "gemma3_12b", "mamba2_780m",
+             "jamba_v0_1_52b", "kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
+    for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs), "models.moe", "optim.adafactor"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"

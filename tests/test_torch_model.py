@@ -193,14 +193,14 @@ def test_cast_for_serving_keeps_norms_and_biases_in_param_dtype():
 UNPORTED = [
     # (call, family, message): each family raises on each path it lacks
     ("init_params", "encdec", "ROADMAP"),
-    ("init_params", "moe", "MoE"),
-    ("init_cache", "moe", "MoE"),
-    ("init_cache", "hybrid", "Mamba2"),
-    ("prefill_with_cache", "hybrid", "Mamba2"),
-    ("decode_fn", "hybrid", "Mamba2"),
-    ("loss_fn", "moe", "MoE"),
-    ("loss_fn", "hybrid", "hybrid"),
-    ("decoder_forward", "hybrid", "hybrid"),
+    ("init_params", "vlm", "vision-language"),
+    ("init_cache", "audio", "encoder-decoder"),
+    ("init_cache", "vlm", "vision-language"),
+    ("prefill_with_cache", "encdec", "item 9"),
+    ("decode_fn", "audio", "item 9"),
+    ("loss_fn", "vlm", "vision-language"),
+    ("loss_fn", "encdec", "encoder-decoder"),
+    ("decoder_forward", "audio", "encoder-decoder"),
 ]
 
 
@@ -258,5 +258,5 @@ def test_param_count_of_gpt_2_7b_and_unported_family():
     # ~2.65 B parameters: 32 layers of ~78.7 M plus the tied 50 257 x 2560 table
     n = param_count(GPT_CONFIGS["GPT-2.7B"])
     assert 2.6e9 < n < 2.7e9
-    with pytest.raises(NotImplementedError, match="MoE"):
-        param_count(GPT_CONFIGS["GPT-2.7B"].replace(family="moe"))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        param_count(GPT_CONFIGS["GPT-2.7B"].replace(family="vlm"))

@@ -178,6 +178,8 @@ ROUTES = [
     ("mamba2-smoke_bf16", _BF16, _BF16, 32, 32, 8, "fma"),
     ("mamba2-smoke_fp32", _F32, _F32, 32, 32, 8, "fma"),
     ("ssd_cases_3", _BF16, _F32, 16, 8, 8, "fma"),
+    ("jamba_bf16", _BF16, _BF16, 64, 16, 64, "mma"),
+    ("jamba_fp32", _F32, _F32, 64, 16, 64, "fma"),
 ]
 
 
@@ -203,8 +205,9 @@ def _conv_views(B=2, T=64, H=48, P=64, N=128, width=None, offset=0):
 
 
 def test_mamba_layout_meets_the_cp_async_alignment():
-    for name, t in _conv_views().items():
-        check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+    for kw in ({}, dict(H=128, N=16)):  # mamba2-780m's layout, jamba's (d_state 16)
+        for name, t in _conv_views(**kw).items():
+            check_cp_async(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
 
 
 MISALIGNED = [
@@ -291,6 +294,9 @@ GPU_CASES = [
     (2, 128, 8, 64, 128, 64, torch.bfloat16, torch.bfloat16, 3.9e-3),
     (2, 64, 4, 64, 128, 32, torch.bfloat16, torch.bfloat16, 3.9e-3),
     (1, 128, 4, 64, 128, 64, torch.bfloat16, torch.float32, 3.9e-3),
+    # jamba-v0.1-52b's Mamba layers: (P 64, N 16, Q 64) on both routes
+    (1, 256, 8, 64, 16, 64, torch.bfloat16, torch.bfloat16, 3.9e-3),
+    (1, 128, 4, 64, 16, 64, torch.float32, torch.float32, 2e-5),
 ]
 
 
