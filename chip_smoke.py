@@ -25,9 +25,13 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 on fp32 (the fma route) and fp16; the MoE and hybrid archs:
                 kimi-k2's GQA 64 over 8 at hd 112 (T 512, and T 2048 for
                 train-moe), hd 112 on fp32 (the fma route), jamba's 32 over
-                8 at hd 128 (T 512); K2 at jamba's (P 64, N 16, Q 64) with
-                128 heads (T 2048, and fp32); the build logs each kernel's
-                registers and spill bytes (nvcc -Xptxas -v)
+                8 at hd 128 (T 512); the encoder-decoder and VLM archs:
+                seamless-m4t-medium's bidirectional encoder (B 4 x T 128,
+                16 heads of 64), causal decoder (T 1024) and cross attention
+                (T 1024 over S 128, not causal), qwen2-vl-2b's GQA 12 over
+                2 at hd 128 (B 2 x T 2048); K2 at jamba's (P 64, N 16, Q
+                64) with 128 heads (T 2048, and fp32); the build logs each
+                kernel's registers and spill bytes (nvcc -Xptxas -v)
 4. model        a 2-layer, full-width GPT-2.7B: prefill + 4 decode steps
                 through K1 and through the plain attention; logits and greedy
                 tokens agree; each layer's K1 output in the prefill, at every
@@ -144,6 +148,39 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 under 1.5 x that of K2's sound peer, the plain SSD forward in
                 TF32, and a planted fault failing it; the MoE routing of the
                 other runs pinned to K2's, the moved top-k choices printed)
+7e. model-encdec-vlm
+                seamless-m4t-medium and qwen2-vl-2b at full size (bf16,
+                seed 0): a forward of B 2 x T 512 target tokens over 64
+                source frames (seamless), and of 512 patch embeddings at
+                three M-RoPE position streams (qwen2-vl: a 16 x 16 image
+                grid, then text), through K1 and through the plain
+                attention, both held to an fp32 run of the same weights
+                (K1's largest logit error at most MODEL_ORACLE_FACTOR x the
+                plain bf16 run's, over every position); K1 once per encoder,
+                decoder and cross attention layer (12 + 12 + 12; 28); each
+                layer's K1 output held to the plain version with the
+                planted faults rejected, as in ``model``; then
+                MODEL_ENCDEC_VLM_DECODE tokens stepped through
+                ``api.decode_fn`` (seamless against the memory of
+                ``_encode(src)``, qwen2-vl over token embeddings at equal
+                streams) held to the teacher-forced forward under the same
+                gate, greedy tokens equal (or a top-2 gap under MODEL_TOL);
+                decode launches no K1
+7f. train-encdec-vlm
+                ``launch.train.train`` at full size and depth, AdamW at lr
+                1e-4, 4 steps and 2 traced: seamless-m4t-medium (b 4 x T
+                1024 over 128 frames) and qwen2-vl-2b (b 2 x T 2048);
+                finite losses and clip norms, the first batch's loss lower
+                after the steps than before them (the steps' own losses,
+                each on its own batch, part by more than 3 updates at lr
+                1e-4 move them), every leaf changed, K1 = layers x
+                micro-batches x steps by kind
+                (encoder, decoder, cross); then the checkpoint check:
+                qwen2-vl-2b at full width cut to CKPT_CHECK's depth trained
+                4 steps with ``--ckpt-every 2``, its last checkpoint
+                removed, and the run resumed from step 2: the resumed
+                losses and final parameter norm equal the unbroken run's,
+                bitwise
 8. pipeline-model
                 a 4-layer, full-width GPT-2.7B in S=2 stages, M=4 micro-batches
                 of 1 x 512 tokens: the reference pipeline engine's loss and
@@ -285,8 +322,9 @@ The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
 ranks, the fabric in one process and across two, the dense archs'
-model check, serving and training, and the MoE and hybrid archs', each at
-its own shape; K2's per main path: train and train-moe);
+model check, serving and training, the MoE and hybrid archs', and the
+encoder-decoder and VLM archs' model check and training, each at its own
+shape; K2's per main path: train and train-moe);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -310,7 +348,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "kernels", "model", "model-dense", "train-model", "serve", "serve-adaptive", "serve-ssm",
-    "serve-dense", "train", "train-dense", "model-moe", "serve-moe", "train-moe", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
+    "serve-dense", "train", "train-dense", "model-moe", "serve-moe", "train-moe", "model-encdec-vlm",
+    "train-encdec-vlm", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
     "adaptive-ranks", "fabric", "fabric-tcp",
 )
 
@@ -396,6 +435,14 @@ FLASH_CASES = [
     ("kimi-k2_train_t2048", 1, 2048, 2048, 64, 8, 112, torch.bfloat16, True, None),
     ("fp32_hd112", 1, 200, 200, 8, 1, 112, torch.float32, True, None),
     ("jamba_gqa_t512", 1, 512, 512, 32, 8, 128, torch.bfloat16, True, None),
+    # the encoder-decoder and VLM archs at their train-encdec-vlm shapes:
+    # seamless-m4t-medium's bidirectional encoder (128 frames), causal
+    # decoder and cross attention (1024 queries over 128 frames, not
+    # causal), all 16 heads of 64; qwen2-vl-2b's GQA 12 over 2 (r = 6) at hd 128
+    ("seamless_enc_b4_t128", 4, 128, 128, 16, 16, 64, torch.bfloat16, False, None),
+    ("seamless_dec_b4_t1024", 4, 1024, 1024, 16, 16, 64, torch.bfloat16, True, None),
+    ("seamless_cross_b4_t1024_s128", 4, 1024, 128, 16, 16, 64, torch.bfloat16, False, None),
+    ("qwen2-vl_gqa6_b2_t2048", 2, 2048, 2048, 12, 2, 128, torch.bfloat16, True, None),
 ]
 TIMED_CASE = "gpt2.7b_t512"
 #: the serve-adaptive phase's GPT-2.7B, at full width cut to 16 of its 32
@@ -414,12 +461,14 @@ PATH_CASES = {
     "model-dense": "gemma3-12b_local_t1536", "serve-dense": "qwen2.5-14b_gqa_b2_t512",
     "train-dense": "gemma3-12b_train_t2048",
     "model-moe": "kimi-k2_gqa_t512", "serve-moe": "kimi-k2_gqa_t512", "train-moe": "kimi-k2_train_t2048",
+    "model-encdec-vlm": "seamless_cross_b4_t1024_s128", "train-encdec-vlm": "qwen2-vl_gqa6_b2_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
     "gpt2.7b_t16", "gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024",
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
     "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
+    "seamless_enc_b4_t128", "seamless_dec_b4_t1024", "seamless_cross_b4_t1024_s128", "qwen2-vl_gqa6_b2_t2048",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -590,6 +639,25 @@ SERVE_MOE_HEADROOM = 3 * 2**29
 #: layers with 384 -> 16 experts, top-8 kept (3.37 B, Adafactor)
 TRAIN_MOE = (("jamba-v0.1-52b", 5, 4, 1, 2048), ("kimi-k2-1t-a32b", 2, 16, 1, 2048))
 TRAIN_MOE_ARGS = dict(steps=4, lr=1e-4, warmup=1, seed=0)
+
+#: model-encdec-vlm: (arch, batch, target tokens) at full size; seamless's
+#: source is T / 8 frames, as repro's input specs give it
+MODEL_ENCDEC_VLM = (("seamless-m4t-medium", 2, 512), ("qwen2-vl-2b", 2, 512))
+#: model-encdec-vlm: tokens stepped through decode_fn from an empty cache
+#: (neither family has a fused prefill) and held to the teacher-forced
+#: forward: a prompt, then MODEL_DECODE_STEPS more
+MODEL_ENCDEC_VLM_DECODE = 12 + MODEL_DECODE_STEPS
+#: model-encdec-vlm: qwen2-vl's image, a grid of this many patches a side
+#: at temporal position 0; the text after it continues from the grid's side
+VLM_GRID = 16
+
+#: train-encdec-vlm: (arch, batch, seq, micro-batches) at full size and depth
+TRAIN_ENCDEC_VLM = (("seamless-m4t-medium", 4, 1024, 1), ("qwen2-vl-2b", 2, 2048, 1))
+TRAIN_ENCDEC_VLM_ARGS = dict(steps=4, lr=1e-4, warmup=1, seed=0)
+#: train-encdec-vlm's checkpoint check: qwen2-vl-2b at full width cut to one
+#: layer (its 233 M-parameter embedding is most of the 3.5 GB a checkpoint
+#: writes), b 1 x T 256, 4 steps, a checkpoint every 2
+CKPT_CHECK = dict(arch="qwen2-vl-2b", layers=1, batch=1, seq=256, steps=4, every=2)
 
 ADAPTIVE_ARGS = dict(gpt="GPT-2.7B", seq_len=1024, seed=0)
 ADAPTIVE_ITERATIONS = 14
@@ -1008,6 +1076,25 @@ def phase_model() -> None:
     _model_check(GPT_CONFIGS["GPT-2.7B"].replace(num_layers=2), 512)
 
 
+def _oracle_errors(kern, plain, truth) -> tuple[bool, float, float]:
+    """(within the model-dense gate, K1's and the plain bf16 run's largest
+    logit error against the fp32 run)."""
+    err_k, err_p = float((kern - truth).abs().max()), float((plain - truth).abs().max())
+    return err_k <= max(MODEL_ORACLE_FACTOR * err_p, MODEL_TOL), err_k, err_p
+
+
+def _greedy_gate(got, truth, what: str) -> int:
+    """Greedy tokens of ``got`` [..., V] against ``truth``'s at every
+    position: equal, or ``truth``'s top-2 gap under MODEL_TOL; returns the
+    disagreements within that gap."""
+    top2 = truth.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = got.argmax(-1) != truth.argmax(-1)
+    if bool((differ & (gap >= MODEL_TOL)).any()):
+        raise AssertionError(f"{what}: greedy tokens differ where the top-2 gap is >= {MODEL_TOL}")
+    return int(differ.sum())
+
+
 def _model_check(cfg, prompt_len: int, oracle: bool = False, moe_gate: bool = False) -> int:
     """``cfg`` served through K1 and through the plain attention: a prefill
     of ``prompt_len`` tokens, then MODEL_DECODE_STEPS greedy decode steps
@@ -1099,16 +1186,13 @@ def _model_check(cfg, prompt_len: int, oracle: bool = False, moe_gate: bool = Fa
             ok = torch.allclose(a, b, atol=MODEL_TOL, rtol=MODEL_TOL)
             what += f" (atol=rtol={MODEL_TOL})"
         else:
-            err_k, err_p = float((a - t).abs().max()), float((b - t).abs().max())
-            ok = err_k <= max(MODEL_ORACLE_FACTOR * err_p, MODEL_TOL)
+            ok, err_k, err_p = _oracle_errors(a, b, t)
             what += (f"; against fp32: K1 {err_k:.3e}, plain bf16 {err_p:.3e} "
                      f"(K1 <= max({MODEL_ORACLE_FACTOR:g} x plain, {MODEL_TOL}))")
         log(f"{what}, greedy {ta} vs {tb}, top-2 gap {gap:.3e}")
         if not ok:
             raise AssertionError(f"kernel and plain logits disagree at step {i}")
-        if ta != tb:
-            if gap >= MODEL_TOL:
-                raise AssertionError(f"greedy tokens differ at step {i} with gap {gap}")
+        if _greedy_gate(a, b, f"model step {i}"):
             log(f"  greedy disagreement at step {i} within tolerance (gap {gap:.3e})")
     _layer_gate(calls, flash)
     if moe_gate:
@@ -1669,7 +1753,7 @@ def phase_train_dense() -> int:
             profile=True, **TRAIN_DENSE_ARGS,
         )
         n0 = ops.launches
-        s = train.train(args, num_layers=layers)
+        s = train.train(args, num_layers=layers)[0]  # the state dropped at once
         n = ops.launches - n0
         launches += n
         want = layers * M * s["steps"]
@@ -1778,7 +1862,7 @@ def phase_train_moe() -> dict:
             profile=True, **TRAIN_MOE_ARGS,
         )
         f0, s0 = flash_ops.launches, ssd_ops.launches
-        s = train.train(args, num_layers=layers, num_experts=experts)
+        s = train.train(args, num_layers=layers, num_experts=experts)[0]
         nf, ns = flash_ops.launches - f0, ssd_ops.launches - s0
         launches["flash"] += nf
         launches["ssd"] += ns
@@ -1812,6 +1896,229 @@ def phase_train_moe() -> dict:
         del s
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
+
+
+def _three_ways(cfg, params, batch):
+    """Logits [B, T, V] through K1, through the plain attention, and in fp32
+    through the plain attention on the same (bf16-rounded) weights; K1's
+    calls captured for the layer gate.  Returns (kern, plain, truth, calls,
+    K1 launches by kind)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    from repro_torch.tree import tree_map
+
+    flash, calls = ops.flash_attention_train, []
+
+    def capture(q, k, v, causal=True, window=None):  # each layer's K1 call of the forward
+        out = flash(q, k, v, causal=causal, window=window)
+        calls.append((q, k, v, causal, window, out))
+        return out
+
+    k0 = dict(attn.k1_launches)
+    with torch.no_grad():
+        with mock.patch.object(ops, "flash_attention_train", capture):
+            kern = api.forward_fn(params, cfg, batch)[0].float()
+        by_kind = {k: attn.k1_launches[k] - k0[k] for k in k0}
+        plain = api.forward_fn(params, cfg, batch, plain_attention=True)[0].float()
+        params32 = tree_map(lambda t: t.float(), params)
+        truth = api.forward_fn(params32, cfg.replace(dtype=torch.float32), batch, plain_attention=True)[0].float()
+        del params32
+    torch.cuda.synchronize()
+    return kern, plain, truth, calls, by_kind
+
+
+def phase_model_encdec_vlm() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import encoder_config, layer_specs
+
+    launches, P = 0, MODEL_ENCDEC_VLM_DECODE
+    for arch, B, T in MODEL_ENCDEC_VLM:
+        cfg = get_arch(arch).model
+        params = api.init_serving_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
+        encdec = cfg.family == "encdec"
+        want = {"decoder": cfg.num_layers, "encoder": 0, "cross": 0}
+        if encdec:
+            src = 0.02 * torch.randn((B, max(T // 8, 1), cfg.d_model), generator=g, device="cuda")
+            batch = {"src_embeds": src, "tgt_tokens": tokens}
+            want.update(encoder=len(layer_specs(encoder_config(cfg), cfg.encoder_layers)), cross=cfg.num_layers)
+            what = f"{T} target tokens over {src.shape[1]} source frames"
+        else:  # patch embeddings: a VLM_GRID x VLM_GRID image at t = 0, then text on all three streams
+            n_img = VLM_GRID * VLM_GRID
+            i = torch.arange(T, device="cuda")
+            img = torch.stack([torch.zeros_like(i), i // VLM_GRID, i % VLM_GRID])
+            pos = torch.where(i < n_img, img, (i - n_img + VLM_GRID).expand(3, T))
+            batch = {
+                "embeds": 0.02 * torch.randn((B, T, cfg.d_model), generator=g, device="cuda"),
+                "mrope_positions": pos[:, None, :].expand(3, B, T),
+            }
+            what = f"{T} patch embeddings ({n_img} image patches on a {VLM_GRID} x {VLM_GRID} grid, then text)"
+        n0 = ops.launches
+        kern, plain, truth, calls, by_kind = _three_ways(cfg, params, batch)
+        n = ops.launches - n0
+        ok, err_k, err_p = _oracle_errors(kern, plain, truth)
+        log(f"model-encdec-vlm {arch} (d_model {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} at hd "
+            f"{cfg.hd}, {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers), B {B} x {what}: K1 launches "
+            f"{n} ({', '.join(f'{k} {v}' for k, v in by_kind.items())}); logits against fp32 over every position: "
+            f"K1 {err_k:.3e}, plain bf16 {err_p:.3e} (K1 <= max({MODEL_ORACLE_FACTOR:g} x plain, {MODEL_TOL}))")
+        if by_kind != want or n != sum(want.values()) or len(calls) != n:
+            raise AssertionError(f"{arch}: K1 ran {by_kind}, the forward has {want} attention layers")
+        if not (ok and torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+            raise AssertionError(f"{arch}: K1 and plain logits disagree")
+        _layer_gate(calls, ops.flash_attention)
+        launches += n
+        del kern, plain, truth, calls
+        # decode: P tokens stepped from an empty cache against the teacher-forced forward
+        toks = tokens[:, :P]
+        if encdec:
+            n0 = ops.launches
+            with torch.no_grad():
+                memory = tf._encode(params, cfg, src)
+            n_enc = ops.launches - n0
+            if n_enc != want["encoder"]:
+                raise AssertionError(f"{arch}: the encoder ran K1 {n_enc} times, not {want['encoder']}")
+            launches += n_enc
+            tf_batch = {"src_embeds": src, "tgt_tokens": toks}
+        else:
+            memory = None
+            tf_batch = {
+                "embeds": tf.embed(params["embed"], toks, cfg).float(),
+                "mrope_positions": torch.arange(P, device="cuda").expand(3, B, P),
+            }
+        n0 = ops.launches
+        kern, plain, truth, _, by_kind = _three_ways(cfg, params, tf_batch)
+        n = ops.launches - n0
+        if by_kind != want or n != sum(want.values()):
+            raise AssertionError(f"{arch}: the teacher-forced forward ran K1 {by_kind}, it has {want} attention layers")
+        launches += n
+        cache = api.init_cache(cfg, B, P, device="cuda")
+        steps, n0 = [], ops.launches
+        with torch.no_grad():
+            for t in range(P):
+                b = {"tokens": toks[:, t : t + 1]}
+                if encdec:
+                    b["memory"] = memory
+                logits, cache = api.decode_fn(params, cfg, cache, t, b)
+                steps.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        if ops.launches != n0:
+            raise AssertionError(f"{arch}: decode launched K1 {ops.launches - n0} times")
+        step = torch.stack(steps, dim=1)
+        ok_k, err_k, err_p = _oracle_errors(kern, plain, truth)
+        ok_s, err_s, _ = _oracle_errors(step, plain, truth)
+        flips = _greedy_gate(step, truth, f"{arch} decode") + _greedy_gate(kern, truth, f"{arch} teacher-forced K1")
+        log(f"  decode: {P} tokens stepped through decode_fn (K1 none) against the teacher-forced forward, "
+            f"logits against fp32: stepping {err_s:.3e}, K1 forward {err_k:.3e}, plain bf16 forward {err_p:.3e} "
+            f"(each <= max({MODEL_ORACLE_FACTOR:g} x plain, {MODEL_TOL})); greedy disagreements within the top-2 "
+            f"gap {flips}")
+        if not (ok_k and ok_s and torch.isfinite(step).all()):
+            raise AssertionError(f"{arch}: decode stepping disagrees with the teacher-forced forward")
+        del params, kern, plain, truth, step, steps, cache, memory
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _ckpt_check() -> None:
+    """CKPT_CHECK's arch trained ``steps`` steps with a checkpoint every
+    ``every``; its last checkpoint removed; the run again from the same
+    directory, which resumes at the one before: its losses and final
+    parameter norm equal the unbroken run's, bitwise."""
+    from repro_torch.launch import train
+
+    c = CKPT_CHECK
+    d = tempfile.mkdtemp(prefix="ckpt_check_")
+    try:
+        args = argparse.Namespace(
+            arch=c["arch"], smoke=False, batch=c["batch"], seq=c["seq"], microbatches=1, device="cuda",
+            log_every=c["steps"], profile=False, ckpt_dir=d, ckpt_every=c["every"], steps=c["steps"],
+            **{k: v for k, v in TRAIN_ENCDEC_VLM_ARGS.items() if k != "steps"},
+        )
+        t = time.perf_counter()
+        a = train.train(args, num_layers=c["layers"])[0]
+        t_a = time.perf_counter() - t
+        saved = sorted(os.listdir(d))
+        nbytes = sum(os.path.getsize(os.path.join(d, s, f)) for s in saved for f in os.listdir(os.path.join(d, s)))
+        shutil.rmtree(os.path.join(d, f"step_{c['steps']}"))
+        t = time.perf_counter()
+        b = train.train(args, num_layers=c["layers"])[0]
+        t_b = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    k = c["every"]
+    log(f"  checkpoint check: {c['arch']} at {c['layers']} layer(s), {a['param_count']:,} parameters, b "
+        f"{c['batch']} x T {c['seq']}: {c['steps']} steps saving {saved} ({nbytes / 2**30:.2f} GiB) in {t_a:.1f} s; "
+        f"resumed from step {b['resumed_from']} in {t_b:.1f} s: losses {b['losses']} against {a['losses'][k:]}, "
+        f"parameter norm {b['param_norm'][1]!r} against {a['param_norm'][1]!r}")
+    if b["resumed_from"] != k or b["losses"] != a["losses"][k:] or b["param_norm"][1] != a["param_norm"][1]:
+        raise AssertionError("the resumed run parts from the unbroken one")
+
+
+def phase_train_encdec_vlm() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.common import encoder_config, layer_specs
+
+    launches = 0
+    for arch, batch, seq, M in TRAIN_ENCDEC_VLM:
+        cfg = get_arch(arch).model
+        args = argparse.Namespace(
+            arch=arch, smoke=False, batch=batch, seq=seq, microbatches=M, device="cuda", log_every=1,
+            profile=True, **TRAIN_ENCDEC_VLM_ARGS,
+        )
+        n0 = ops.launches
+        s, state = train.train(args)
+        with torch.no_grad():  # the first batch's loss after the steps and the two traced ones
+            first = train._batch_dict(cfg, train.dataset(cfg, args).batch_at(0, "cuda"))
+            held = [s["losses"][0], float(api.loss_fn(state.params, cfg, first)[0])]
+        del state, first
+        n = ops.launches - n0
+        launches += n
+        steps, p = s["steps"], s["profile"]
+        per = {"decoder": cfg.num_layers, "encoder": 0, "cross": 0}
+        if cfg.family == "encdec":
+            per.update(encoder=len(layer_specs(encoder_config(cfg), cfg.encoder_layers)), cross=cfg.num_layers)
+        want = {k: v * M * steps for k, v in per.items()}
+        got = {k: s[f"flash_launches_{k}"] for k in per}
+        log(f"train-encdec-vlm {arch} ({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, d_model "
+            f"{s['d_model']}, {s['param_count']:,} parameters, {s['optimizer']}): {steps} steps of {batch} x {seq} in "
+            f"M={M}; losses {[round(v, 4) for v in s['losses']]}; step p50 {s['step_ms_p50']:.1f} ms (first "
+            f"{s['step_ms'][0]:.1f} ms), {s['tokens_per_second']:,.0f} tokens/s, max_memory_allocated "
+            f"{s['max_memory_allocated'] / 2**30:.2f} GiB")
+        log(f"  the first batch's loss before the steps (the first step's) and after them and the two traced "
+            f"steps {held[0]!r} -> {held[1]!r}")
+        log(f"  parameter norm {s['param_norm'][0]!r} -> {s['param_norm'][1]!r}, {s['leaves_updated']} of "
+            f"{s['leaves']} leaves changed by the steps; grad norms {[round(v, 4) for v in s['grad_norms']]}")
+        log(f"  traced step: wall {p['wall_ms']:.1f} ms, device {p['device_ms']:.1f} ms (busy "
+            f"{100 * p['device_busy_share']:.1f}%), K1 {p['flash_ms']:.3f} ms")
+        for op in p["top"][:6]:
+            log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        log(f"  K1 launches {got} (layers x {M} micro-batches x {steps} steps: {want}), {n} with the traced steps "
+            f"and the forward of the first batch")
+        if got != want or s["flash_launches"] != sum(want.values()) or n != sum(per.values()) * (M * (steps + 2) + 1):
+            raise AssertionError(f"{arch}: K1 did not run once per attention layer per micro-batch")
+        if not all(math.isfinite(v) for v in s["losses"] + s["grad_norms"]):
+            raise AssertionError(f"{arch}: non-finite loss or clip norm")
+        if not held[1] < held[0]:
+            raise AssertionError(f"{arch}: the first batch's loss did not fall")
+        if s["leaves_updated"] != s["leaves"]:
+            raise AssertionError(f"{arch}: the steps left {s['leaves'] - s['leaves_updated']} parameter leaves as drawn")
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    _ckpt_check()
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2918,6 +3225,14 @@ def main(argv=None) -> int:
             if kernels:
                 kernels["flash"]["per_path"]["train-moe"]["launches"] = launches["flash"]
                 kernels["ssd"]["per_path"]["train-moe"]["launches"] = launches["ssd"]
+        elif name == "model-encdec-vlm":
+            launches = phase_model_encdec_vlm()
+            if kernels:
+                kernels["flash"]["per_path"]["model-encdec-vlm"]["launches"] = launches
+        elif name == "train-encdec-vlm":
+            launches = phase_train_encdec_vlm()
+            if kernels:
+                kernels["flash"]["per_path"]["train-encdec-vlm"]["launches"] = launches
         elif name == "pipeline-model":
             phase_pipeline_model()
         elif name == "pipeline":

@@ -18,6 +18,12 @@ and :func:`params_to_repro` stacks back, bitwise.  A hybrid's layers hold
 ``kv`` or ``ssm`` caches by kind (jamba's period-8 block mixes them), and
 :func:`cache_from_repro` carries each under its own key.
 
+An encoder-decoder's layers are unstacked lists in both packages
+(``encoder/<i>/...``, ``decoder/<i>/...`` with the decoder layers'
+``xattn`` and ``ln_x``, and ``enc_norm``), so its trees map key for key;
+its decode cache holds ``decoder/<i>/kv/...`` (the reference's ``xkv`` is
+``None``, which flattens to nothing, and the port has no such entry).
+
 A pipeline's parameters (``repro.pipeline.stage.StagedModel``) are stacked
 once more, over the ``V`` virtual stages: ``blocks/<j>/...`` leaves are
 ``[V, reps, ...]`` (layer ``j`` of the pattern in each repeat of each
@@ -94,8 +100,33 @@ def _layer_index(st, idx: int, block: int) -> int:
     return len(st.prefix) + block * len(st.pattern) + idx
 
 
+def _unflatten(flat: Mapping[str, np.ndarray], device) -> dict:
+    """The tree of ``/``-joined paths, a node whose keys are all indices a list."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        _set(tree, key.split("/"), _tensor(arr, device))
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            if sorted(map(int, node)) != list(range(len(node))):
+                raise ValueError(f"list entries {sorted(node)} are not 0..{len(node) - 1}")
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
 def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=None) -> dict:
     """The port's parameter tree from ``repro``'s flattened parameters."""
+    if cfg.family == "encdec":
+        tree = _unflatten(flat, device)
+        if len(tree["encoder"]) != cfg.encoder_layers or len(tree["decoder"]) != cfg.num_layers:
+            raise ValueError(f"{len(tree['encoder'])} encoder and {len(tree['decoder'])} decoder layers, "
+                             f"the config has {cfg.encoder_layers} and {cfg.num_layers}")
+        return tree
     st = structure(cfg)
     tree: dict = {}
     layers: dict[int, dict] = {}
@@ -123,6 +154,8 @@ def params_from_repro(flat: Mapping[str, np.ndarray], cfg: ModelConfig, device=N
 def params_to_repro(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
     """``repro``'s flattened parameters from the port's tree (the inverse of
     :func:`params_from_repro`; leaves in float32/float16)."""
+    if cfg.family == "encdec":
+        return {key: t.detach().cpu().numpy() for key, t in flatten(params).items()}
     st = structure(cfg)
     out: dict[str, np.ndarray] = {}
     for key, t in flatten({k: v for k, v in params.items() if k != "layers"}).items():
@@ -152,7 +185,10 @@ def cache_from_repro(
     1, L, K, hd]`` (prefix: ``[max_slots, 1, L, K, hd]``).  Either way the
     port's layer ``i`` holds ``{"kv": {"k", "v"}}`` of shape ``[B or
     max_slots, L, K, hd]`` (a Mamba2 layer ``{"ssm": {"state", "conv"}}``,
-    in the same rows)."""
+    in the same rows).  An encoder-decoder's cache (``api.init_cache``'s,
+    leaves ``decoder/<i>/kv/k`` of shape ``[B, L, K, hd]``) maps key for key."""
+    if cfg.family == "encdec":
+        return _unflatten(flat, device)
     st = structure(cfg)
     layers: dict[int, dict] = {}
     for key, arr in flat.items():

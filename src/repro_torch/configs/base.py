@@ -3,10 +3,7 @@
 Port of ``repro/configs/base.py``.  Every ported architecture registers one
 :class:`ArchSpec`; the launchers go through ``get_arch(arch_id)`` /
 ``list_archs()``.  ``ALL_ARCH_IDS`` keeps the reference's ten ids in its
-order.  The port's :class:`~repro_torch.models.common.ModelConfig` has no
-encoder-decoder or multimodal fields yet, so ``get_arch`` of those
-architectures raises ``NotImplementedError`` naming the ROADMAP item that
-brings them (:data:`UNPORTED`).
+order, and ``get_arch`` builds every one of them.
 """
 
 from __future__ import annotations
@@ -24,8 +21,6 @@ __all__ = [
     "get_arch",
     "list_archs",
     "ALL_ARCH_IDS",
-    "UNPORTED",
-    "PORTED_ARCH_IDS",
 ]
 
 
@@ -83,16 +78,6 @@ ALL_ARCH_IDS = [
     "mamba2-780m",
 ]
 
-#: the architectures whose families the port does not build yet, and the
-#: ROADMAP.md queue-1 item that brings each
-UNPORTED = {
-    "seamless-m4t-medium": "item 9 (the encoder-decoder family)",
-    "qwen2-vl-2b": "item 9 (the vision-language family)",
-}
-
-#: the ids ``get_arch`` builds, in ``ALL_ARCH_IDS``' order
-PORTED_ARCH_IDS = [a for a in ALL_ARCH_IDS if a not in UNPORTED]
-
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ALL_ARCH_IDS}
 
 
@@ -106,10 +91,6 @@ def get_arch(arch_id: str) -> ArchSpec:
         mod = _MODULE_FOR.get(arch_id)
         if mod is None:
             raise KeyError(f"unknown arch {arch_id!r}; known: {ALL_ARCH_IDS}")
-        if arch_id in UNPORTED:
-            raise NotImplementedError(
-                f"arch {arch_id!r} is not ported yet: it comes with ROADMAP.md queue 1, {UNPORTED[arch_id]}"
-            )
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[arch_id]
 

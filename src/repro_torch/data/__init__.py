@@ -1,5 +1,5 @@
-"""Synthetic data (port of ``repro.data``, text only)."""
+"""Synthetic data (port of ``repro.data``)."""
 
-from repro_torch.data.synthetic import Batch, SyntheticTextDataset
+from repro_torch.data.synthetic import Batch, SyntheticTextDataset, microbatch_split
 
-__all__ = ["Batch", "SyntheticTextDataset"]
+__all__ = ["Batch", "SyntheticTextDataset", "microbatch_split"]

@@ -58,7 +58,7 @@ import weakref
 
 import torch
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_arch
+from repro_torch.configs.base import ALL_ARCH_IDS, get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core import (
     AutoTuner,
@@ -125,7 +125,7 @@ ENGINE_ARGS = dict(num_stages=4, max_slots=8, max_len=80)
 TINY = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320, vocab_size=512)
 #: the names the serving entry points take: the Table-1 GPTs and every arch
 #: id the port builds
-CONFIG_NAMES = (*GPT_CONFIGS, *PORTED_ARCH_IDS)
+CONFIG_NAMES = (*GPT_CONFIGS, *ALL_ARCH_IDS)
 
 
 def build_config(name: str, tiny: bool = False) -> ModelConfig:

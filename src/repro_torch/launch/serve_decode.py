@@ -19,7 +19,9 @@ Usage:
       [--max-len 576] [--seed 0] [--device cuda] [--out summary.json]
 
 ``--config`` takes a Table-1 GPT or any arch id of the registry
-(``configs.base.PORTED_ARCH_IDS``, the MoE and hybrid archs included).
+(``configs.base.ALL_ARCH_IDS``, the MoE and hybrid archs included; the
+encoder-decoder and vision-language archs raise ``NotImplementedError``,
+as the reference's serve engine does).
 ``--tiny`` swaps in a narrow 2-layer variant of the configuration (an arch
 id's smoke config) for a quick CPU run (``--device cpu``).  Without
 ``--device`` the run needs a CUDA card and fails if there is none.

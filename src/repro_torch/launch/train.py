@@ -3,17 +3,25 @@
 
 Two modes, as in the reference:
 
-* ``--mode spmd`` (default) trains ``--arch``, any architecture the arch
-  registry builds (``configs.base.PORTED_ARCH_IDS``: kimi-k2-1t-a32b,
-  llama4-maverick-400b-a17b, qwen2.5-14b, internlm2-20b, gemma3-12b,
-  jamba-v0.1-52b, qwen1.5-4b and mamba2-780m, the default), with the
-  optimizer its ``ArchSpec`` names (Adafactor for kimi-k2 and llama4, in
-  the reference's stacked layout; AdamW for the rest): a train step that
-  averages the loss and the gradients over ``--microbatches`` micro-batches
-  on one device (the reference's pjit data/tensor-parallel step comes with
-  ROADMAP queue 1, item 9).  Every attention layer's forward runs the flash
-  kernel K1 on the card, every Mamba2 layer's the chunked SSD scan in
-  kernel K2.
+* ``--mode spmd`` (default) trains ``--arch``, any architecture of the
+  registry (``configs.base.ALL_ARCH_IDS``: kimi-k2-1t-a32b,
+  llama4-maverick-400b-a17b, seamless-m4t-medium, qwen2.5-14b,
+  internlm2-20b, gemma3-12b, qwen2-vl-2b, jamba-v0.1-52b, qwen1.5-4b and
+  mamba2-780m, the default), with the optimizer its ``ArchSpec`` names
+  (Adafactor for kimi-k2 and llama4, in the reference's stacked layout;
+  AdamW for the rest): a train step that averages the loss and the
+  gradients over ``--microbatches`` micro-batches on one device (the
+  reference's pjit data/tensor-parallel step comes with ROADMAP queue 1,
+  item 9).  Every full-sequence attention's forward runs the flash kernel
+  K1 on the card (an encoder's bidirectional self-attention and the
+  decoder's cross attention included), every Mamba2 layer's the chunked
+  SSD scan in kernel K2.  The batch is built as the reference's
+  ``_batch_dict`` builds it: the encoder-decoder's ``src_embeds`` are the
+  dataset's frame embeddings (``max(seq // 8, 1)`` of them), the VLM's
+  ``embeds`` its patch embeddings (``seq`` of them) with three equal
+  M-RoPE position streams.  ``--ckpt-dir`` resumes from the latest
+  checkpoint there (``checkpoint/io.py``) and saves every
+  ``--ckpt-every`` steps and at the end, as the reference does.
 * ``--mode pipeline`` trains a Table-1 GPT cut into ``--stages`` stages
   under a kFkB plan of group size ``--k``, as the reference's
   ``run_pipeline`` runs ``make_pipeline_step``: one process per stage
@@ -36,6 +44,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m|qwen1.5-4b|... \\
       [--smoke] [--steps 100] [--batch 8] [--seq 128] [--microbatches 1] \\
       [--lr 3e-4] [--warmup 20] [--seed 0] [--log-every 10] \\
+      [--ckpt-dir DIR] [--ckpt-every 0] \\
       [--device cuda] [--profile] [--out summary.json]
   PYTHONPATH=src python -m repro_torch.launch.train --mode pipeline \\
       --gpt GPT-Medium --layers 8 --stages 4 --k 2 --steps 20 --batch 8 \\
@@ -45,8 +54,8 @@ Usage:
 CPU (the pipeline ranks under gloo); without ``--device`` the run needs a
 CUDA card and fails if there is none.  ``--profile`` traces one more step
 with ``torch.profiler`` after the run (under ``--mode pipeline``, rank 0's
-share of it).  The reference's
-checkpoint flags and its auto-tuner come with their slices.
+share of it).  The reference's auto-tuner in ``--mode pipeline`` comes
+with its slice.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ import time
 
 import torch
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_arch
+from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from repro_torch.configs.base import ALL_ARCH_IDS, get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core import ScheduleSpec, make_plan
 from repro_torch.data import SyntheticTextDataset
@@ -69,19 +79,21 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.profiling import device_profile
 from repro_torch.models import api
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, param_count
 from repro_torch.optim import linear_warmup_cosine, make_optimizer
 from repro_torch.pipeline import StagedModel, ranks
 from repro_torch.tree import flatten
 from repro_torch.training import (
+    TrainState,
     create_train_state,
     make_pipeline_train_step,
     make_train_step,
     pipeline_train_step,
 )
 
-__all__ = ["train", "run_pipeline", "main"]
+__all__ = ["train", "dataset", "run_pipeline", "main"]
 
 
 def _steady(xs: list) -> list:
@@ -103,6 +115,30 @@ def _profile(run, device: torch.device, kernels: dict) -> dict:
     return {"wall_ms": wall_ms, "device_busy_share": prof["device_ms"] / wall_ms, **prof}
 
 
+def _batch_dict(cfg: ModelConfig, batch) -> dict:
+    """The model API's batch from a dataset batch, as the reference's
+    ``_batch_dict``: zeros stand in for frontend embeddings the dataset did
+    not draw."""
+    B, T = batch.tokens.shape
+    dev = batch.tokens.device
+    if cfg.family == "encdec":
+        S = max(T // 8, 1)
+        return {
+            "src_embeds": (batch.embeds if batch.embeds is not None
+                           else torch.zeros((B, S, cfg.d_model), dtype=torch.float32, device=dev)),
+            "tgt_tokens": batch.tokens,
+            "labels": batch.labels,
+        }
+    if cfg.family == "vlm":
+        return {
+            "embeds": (batch.embeds if batch.embeds is not None
+                       else torch.zeros((B, T, cfg.d_model), dtype=torch.float32, device=dev)),
+            "labels": batch.labels,
+            "mrope_positions": torch.arange(T, dtype=torch.int32, device=dev).expand(3, B, T),
+        }
+    return {"tokens": batch.tokens, "labels": batch.labels}
+
+
 def _leaf_norms(params) -> list:
     """Each parameter leaf's L2 norm, summed in fp64 a slice at a time."""
     return [
@@ -111,10 +147,14 @@ def _leaf_norms(params) -> list:
     ]
 
 
-def train(args, num_layers: int | None = None, num_experts: int | None = None) -> dict:
+def train(args, num_layers: int | None = None, num_experts: int | None = None) -> tuple[dict, TrainState]:
     """``--mode spmd``'s run; ``num_layers`` cuts the config's depth and
     ``num_experts`` its expert count (top-k kept; a caller's, e.g. a smoke
-    run on one card; no flag sets them)."""
+    run on one card; no flag sets them).  Returns the run's summary and its
+    state at the end (updated in place by every step: with ``--profile``,
+    by the two traced steps too).  A run resumed at or past ``--steps``
+    takes no step and saves nothing: its summary has no losses and no step
+    times."""
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
@@ -129,23 +169,27 @@ def train(args, num_layers: int | None = None, num_experts: int | None = None) -
         layout=tf.reference_layout(cfg, params),
     )
     state = create_train_state(params, opt)
+    ckpt_dir, resumed_from = getattr(args, "ckpt_dir", None), None
+    if ckpt_dir and (resumed_from := latest_step(ckpt_dir)) is not None:
+        state = load_checkpoint(ckpt_dir, resumed_from, state)
+        print(f"resumed from step {resumed_from}", flush=True)
     step_fn = make_train_step(
         lambda p, b: api.loss_fn(p, cfg, b), opt, num_microbatches=args.microbatches
     )
-    ds = SyntheticTextDataset(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
+    ds = dataset(cfg, args)
     synchronize(device)
     setup = time.perf_counter() - t0
 
     def batch(i):
-        b = ds.batch_at(i, device)
-        return {"tokens": b.tokens, "labels": b.labels}
+        return _batch_dict(cfg, ds.batch_at(i, device))
 
+    first = state.step
     norms0 = _leaf_norms(state.params)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    launches0, flash0 = ssd_ops.launches, flash_ops.launches
+    launches0, flash0, k1_0 = ssd_ops.launches, flash_ops.launches, dict(attn.k1_launches)
     losses, grad_norms, lrs, step_seconds, aux = [], [], [], [], {"moe_load_balance": [], "moe_router_z": []}
-    for i in range(args.steps):
+    for i in range(first, args.steps):
         b = batch(i)
         synchronize(device)
         t = time.perf_counter()
@@ -161,7 +205,12 @@ def train(args, num_layers: int | None = None, num_experts: int | None = None) -
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {lrs[-1]:.2e}  "
                   f"grad_norm {grad_norms[-1]:.3e}  {1e3 * step_seconds[-1]:.1f} ms", flush=True)
+        if ckpt_dir and getattr(args, "ckpt_every", 0) and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(ckpt_dir, i + 1, state)
+    if ckpt_dir and step_seconds and latest_step(ckpt_dir) != args.steps:  # the reference saves the last step again
+        save_checkpoint(ckpt_dir, args.steps, state)
     launches, flash_launches = ssd_ops.launches - launches0, flash_ops.launches - flash0
+    k1 = {f"flash_launches_{k}": attn.k1_launches[k] - k1_0[k] for k in k1_0}
     norms = _leaf_norms(state.params)
     tokens = args.batch * args.seq
     steady = _steady(step_seconds)
@@ -174,6 +223,7 @@ def train(args, num_layers: int | None = None, num_experts: int | None = None) -
         "param_count": param_count(cfg),
         "optimizer": spec.optimizer,
         "steps": args.steps,
+        "resumed_from": resumed_from,
         "batch": args.batch,
         "seq": args.seq,
         "microbatches": args.microbatches,
@@ -188,13 +238,15 @@ def train(args, num_layers: int | None = None, num_experts: int | None = None) -
         "leaves_updated": sum(a != b for a, b in zip(norms0, norms)),
         "leaves": len(norms),
         "step_ms": [1e3 * s for s in step_seconds],
-        "step_ms_p50": 1e3 * statistics.median(steady),
-        "tokens_per_second": tokens * len(steady) / sum(steady),
+        "step_ms_p50": 1e3 * statistics.median(steady) if steady else None,
+        "tokens_per_second": tokens * len(steady) / sum(steady) if steady else None,
         "max_memory_allocated": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
         "ssd_launches": launches,
         "flash_launches": flash_launches,
+        # K1's launches by the attention that made them
+        **k1,
         **aux,
     }
     if args.profile:
@@ -203,7 +255,18 @@ def train(args, num_layers: int | None = None, num_experts: int | None = None) -
             synchronize(device)
 
         summary["profile"] = _profile(run, device, {"ssd": "ssd_fwd", "flash": "flash_fwd"})
-    return summary
+    return summary, state
+
+
+def dataset(cfg: ModelConfig, args) -> SyntheticTextDataset:
+    """``--mode spmd``'s token streams, with the frame (encoder-decoder) or
+    patch (VLM) embeddings the reference draws for its family; a step's
+    model batch is ``_batch_dict(cfg, dataset(cfg, args).batch_at(i))``."""
+    return SyntheticTextDataset(
+        cfg.vocab_size, args.seq, args.batch, seed=args.seed,
+        embed_dim=cfg.d_model if cfg.family in ("vlm", "encdec") else None,
+        embed_len=args.seq if cfg.family == "vlm" else max(args.seq // 8, 1),
+    )
 
 
 def run_pipeline(
@@ -448,7 +511,7 @@ def _run_ranks(cfg, plan, plan_spec, *, steps, batch, seq, lr, warmup, seed, log
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--mode", choices=("spmd", "pipeline"), default="spmd")
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="mamba2-780m")
+    ap.add_argument("--arch", choices=ALL_ARCH_IDS, default="mamba2-780m")
     ap.add_argument("--gpt", choices=sorted(GPT_CONFIGS), default="GPT-Medium", help="pipeline mode: GPT config")
     ap.add_argument("--layers", type=int, default=8, help="pipeline mode: layers")
     ap.add_argument("--stages", type=int, default=4, help="pipeline mode: pipeline stages")
@@ -462,6 +525,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None, help="spmd mode: resume from and save checkpoints here")
+    ap.add_argument("--ckpt-every", type=int, default=0, help="spmd mode: save every N steps (and at the end)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true", help="after the run, trace one more step with torch.profiler")
     ap.add_argument("--out", default=None, help="write the summary JSON here")
@@ -484,11 +549,15 @@ def main(argv=None) -> int:
             print(f"  rank {r['rank']}: " + ", ".join(f"{k} {r[k + '_ms_p50']:.1f} ms" for k in _LINE_ITEMS))
         kernel = "flash"
     else:
-        s = train(args)
-        print(f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}, {s['param_count']:,} "
-              f"parameters, {s['optimizer']}) on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
-              f"{s['tokens_per_second']:,.0f} tokens/s, {s['ssd_launches']} SSD and "
-              f"{s['flash_launches']} flash kernel launches")
+        s, _ = train(args)
+        if not s["losses"]:
+            print(f"nothing to train: resumed at step {s['resumed_from']} of --steps {args.steps}")
+        else:
+            print(f"{s['config']} ({s['num_layers']} layers, d_model {s['d_model']}, {s['param_count']:,} "
+                  f"parameters, {s['optimizer']}) on {s['device']}: step p50 {s['step_ms_p50']:.1f} ms, "
+                  f"{s['tokens_per_second']:,.0f} tokens/s, {s['ssd_launches']} SSD and "
+                  f"{s['flash_launches']} flash kernel launches (encoder {s['flash_launches_encoder']}, "
+                  f"decoder {s['flash_launches_decoder']}, cross {s['flash_launches_cross']})")
         if s["moe_load_balance"]:
             print(f"moe_load_balance {s['moe_load_balance'][-1]:.4f}, moe_router_z {s['moe_router_z'][-1]:.4f}")
         kernel = "ssd" if s["ssd_launches"] else "flash"
@@ -503,6 +572,8 @@ def main(argv=None) -> int:
             json.dump(s, f, indent=1)
             f.write("\n")
     losses = s["losses"]
+    if not losses:  # a finished run's directory: nothing was trained
+        return 0
     if not all(math.isfinite(v) for v in losses + s["grad_norms"]):
         print("non-finite loss or gradient norm")
         return 1

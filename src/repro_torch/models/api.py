@@ -1,18 +1,26 @@
-"""Model API of the ported slices, after ``repro/models/api.py``.
+"""Model API over every architecture family, after ``repro/models/api.py``.
 
 * ``init_params(cfg, seed, device)``   -- weights from a seeded ``torch.Generator``
 * ``init_serving_params(cfg, seed, device)`` -- the same weights, cast for
   serving a layer at a time (``cast_for_serving(init_params(...))``, bitwise)
 * ``loss_fn(params, cfg, batch)``      -> (loss, metrics), the training loss
+* ``forward_fn(params, cfg, batch)``   -> (logits [B,T,V], aux)
+* ``prefill_fn(params, cfg, batch)``   -> logits [B,1,V] of the last position
 * ``cast_for_serving(params, cfg)``    -- matrices and the embedding table to ``cfg.dtype``
 * ``init_cache(cfg, batch, max_len, device)``
 * ``prefill_with_cache(params, cfg, cache, batch)`` -> (logits [B,1,V], cache)
 * ``decode_fn(params, cfg, cache, index, batch)``   -> (logits [B,1,V], cache)
 
-Batches are dictionaries with ``tokens`` ([B,T] for prefill, [B,1] for
-decode) and, for the loss, ``labels`` [B,T], as in the reference.  The dense,
-MoE, SSM and hybrid families serve and train; every other family and path
-raises ``NotImplementedError`` here.  Caches are updated in place.
+Batch keys by family, as in the reference:
+
+* text (dense, moe, ssm, hybrid, audio): ``tokens`` [B,T], ``labels`` [B,T]
+* vlm: ``embeds`` [B,T,d], ``labels`` [B,T], ``mrope_positions`` [3,B,T]
+* encdec: ``src_embeds`` [B,S,d], ``tgt_tokens`` [B,T], ``labels`` [B,T]
+
+Decode batches carry ``tokens`` [B,1] (every family) and, for encdec,
+``memory`` [B,S,d], the encoder's output.  ``prefill_with_cache`` refuses
+the encdec and vlm families, as the reference's does.  Caches are updated
+in place.
 """
 
 from __future__ import annotations
@@ -23,12 +31,14 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig, check_ported
+from repro_torch.models.common import ModelConfig, check_servable
 
 __all__ = [
     "init_params",
     "init_serving_params",
     "loss_fn",
+    "forward_fn",
+    "prefill_fn",
     "cast_for_serving",
     "init_cache",
     "prefill_with_cache",
@@ -47,11 +57,16 @@ _MATRIX_LEAVES = ("w", "table", "head", "in_proj", "out_proj", "conv_w", "conv_b
 _KEPT = (("router", "w"),)
 
 
+def _init(cfg: ModelConfig, gen: torch.Generator, finish=None):
+    if cfg.family == "encdec":
+        return tf.init_encdec(gen, cfg, finish)
+    return tf.init_decoder(gen, cfg, finish)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Parameters in ``cfg.param_dtype`` drawn on ``device`` (default cuda)."""
-    check_ported(cfg, "serve", "train")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return tf.init_decoder(gen, cfg)
+    return _init(cfg, gen)
 
 
 def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -60,15 +75,46 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
     expert bank are cast as soon as they are drawn, from the same generator
     stream, so the peak is the serving tree plus one part (at most one
     expert bank) in ``param_dtype``."""
-    check_ported(cfg, "serve")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return tf.init_decoder(gen, cfg, finish=lambda part: cast_for_serving(part, cfg))
+    return _init(cfg, gen, finish=lambda part: cast_for_serving(part, cfg))
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
-    """Mean next-token loss of a text batch (``tokens``, ``labels`` [B,T])."""
-    check_ported(cfg, "train")
+    """Mean next-token loss of a batch (its keys by family, above)."""
+    if cfg.family == "encdec":
+        return tf.encdec_loss(params, cfg, batch["src_embeds"], batch["tgt_tokens"], batch["labels"])
+    if cfg.family == "vlm":
+        return tf.decoder_loss(
+            params, cfg, labels=batch["labels"], embeds=batch["embeds"],
+            mrope_positions=batch.get("mrope_positions"),
+        )
     return tf.decoder_loss(params, cfg, batch["tokens"], labels=batch["labels"])
+
+
+def forward_fn(
+    params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *, last_only: bool = False,
+    plain_attention: bool = False,
+):
+    """(logits, aux) of the full-sequence forward; ``last_only`` unembeds
+    the last position alone.  ``plain_attention`` runs every full-sequence
+    attention through the kernel's plain version (the on-card comparison)."""
+    if cfg.family == "encdec":
+        return tf.encdec_forward(
+            params, cfg, batch["src_embeds"], batch["tgt_tokens"], last_only=last_only,
+            plain_attention=plain_attention,
+        )
+    if cfg.family == "vlm":
+        return tf.decoder_forward(
+            params, cfg, embeds=batch["embeds"], mrope_positions=batch.get("mrope_positions"),
+            last_only=last_only, plain_attention=plain_attention,
+        )
+    return tf.decoder_forward(params, cfg, batch["tokens"], last_only=last_only, plain_attention=plain_attention)
+
+
+def prefill_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
+    """Inference prefill: the full-sequence forward, the last position's
+    logits [B, 1, V] only (no [B, T, V] tensor)."""
+    return forward_fn(params, cfg, batch, last_only=True)[0]
 
 
 def cast_for_serving(params, cfg: ModelConfig):
@@ -91,7 +137,8 @@ def cast_for_serving(params, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
-    check_ported(cfg, "serve")
+    if cfg.family == "encdec":
+        return tf.init_encdec_cache(cfg, batch_size, max_len, resolve_device(device))
     return tf.init_decode_cache(cfg, batch_size, max_len, resolve_device(device))
 
 
@@ -99,8 +146,10 @@ def prefill_with_cache(
     params, cfg: ModelConfig, cache, batch: Mapping[str, torch.Tensor],
     *, plain_attention: bool = False,
 ):
-    """Fused prefill that also fills the decode cache in one pass."""
-    check_ported(cfg, "serve")
+    """Fused prefill that also fills the decode cache in one pass (text
+    families only: encdec threads encoder memory explicitly and vlm M-RoPE
+    positions, and neither is a serving path in the reference)."""
+    check_servable(cfg, "prefill_with_cache")
     return tf.prefill_with_cache(
         params, cfg, cache, batch["tokens"], plain_attention=plain_attention
     )
@@ -112,6 +161,8 @@ def decode_fn(
     """One decode step; ``index`` is one position or a [B] vector of them.
     MoE layers route the batch as one group (the reference's
     ``decode_fn``), or with ``per_row_moe`` each row as its own group (the
-    reference engine's per-slot decode)."""
-    check_ported(cfg, "serve")
+    reference engine's per-slot decode).  An encoder-decoder decodes against
+    ``batch["memory"]``."""
+    if cfg.family == "encdec":
+        return tf.encdec_decode_step(params, cfg, cache, index, batch["tokens"], batch["memory"])
     return tf.decode_step(params, cfg, cache, index, batch["tokens"], per_row_moe=per_row_moe)

@@ -1,12 +1,13 @@
 """Model configuration and per-layer structure description.
 
-Port of ``repro/models/common.py`` for the decoder-only families (dense,
-MoE, SSM and the Mamba2/attention hybrid), with ``torch`` dtypes in place
-of ``jnp`` ones.  :class:`ModelConfig` holds the fields the port reads;
-the encoder-decoder and multimodal fields of the reference, and its
-sharding anchor, arrive with the slice that reads them (ROADMAP.md queue
-1, item 9).  :func:`check_ported` says which family is ported on which
-path: the dense, MoE, SSM and hybrid families serve and train.
+Port of ``repro/models/common.py``, with ``torch`` dtypes in place of
+``jnp`` ones.  :class:`ModelConfig` holds every field of the reference's
+but its sharding anchor and block remat, which belong to the distributed
+path (ROADMAP.md queue 1, item 9).  Every family trains; the
+encoder-decoder and vision-language families do not serve, as in the
+reference, whose serve engine and ``prefill_with_cache`` refuse them
+(:func:`check_servable`).  ``audio`` is a decoder over tokens, as the
+reference's model API treats any family it does not branch on.
 ``layer_specs`` expands a config into a per-layer recipe (attention vs
 Mamba2, MoE vs dense FFN, sliding window) that
 :mod:`repro_torch.models.transformer` consumes.
@@ -19,13 +20,13 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "active_param_count", "check_ported"]
+__all__ = ["ModelConfig", "LayerSpec", "layer_specs", "param_count", "active_param_count", "check_servable", "encoder_config"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid (see check_ported)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -44,6 +45,8 @@ class ModelConfig:
     # pattern of window sizes cycled over layers; overrides attn_window.
     # e.g. gemma3: (1024, 1024, 1024, 1024, 1024, None) = 5 local : 1 global
     window_pattern: tuple[int | None, ...] = ()
+    mrope: bool = False  # Qwen2-VL multimodal rotary (3 position streams)
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)  # per-head-dim halves
 
     # MoE
     num_experts: int = 0
@@ -66,6 +69,11 @@ class ModelConfig:
     # hybrid interleave: a layer is attention iff (idx % attn_every == attn_offset)
     attn_every: int = 1  # 1 -> all attention; jamba: 8 with attn_offset 4
     attn_offset: int = 0
+
+    # encoder-decoder
+    encoder_layers: int = 0
+    # modality frontend stub: embeddings arrive pre-computed
+    frontend: str | None = None  # None | "audio" | "vision"
 
     # numerics
     dtype: Any = torch.bfloat16  # activation/compute dtype
@@ -100,29 +108,12 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-#: the families each path of the port runs
-_PORTED = {"serve": ("dense", "moe", "ssm", "hybrid"), "train": ("dense", "moe", "ssm", "hybrid")}
-#: what is missing for a family on a path, and the later slice that brings it
-#: (ROADMAP.md, queue 1)
-_LATER = {
-    ("encdec", None): "the encoder-decoder family comes with item 9",
-    ("audio", None): "the encoder-decoder family comes with item 9",
-    ("vlm", None): "the vision-language family comes with item 9",
-}
-
-
-def check_ported(cfg: ModelConfig, *paths: str) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg``'s family is ported on one
-    of ``paths`` (``"serve"``, ``"train"``)."""
-    if any(cfg.family in _PORTED[p] for p in paths):
-        return
-    what = next(
-        (_LATER[(cfg.family, p)] for p in paths if (cfg.family, p) in _LATER),
-        _LATER.get((cfg.family, None), f"family {cfg.family!r} comes with a later slice"),
-    )
-    raise NotImplementedError(
-        f"not ported yet on the {'/'.join(paths)} path: {what} (ROADMAP.md, queue 1)"
-    )
+def check_servable(cfg: ModelConfig, what: str = "serving") -> None:
+    """Raise ``NotImplementedError`` for the families the reference does not
+    serve: the encoder-decoder (it threads encoder memory explicitly) and
+    the vision-language one (M-RoPE positions)."""
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(f"{what} does not support family {cfg.family!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,15 +178,28 @@ def _layer_params(cfg: ModelConfig, spec: LayerSpec) -> tuple[int, int]:
     )
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder-decoder's encoder layers are built and run
+    with: dense attention layers, no windows, no experts."""
+    return cfg.replace(num_experts=0, window_pattern=(), attn_every=1, family="dense")
+
+
 def _count(cfg: ModelConfig, which: int) -> int:
-    check_ported(cfg, "serve", "train")
     embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     layers = sum(_layer_params(cfg, spec)[which] for spec in layer_specs(cfg))
+    if cfg.encoder_layers:
+        enc = encoder_config(cfg)
+        layers += sum(_layer_params(enc, spec)[which] for spec in layer_specs(enc, cfg.encoder_layers))
+        # each decoder layer's cross attention and its norm, counted as the
+        # reference counts them (the encoder's final norm is not counted)
+        d = cfg.d_model
+        layers += cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + d)
     return embed + layers + cfg.d_model
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of the decoder, held to the reference's ``param_count``."""
+    """Parameters of the model (an encoder-decoder's encoder and cross
+    attention included), held to the reference's ``param_count``."""
     return _count(cfg, 0)
 
 

@@ -9,7 +9,7 @@ pure over tensors, as in the reference: parameters may be held in
 
 Initialisers draw from an explicit ``torch.Generator`` on the target device;
 they cannot reproduce ``jax.random``, so parity tests bridge the reference's
-weights instead.  M-RoPE and the sharding anchor come with later slices.
+weights instead.  The sharding anchor comes with the distributed path.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ __all__ = [
     "unembed",
     "rope_frequencies",
     "apply_rope",
+    "apply_mrope",
     "cross_entropy_loss",
 ]
 
@@ -155,12 +156,14 @@ def unembed(p, h, cfg: ModelConfig):
 # -- rotary position embeddings -------------------------------------------------
 
 
+def _inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+    exponent = torch.arange(0, cfg.hd, 2, dtype=torch.float32, device=device) / cfg.hd
+    return 1.0 / (cfg.rope_theta**exponent)
+
+
 def rope_frequencies(cfg: ModelConfig, positions):
     """inv-freq outer positions -> (cos, sin) of shape [..., hd/2], fp32."""
-    hd = cfg.hd
-    exponent = torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
-    inv = 1.0 / (cfg.rope_theta**exponent)
-    ang = positions.float()[..., None] * inv  # [..., T, hd/2]
+    ang = positions.float()[..., None] * _inv_freq(cfg, positions.device)  # [..., T, hd/2]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -174,6 +177,23 @@ def _rotate(x, cos, sin):
 
 def apply_rope(x, cos, sin):
     return _rotate(x, cos, sin).to(x.dtype)
+
+
+def apply_mrope(cfg: ModelConfig, x, positions3):
+    """Qwen2-VL M-RoPE: three position streams (temporal, height, width).
+
+    ``positions3``: [3, ..., T].  The head_dim/2 frequency slots are split
+    into ``mrope_sections`` (t, h, w); each section takes its angle from its
+    own stream (a slot past the sections' sum takes angle 0, as the
+    reference's one-hot selection gives it).  Text-only inputs pass
+    identical streams, which recovers 1-D RoPE."""
+    half = cfg.hd // 2
+    ang = positions3.float()[..., None] * _inv_freq(cfg, x.device)  # [3, ..., T, hd/2]
+    sec = torch.cumsum(torch.tensor(cfg.mrope_sections, device=x.device), 0)
+    idx = torch.searchsorted(sec, torch.arange(half, device=x.device), right=True)  # 0/1/2 per slot
+    sel = F.one_hot(idx, 4)[:, :3].float()  # [hd/2, 3]; idx 3 selects no stream
+    ang = torch.einsum("s...j,js->...j", ang, sel)
+    return apply_rope(x, torch.cos(ang), torch.sin(ang))
 
 
 # -- loss -------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Model assembly for the decoder-only families (dense, MoE, SSM and the
-Mamba2/attention hybrid): init, training forward and loss, prefill and
-decode.
+"""Model assembly: the decoder-only families (dense, MoE, SSM, the
+Mamba2/attention hybrid and the vision-language decoder) and the
+encoder-decoder: init, training forward and loss, prefill and decode.
 
 Port of ``repro/models/transformer.py``.  The reference keeps a ``prefix``
 of irregular leading layers (kimi-k2's first dense layer) unrolled and
@@ -17,8 +17,22 @@ routes the batch as one MoE group (the reference's flat dispatch, as its
 ``api.decode_fn``) unless ``per_row_moe`` routes each row as its own group
 (the serve engine's decode: the reference engine's per-slot ``vmap``).
 
-The encoder-decoder family comes with a later slice;
-:func:`repro_torch.models.common.check_ported` refuses it.
+A vision-language model is a decoder whose input is a sequence of
+embeddings (``embeds`` [B, T, d], the stubbed frontend's output) with
+three M-RoPE position streams (``mrope_positions`` [3, B, T]); it decodes
+over tokens, as in the reference.
+
+The encoder-decoder (the seamless-m4t backbone) keeps the reference's
+layout, whose layers are not stacked: ``{"embed", "encoder": [layer, ...],
+"enc_norm", "decoder": [layer, ...], "final_norm"}``, every decoder layer
+with a cross attention (``xattn``) and its norm (``ln_x``).  The encoder
+runs bidirectional attention over the frontend's frame embeddings
+(``src_embeds`` [B, S, d]) with the dense config of
+:func:`repro_torch.models.common.encoder_config`; the decoder runs causal
+self-attention over the target tokens and cross attention over the
+encoder's memory.  Decode takes the memory as an input each step (the
+reference keeps it out of the cache, whose ``xkv`` stays ``None``; the
+port's cache has no such entry).
 """
 
 from __future__ import annotations
@@ -31,7 +45,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import LayerSpec, ModelConfig, layer_specs
+from repro_torch.models.common import LayerSpec, ModelConfig, encoder_config, layer_specs
 from repro_torch.models.layers import (
     cross_entropy_loss,
     embed,
@@ -59,6 +73,11 @@ __all__ = [
     "apply_layer_decode",
     "prefill_with_cache",
     "decode_step",
+    "init_encdec",
+    "encdec_forward",
+    "encdec_loss",
+    "init_encdec_cache",
+    "encdec_decode_step",
     "MOE_AUX_WEIGHT",
     "MOE_Z_WEIGHT",
 ]
@@ -104,7 +123,11 @@ def reference_layout(cfg: ModelConfig, params) -> list:
     layer ``j`` of the pattern in every block is one group, stacked in
     block order.  ``name`` is the reference's path (``prefix/0/ln1/scale``,
     ``blocks/1/moe/experts/gate``, ``embed/table``), ``paths`` the port's
-    (:func:`repro_torch.tree.flatten` of ``params``)."""
+    (:func:`repro_torch.tree.flatten` of ``params``).  An encoder-decoder's
+    layers are unstacked lists in the reference too (``encoder/<i>/...``,
+    ``decoder/<i>/...``), so each of their leaves is its own group under
+    its own path, in the order the reference flattens them (dict keys
+    sorted, list entries in order)."""
     st = structure(cfg)
     groups: dict[str, tuple[list, bool]] = {}
     for key in flatten(params):
@@ -118,7 +141,10 @@ def reference_layout(cfg: ModelConfig, params) -> list:
         else:
             name = f"blocks/{(i - len(st.prefix)) % len(st.pattern)}/{rest}"
             groups.setdefault(name, ([], True))[0].append(key)
-    return [(name, paths, stacked) for name, (paths, stacked) in groups.items()]
+    out = [(name, paths, stacked) for name, (paths, stacked) in groups.items()]
+    if cfg.family == "encdec":
+        out.sort(key=lambda g: [(0, int(p)) if p.isdigit() else (1, p) for p in g[0].split("/")])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -126,14 +152,18 @@ def reference_layout(cfg: ModelConfig, params) -> list:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=None):
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=None, cross: bool = False):
     """One layer's parameters; ``finish`` maps each expert bank of an MoE
-    layer as soon as it is drawn (:func:`moe_mod.moe_init`)."""
+    layer as soon as it is drawn (:func:`moe_mod.moe_init`); ``cross`` adds
+    a cross attention and its norm (an encoder-decoder's decoder layer)."""
     p: dict[str, Any] = {"ln1": norm_init(cfg.d_model, cfg, gen.device)}
     if spec.kind == "attn":
         p["attn"] = attn.attn_init(gen, cfg)
     else:
         p["mamba"] = mamba_mod.mamba_init(gen, cfg)
+    if cross:
+        p["ln_x"] = norm_init(cfg.d_model, cfg, gen.device)
+        p["xattn"] = attn.cross_attn_init(gen, cfg)
     if spec.moe:
         p["ln2"] = norm_init(cfg.d_model, cfg, gen.device)
         p["moe"] = moe_mod.moe_init(gen, cfg, finish)
@@ -162,16 +192,27 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
     return torch.zeros_like(x), (zero, zero)
 
 
-def apply_layer_train(p, x, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False):
+def apply_layer_train(
+    p, x, cfg: ModelConfig, spec: LayerSpec, *, causal: bool = True, memory=None,
+    positions=None, mrope_positions=None, plain_attention: bool = False,
+):
     """Full-sequence training forward of one layer.  Returns (x, aux), aux
-    the MoE load-balance and router-z terms (zeros for a dense FFN).
-    ``plain_attention`` is :func:`attn.attn_train`'s on-card comparison flag."""
+    the MoE load-balance and router-z terms (zeros for a dense FFN).  A
+    layer with a cross attention attends to ``memory`` after its
+    self-attention.  ``plain_attention`` is :func:`attn.attn_train`'s
+    on-card comparison flag."""
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
-        h = attn.attn_train(p["attn"], h, cfg, window=spec.window, plain_attention=plain_attention)
+        h = attn.attn_train(
+            p["attn"], h, cfg, window=spec.window, causal=causal, positions=positions,
+            mrope_positions=mrope_positions, plain_attention=plain_attention,
+        )
     else:
         h = mamba_mod.mamba_train(p["mamba"], h, cfg)
     x = x + h
+    if memory is not None and "xattn" in p:
+        h = attn.cross_attn(p["xattn"], norm_apply(p["ln_x"], x, cfg), memory, cfg, plain_attention=plain_attention)
+        x = x + h
     delta, aux = _ffn(p, x, cfg, spec)
     return x + delta, aux
 
@@ -200,13 +241,17 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain
     return x + delta, cache
 
 
-def apply_layer_decode(p, x, cache, index, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
+def apply_layer_decode(
+    p, x, cache, index, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, *, memory=None,
+):
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
         h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
     else:
         h, _ = mamba_mod.mamba_decode(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
+    if memory is not None and "xattn" in p:
+        x = x + attn.cross_attn_decode(p["xattn"], norm_apply(p["ln_x"], x, cfg), memory, cfg)
     delta, _ = _ffn(p, x, cfg, spec, per_row_moe)
     return x + delta, cache
 
@@ -229,26 +274,47 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, finish=None):
     return params
 
 
-def decoder_forward(params, cfg: ModelConfig, tokens):
-    """Full-sequence forward.  tokens [B, T] -> (logits [B, T, V], aux metrics)."""
-    x = embed(params["embed"], tokens, cfg)
+def _hidden_from_inputs(params, cfg: ModelConfig, tokens, embeds):
+    if embeds is not None:
+        return embeds.to(cfg.dtype)
+    return embed(params["embed"], tokens, cfg)
+
+
+def _head(params, cfg: ModelConfig, x, aux_lb, aux_z, last_only: bool):
+    if last_only:
+        x = x[:, -1:, :]
+    x = norm_apply(params["final_norm"], x, cfg)
+    return unembed(params["embed"], x, cfg), {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
+
+
+def decoder_forward(
+    params, cfg: ModelConfig, tokens=None, embeds=None, *, mrope_positions=None,
+    last_only: bool = False, plain_attention: bool = False,
+):
+    """Full-sequence forward over tokens [B, T] or embeddings [B, T, d]
+    (with ``mrope_positions`` [3, B, T] for an M-RoPE config) -> (logits
+    [B, T, V], aux metrics).  ``last_only`` unembeds the last position
+    alone (logits [B, 1, V]), the prefill's contract."""
+    x = _hidden_from_inputs(params, cfg, tokens, embeds)
     aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(params["layers"], layer_specs(cfg)):
-        x, (lb, z) = apply_layer_train(p, x, cfg, spec)
+        x, (lb, z) = apply_layer_train(p, x, cfg, spec, mrope_positions=mrope_positions, plain_attention=plain_attention)
         aux_lb, aux_z = aux_lb + lb, aux_z + z
-    x = norm_apply(params["final_norm"], x, cfg)
-    logits = unembed(params["embed"], x, cfg)
-    return logits, {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
+    return _head(params, cfg, x, aux_lb, aux_z, last_only)
 
 
-def decoder_loss(params, cfg: ModelConfig, tokens, labels):
-    """(total loss, metrics): mean token cross-entropy plus the weighted MoE
-    terms; metrics ``ce_loss``, ``moe_load_balance``, ``moe_router_z``."""
-    logits, aux = decoder_forward(params, cfg, tokens)
+def _loss(logits, aux, labels):
     loss = cross_entropy_loss(logits, labels)
     total = loss + MOE_AUX_WEIGHT * aux["moe_load_balance"] + MOE_Z_WEIGHT * aux["moe_router_z"]
     return total, {"ce_loss": loss, **aux}
+
+
+def decoder_loss(params, cfg: ModelConfig, tokens=None, labels=None, embeds=None, *, mrope_positions=None):
+    """(total loss, metrics): mean token cross-entropy plus the weighted MoE
+    terms; metrics ``ce_loss``, ``moe_load_balance``, ``moe_router_z``."""
+    logits, aux = decoder_forward(params, cfg, tokens, embeds, mrope_positions=mrope_positions)
+    return _loss(logits, aux, labels)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -279,5 +345,69 @@ def decode_step(params, cfg: ModelConfig, cache, index, tokens, *, per_row_moe: 
     x = embed(params["embed"], tokens, cfg)
     for p, spec, c in zip(params["layers"], layer_specs(cfg), cache["layers"]):
         x, _ = apply_layer_decode(p, x, c, index, cfg, spec, per_row_moe)
+    x = norm_apply(params["final_norm"], x, cfg)
+    return unembed(params["embed"], x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t backbone)
+# ---------------------------------------------------------------------------
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig, finish=None):
+    """The encoder-decoder's parameters, drawn from ``gen`` in order: the
+    embedding, the encoder layers, the encoder's final norm, the decoder
+    layers (each with its cross attention), the final norm; ``finish`` as
+    :func:`init_decoder`'s."""
+    finish = finish or (lambda part: part)
+    enc = encoder_config(cfg)
+    params: dict[str, Any] = {"embed": finish(embedding_init(gen, cfg))}
+    params["encoder"] = [finish(init_layer(gen, enc, s)) for s in layer_specs(enc, cfg.encoder_layers)]
+    params["enc_norm"] = finish(norm_init(cfg.d_model, cfg, gen.device))
+    params["decoder"] = [finish(init_layer(gen, cfg, s, cross=True)) for s in layer_specs(cfg)]
+    params["final_norm"] = finish(norm_init(cfg.d_model, cfg, gen.device))
+    return params
+
+
+def _encode(params, cfg: ModelConfig, src_embeds, plain_attention: bool = False):
+    """The encoder's memory [B, S, d] from the frontend's frame embeddings:
+    bidirectional layers, then the encoder's final norm."""
+    enc = encoder_config(cfg)
+    x = src_embeds.to(cfg.dtype)
+    for p, spec in zip(params["encoder"], layer_specs(enc, cfg.encoder_layers)):
+        x, _ = apply_layer_train(p, x, enc, spec, causal=False, plain_attention=plain_attention)
+    return norm_apply(params["enc_norm"], x, cfg)
+
+
+def encdec_forward(
+    params, cfg: ModelConfig, src_embeds, tgt_tokens, last_only: bool = False, plain_attention: bool = False,
+):
+    """(logits [B, T, V], aux) of the target tokens [B, T] over the source
+    frames [B, S, d] (the modality frontend's output)."""
+    memory = _encode(params, cfg, src_embeds, plain_attention)
+    x = embed(params["embed"], tgt_tokens, cfg)
+    aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["decoder"], layer_specs(cfg)):
+        x, (lb, z) = apply_layer_train(p, x, cfg, spec, memory=memory, plain_attention=plain_attention)
+        aux_lb, aux_z = aux_lb + lb, aux_z + z
+    return _head(params, cfg, x, aux_lb, aux_z, last_only)
+
+
+def encdec_loss(params, cfg: ModelConfig, src_embeds, tgt_tokens, labels):
+    logits, aux = encdec_forward(params, cfg, src_embeds, tgt_tokens)
+    return _loss(logits, aux, labels)
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    return {"decoder": [init_layer_cache(cfg, spec, batch, max_len, device) for spec in layer_specs(cfg)]}
+
+
+def encdec_decode_step(params, cfg: ModelConfig, cache, index, tgt_tokens, memory):
+    """One decoder token [B, 1] against the fixed encoder ``memory`` [B, S,
+    d].  Returns (logits [B, 1, V], cache), the cache updated in place."""
+    x = embed(params["embed"], tgt_tokens, cfg)
+    for p, spec, c in zip(params["decoder"], layer_specs(cfg), cache["decoder"]):
+        x, _ = apply_layer_decode(p, x, c, index, cfg, spec, memory=memory)
     x = norm_apply(params["final_norm"], x, cfg)
     return unembed(params["embed"], x, cfg), cache

@@ -1,8 +1,11 @@
 """Stage partitioning for pipeline parallelism.
 
 Port of ``repro/pipeline/stage.py``.  A :class:`StagedModel` cuts a
-decoder-only config (dense, MoE, SSM or hybrid, without irregular prefix
-layers) into ``num_stages`` contiguous stages of equal layer count.  Every stage holds the same parameter structure: its layers, and the
+decoder-only config (dense, MoE, SSM, hybrid or vision-language, without
+irregular prefix layers; an encoder-decoder is refused, as in the
+reference) into ``num_stages`` contiguous stages of equal layer count.  A
+stage runs over tokens with 1-D positions, as the reference's stage body
+does for every family.  Every stage holds the same parameter structure: its layers, and the
 embedding and final norm, which are present on every stage but used only by
 the first (``embed_tokens``) and the last (``head_loss``; the unembedding
 is tied).  Their copies elsewhere get zero gradient, and the engine's
@@ -27,7 +30,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import LayerSpec, ModelConfig, check_ported
+from repro_torch.models.common import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
     cross_entropy_loss,
     embed,
@@ -53,7 +56,8 @@ class StagedModel:
 
     @classmethod
     def build(cls, cfg: ModelConfig, num_stages: int, plain_attention: bool = False) -> "StagedModel":
-        check_ported(cfg, "train")
+        if cfg.family == "encdec":
+            raise ValueError("pipeline engine covers decoder-only families")
         st = tf.structure(cfg)
         if st.prefix:
             raise ValueError(

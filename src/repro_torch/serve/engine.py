@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, check_servable
 from repro_torch.runtime.executor import PlanRuntime
 from repro_torch.tree import tree_map
 
@@ -71,6 +71,7 @@ class ServeEngine:
         bridge); without one, weights are drawn from ``seed``.
         ``prompt_fn(rid, prompt_len)`` gives request ``rid``'s prompt tokens;
         by default :meth:`default_prompt`."""
+        check_servable(cfg)
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len

@@ -5,7 +5,8 @@ Port of ``repro/training/steps.py:55-119`` and of the pipeline ``step_fn``
 of ``repro/launch/train.py::run_pipeline``.  The train and eval steps
 take a ``loss_fn(params, batch) -> (loss, metrics)`` over a dict batch.
 ``make_train_step(..., num_microbatches=M)`` cuts the batch into M equal
-micro-batches along its first axis and runs them one after another (the
+micro-batches along its batch axis (the first, but the second of the
+M-RoPE positions ``[3, B, T]``) and runs them one after another (the
 reference's ``lax.scan``), summing fp32 gradients; the step's loss and
 gradients are the means over the micro-batches, which equal the
 global-batch ones when the micro-batches are equal-sized.
@@ -51,12 +52,18 @@ __all__ = ["make_train_step", "make_pipeline_train_step", "pipeline_train_step",
 LossFn = Callable[[Any, Mapping[str, torch.Tensor]], tuple[torch.Tensor, dict]]
 
 
+def _batch_dim(name: str) -> int:
+    """The batch axis of a batch entry: 1 for the M-RoPE positions [3, B, T]
+    (axis 0 is the three streams), else 0."""
+    return 1 if name == "mrope_positions" else 0
+
+
 def _microbatches(batch: Mapping[str, torch.Tensor], M: int) -> list[dict]:
-    """[B, ...] -> M dicts of [B/M, ...] views."""
+    """[B, ...] -> M dicts of [B/M, ...] views ([3, B, T] -> [3, B/M, T])."""
     for name, x in batch.items():
-        if x.shape[0] % M:
-            raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not split into {M} micro-batches")
-    return [{k: v.chunk(M)[i] for k, v in batch.items()} for i in range(M)]
+        if x.shape[_batch_dim(name)] % M:
+            raise ValueError(f"batch {name!r} of {x.shape[_batch_dim(name)]} rows does not split into {M} micro-batches")
+    return [{k: v.chunk(M, dim=_batch_dim(k))[i] for k, v in batch.items()} for i in range(M)]
 
 
 def _grads_of(loss_fn: LossFn, params, batch):

@@ -1,10 +1,11 @@
 """The port's arch registry and its dense architectures against ``repro``.
 
 Registry: the ids, every ``ArchSpec`` and ``ModelConfig`` field (dtypes
-mapped) and ``param_count`` equal to ``repro``'s for every ported arch
-(the dense, SSM, MoE and hybrid ones; ``tests/test_torch_hybrid.py`` holds
-the MoE and hybrid models); the unported archs raise naming their ROADMAP
-item; twins of ``tests/test_archs.py``'s config checks.
+mapped) and ``param_count`` equal to ``repro``'s for every arch
+(``tests/test_torch_hybrid.py`` holds the MoE and hybrid models,
+``tests/test_torch_encdec.py`` and ``tests/test_torch_vlm.py`` the
+encoder-decoder and vision-language ones); twins of
+``tests/test_archs.py``'s config checks.
 ``configs/io.py``: ``make_batch``, ``serving_config`` and ``input_specs``
 equal to ``repro``'s.
 
@@ -47,7 +48,6 @@ from repro.training import create_train_state as jax_create_train_state
 from repro.training import make_train_step as jax_make_train_step
 from repro_torch import bridge
 from repro_torch.configs import ALL_ARCH_IDS, INPUT_SHAPES, get_arch, list_archs
-from repro_torch.configs.base import PORTED_ARCH_IDS, UNPORTED
 from repro_torch.configs.io import AUDIO_SUBSAMPLE, input_specs, make_batch, serving_config
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, active_param_count, param_count
@@ -96,16 +96,12 @@ def _config_fields_equal(port: ModelConfig, ref) -> None:
 
 def test_list_archs_equals_reference():
     assert list_archs() == jax_list_archs() == ALL_ARCH_IDS == JAX_ALL_ARCH_IDS
-    assert PORTED_ARCH_IDS == [
-        "kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", *DENSE[:3], "jamba-v0.1-52b", "qwen1.5-4b", "mamba2-780m",
-    ]
-    assert sorted(PORTED_ARCH_IDS + list(UNPORTED)) == sorted(ALL_ARCH_IDS)
     assert list(INPUT_SHAPES) == list(JAX_INPUT_SHAPES)
     for name, shape in INPUT_SHAPES.items():
         assert dataclasses.asdict(shape) == dataclasses.asdict(JAX_INPUT_SHAPES[name])
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_arch_spec_and_configs_equal_reference(arch):
     spec, ref = get_arch(arch), jax_get_arch(arch)
     for f in ("arch_id", "citation", "optimizer", "long_context", "long_window", "notes", "family"):
@@ -117,15 +113,19 @@ def test_arch_spec_and_configs_equal_reference(arch):
     assert spec.model.max_seq_len == ref.model.max_seq_len == 131_072
 
 
-@pytest.mark.parametrize("arch", list(UNPORTED))
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
 def test_unported_arch_raises_naming_its_item(arch):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_arch(arch)
+    """The two archs ``get_arch`` refused until their families were ported
+    now build ``repro``'s configs, field for field; an unknown id raises
+    ``KeyError``, as in ``repro``."""
+    spec, ref = get_arch(arch), jax_get_arch(arch)
+    _config_fields_equal(spec.model, ref.model)
+    assert spec.family == ref.family in ("encdec", "vlm") and spec.citation == ref.citation
     with pytest.raises(KeyError):
         get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_param_count_equals_reference(arch):
     spec, ref = get_arch(arch), jax_get_arch(arch)
     assert param_count(spec.model) == jax_param_count(ref.model)
@@ -137,7 +137,7 @@ def test_param_count_equals_reference(arch):
 # twins of tests/test_archs.py's config checks, on the port's registry
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_smoke_constraints(arch):
     cfg = get_arch(arch).smoke
     assert cfg.num_layers <= 2
@@ -145,7 +145,7 @@ def test_smoke_constraints(arch):
     assert cfg.num_experts <= 4
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_full_config_matches_assignment(arch):
     expected = {
         "kimi-k2-1t-a32b": (61, 7168, 64, 8, 163_840, 384, 8),
@@ -156,13 +156,15 @@ def test_full_config_matches_assignment(arch):
         "jamba-v0.1-52b": (32, 4096, 32, 8, 65_536, 16, 2),
         "qwen1.5-4b": (40, 2560, 20, 20, 151_936, 0, 0),
         "mamba2-780m": (48, 1536, 0, 0, 50_280, 0, 0),
+        "seamless-m4t-medium": (12, 1024, 16, 16, 256_206, 0, 0),
+        "qwen2-vl-2b": (28, 1536, 12, 2, 151_936, 0, 0),
     }[arch]
     cfg = get_arch(arch).model
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size, cfg.num_experts,
             cfg.num_experts_per_tok) == expected
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_param_counts_in_band(arch):
     bands = {
         "kimi-k2-1t-a32b": (0.9e12, 1.2e12),
@@ -173,6 +175,8 @@ def test_param_counts_in_band(arch):
         "gemma3-12b": (0.9e10, 1.4e10),
         "qwen1.5-4b": (3e9, 5e9),
         "mamba2-780m": (6e8, 1e9),
+        "seamless-m4t-medium": (4e8, 1.5e9),
+        "qwen2-vl-2b": (1.2e9, 2.5e9),
     }[arch]
     n = param_count(get_arch(arch).model)
     assert bands[0] <= n <= bands[1], f"{arch}: {n:.3e}"
@@ -181,7 +185,7 @@ def test_param_counts_in_band(arch):
 # -- configs/io.py --------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_serving_config_and_input_specs_equal_reference(arch):
     spec, ref = get_arch(arch), jax_get_arch(arch)
     for name, shape in INPUT_SHAPES.items():
@@ -195,7 +199,7 @@ def test_serving_config_and_input_specs_equal_reference(arch):
     assert serving_config(spec, INPUT_SHAPES["long_500k"]).max_seq_len == 524_288
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_make_batch_equals_reference(arch):
     cfg, jcfg = get_arch(arch).smoke, jax_get_arch(arch).smoke
     for kind, seed in (("train", 0), ("train", 5), ("decode", 3)):
@@ -206,13 +210,21 @@ def test_make_batch_equals_reference(arch):
 
 
 def test_io_refuses_the_later_families():
+    """The vlm and encdec branches of ``make_batch`` on a text arch's smoke
+    config with the family swapped in give ``repro``'s arrays (they raised
+    until those families were ported)."""
     assert AUDIO_SUBSAMPLE == 8
-    vlm = get_arch("qwen2.5-14b").smoke.replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_batch(vlm, 2, 8)
+    for family in ("vlm", "encdec"):
+        cfg = get_arch("qwen2.5-14b").smoke.replace(family=family)
+        jcfg = jax_get_arch("qwen2.5-14b").smoke.replace(family=family)
+        for kind in ("train", "decode"):
+            got, want = make_batch(cfg, 2, 16, kind=kind), jax_make_batch(jcfg, 2, 16, kind=kind)
+            assert sorted(got) == sorted(want)
+            for key in got:
+                np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_init_serving_params_is_the_cast_init_bitwise(arch):
     cfg = get_arch(arch).smoke
     want = flatten(api.cast_for_serving(api.init_params(cfg, seed=7, device="cpu"), cfg))

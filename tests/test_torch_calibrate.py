@@ -35,10 +35,11 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 import repro.configs.gpt as jgpt
+from repro.configs import get_arch as jax_get_arch
 from repro.core.calibrate import calibrate_stage_costs as jax_calibrate
 from repro.models.common import ModelConfig as JaxConfig
 from repro.pipeline.stage import StagedModel as JaxStaged
-from repro_torch.configs import gpt
+from repro_torch.configs import get_arch, gpt
 from repro_torch.core.calibrate import calibrate_stage_costs, count_programs, count_stage
 from repro_torch.core.devicespec import TASK_PROGRAMS, load_device_spec, spec_root
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -214,10 +215,14 @@ def _gap(cfg, s: int, S: int, program: str) -> float:
     return 0.0
 
 
-@pytest.fixture(scope="module", params=[TINY, TINY_GPT], ids=["tiny", "tiny-gpt"])
+@pytest.fixture(scope="module", params=[TINY, TINY_GPT, "qwen2-vl-2b"], ids=["tiny", "tiny-gpt", "qwen2-vl-smoke"])
 def both(request):
-    kw = {k: v for k, v in request.param.items() if k not in TINY or TINY[k] != v}
-    cfg, jcfg = _cfg(**kw), _jax_cfg(**kw)
+    if isinstance(request.param, str):  # a registry arch's smoke config in fp32
+        cfg = get_arch(request.param).smoke.replace(dtype=torch.float32)
+        jcfg = jax_get_arch(request.param).smoke.replace(dtype=jnp.float32)
+    else:
+        kw = {k: v for k, v in request.param.items() if k not in TINY or TINY[k] != v}
+        cfg, jcfg = _cfg(**kw), _jax_cfg(**kw)
     jcal = jax_calibrate(JaxStaged.build(jcfg, 2), micro_batch_size=B_MB, seq_len=T)
     return cfg, jcal, _roofline(StagedModel.build(cfg, 2))
 
@@ -459,12 +464,17 @@ def test_cli_spec_on_gpt_medium(tmp_path):
     with pytest.raises(SystemExit):
         dryrun_pipeline.main(["--config", "GPT-Medium", "--device", "cpu"])
     # the arch ids of the registry are taken since ROADMAP queue 1, item 6
-    # (tests/test_torch_launch_dense.py calibrates qwen1.5-4b); an arch whose
-    # family is not ported raises naming its item, and so does calibrating
-    # the MoE and hybrid families (item 9: the FLOP count through the MoE
-    # dispatch on meta)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dryrun_pipeline.main(["--calibrate", "--config", "qwen2-vl-2b", "--device", "cpu", "--out", str(tmp_path)])
+    # (tests/test_torch_launch_dense.py calibrates qwen1.5-4b); the VLM
+    # calibrates through tokens, as repro's stage body runs it (its smoke
+    # config's FLOPs are held to repro's by the `both` cases above), while
+    # calibrating the MoE and hybrid families raises naming ROADMAP item 9
+    # (the FLOP count through the MoE dispatch on meta)
+    vlm = dryrun_pipeline.main([
+        "--calibrate", "--config", "qwen2-vl-2b", "--stages", "4", "--batch", "4", "--microbatches", "4",
+        "--seq", "128", "--device", "cpu", "--out", str(tmp_path),
+    ])
+    assert vlm["config"] == "qwen2-vl-2b" and len(vlm["fwd_time"]) == 4 and min(vlm["fwd_time"]) > 0
+    assert (tmp_path / "qwen2-vl-2b__S4_calibration.json").exists()
     with pytest.raises(NotImplementedError, match="item 9"):
         dryrun_pipeline.main(["--calibrate", "--config", "jamba-v0.1-52b", "--device", "cpu", "--out", str(tmp_path)])
 

@@ -44,8 +44,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     for mod in ("runtime.fabric", *(f"runtime.fabric.{m}" for m in fabric), "launch.fabric_worker"):
         assert f"repro_torch.{mod}" in mods, mod
     archs = ("qwen1_5_4b", "qwen2_5_14b", "internlm2_20b", "gemma3_12b", "mamba2_780m",
-             "jamba_v0_1_52b", "kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
-    for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs), "models.moe", "optim.adafactor"):
+             "jamba_v0_1_52b", "kimi_k2_1t_a32b", "llama4_maverick_400b_a17b", "seamless_m4t_medium", "qwen2_vl_2b")
+    for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs), "models.moe", "optim.adafactor",
+                "checkpoint", "checkpoint.io"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"

@@ -13,22 +13,26 @@ import json
 import numpy as np
 import pytest
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_arch
+from repro_torch.configs.base import ALL_ARCH_IDS, get_arch
 from repro_torch.launch import dryrun_pipeline, serve_adaptive, serve_decode, train
 
 DENSE = ["qwen2.5-14b", "internlm2-20b", "gemma3-12b", "qwen1.5-4b"]
 
 
 def test_launchers_take_every_ported_arch():
-    for arch in PORTED_ARCH_IDS:
+    for arch in ALL_ARCH_IDS:
         assert arch in serve_adaptive.CONFIG_NAMES
         assert serve_adaptive.build_config(arch, tiny=True) == get_arch(arch).smoke
         assert serve_adaptive.build_config(arch) == get_arch(arch).model
     assert serve_adaptive.build_config("gemma3-12b").head_dim == 256
     assert "GPT-2.7B" in serve_adaptive.CONFIG_NAMES
     assert serve_adaptive.build_config("GPT-2.7B", tiny=True).num_layers == 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve_adaptive.build_config("seamless-m4t-medium")
+    # the encoder-decoder and vision-language archs build; serving them
+    # raises repro's "serving does not support family"
+    for arch, family in (("seamless-m4t-medium", "encdec"), ("qwen2-vl-2b", "vlm")):
+        with pytest.raises(NotImplementedError, match=f"serving does not support family '{family}'"):
+            serve_decode.main(["--config", arch, "--tiny", "--device", "cpu", "--requests", "2", "--prompt-len", "4", "8",
+                               "--new-tokens", "2", "3", "--max-len", "16"])
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -52,7 +56,7 @@ def test_train_takes_a_depth_cut():
         arch="gemma3-12b", smoke=True, batch=2, seq=16, microbatches=1, device="cpu", log_every=10,
         profile=False, steps=2, lr=1e-3, warmup=1, seed=0,
     )
-    s = train.train(args, num_layers=6)
+    s, _ = train.train(args, num_layers=6)
     assert s["num_layers"] == 6 and len(s["losses"]) == 2
 
 

@@ -191,34 +191,72 @@ def test_cast_for_serving_keeps_norms_and_biases_in_param_dtype():
 
 
 UNPORTED = [
-    # (call, family, message): each family raises on each path it lacks
-    ("init_params", "encdec", "ROADMAP"),
-    ("init_params", "vlm", "vision-language"),
-    ("init_cache", "audio", "encoder-decoder"),
-    ("init_cache", "vlm", "vision-language"),
-    ("prefill_with_cache", "encdec", "item 9"),
-    ("decode_fn", "audio", "item 9"),
-    ("loss_fn", "vlm", "vision-language"),
-    ("loss_fn", "encdec", "encoder-decoder"),
-    ("decoder_forward", "audio", "encoder-decoder"),
+    # (call, family, what repro does): each call on each family the port
+    # refused until the encoder-decoder and vision-language families were
+    # ported; "raise" where repro raises, else the result is held to repro's
+    ("init_params", "encdec", "shapes"),
+    ("init_params", "vlm", "shapes"),
+    ("init_cache", "audio", "shapes"),
+    ("init_cache", "vlm", "shapes"),
+    ("prefill_with_cache", "encdec", "raise"),
+    ("decode_fn", "audio", "values"),
+    ("loss_fn", "vlm", "values"),
+    ("loss_fn", "encdec", "values"),
+    ("decoder_forward", "audio", "values"),
 ]
 
 
 @pytest.mark.parametrize("call,family,match", UNPORTED, ids=[f"{c}-{f}" for c, f, _ in UNPORTED])
 def test_unported_families_raise(call, family, match):
-    _, tcfg = _cfgs()
-    cfg = tcfg.replace(family=family)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    calls = {
-        "init_params": lambda: api.init_params(cfg, device="cpu"),
-        "init_cache": lambda: api.init_cache(cfg, 1, 8, device="cpu"),
-        "prefill_with_cache": lambda: api.prefill_with_cache({}, cfg, {}, {"tokens": tokens}),
-        "decode_fn": lambda: api.decode_fn({}, cfg, {}, 0, {"tokens": tokens}),
-        "loss_fn": lambda: api.loss_fn({}, cfg, {"tokens": tokens, "labels": tokens}),
-        "decoder_forward": lambda: tf.decoder_forward(api.init_params(cfg, device="cpu"), cfg, tokens),
-    }
-    with pytest.raises(NotImplementedError, match=match):
-        calls[call]()
+    """Each call does what ``repro``'s does on the family (the GPT test
+    config with the family swapped in, one encoder layer for encdec):
+    ``prefill_with_cache`` of encdec raises ``repro``'s
+    ``NotImplementedError``; the inits give ``repro``'s leaves and shapes
+    (through the bridge); the loss, forward and decode give its values on
+    its weights, to 1e-4."""
+    jcfg, tcfg = _cfgs()
+    extra = {"family": family, "encoder_layers": 1 if family == "encdec" else 0}
+    jcfg, cfg = jcfg.replace(**extra), tcfg.replace(**extra)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    embeds = (rng.standard_normal((2, 6, cfg.d_model)) * 0.02).astype(np.float32)
+    if match == "raise":
+        with pytest.raises(NotImplementedError) as want:
+            jax_api.prefill_with_cache({}, jcfg, {}, {"tokens": jnp.asarray(tokens)})
+        with pytest.raises(NotImplementedError) as got:
+            api.prefill_with_cache({}, cfg, {}, {"tokens": torch.from_numpy(tokens)})
+        assert str(got.value) == str(want.value)
+        return
+    if match == "shapes":
+        if call == "init_params":
+            want = _flat(jax_api.init_params(jax.random.PRNGKey(0), jcfg))
+            got = bridge.params_to_repro(api.init_params(cfg, device="cpu"), cfg)
+        else:  # the port's cache against repro's, carried to the port's layout
+            want = bridge.flatten(bridge.cache_from_repro(_flat(jax_api.init_cache(jcfg, 2, 8)), cfg))
+            got = bridge.flatten(api.init_cache(cfg, 2, 8, device="cpu"))
+        assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}
+        return
+    jparams = jax_api.init_params(jax.random.PRNGKey(1), jcfg)
+    params = bridge.params_from_repro(_flat(jparams), cfg, device="cpu")
+    jbatch, batch = {"tokens": tokens, "labels": tokens}, {"tokens": tokens, "labels": tokens}
+    if family == "vlm":
+        jbatch = batch = {"embeds": embeds, "labels": tokens}
+    if family == "encdec":
+        jbatch = batch = {"src_embeds": embeds, "tgt_tokens": tokens, "labels": tokens}
+    jbatch = {k: jnp.asarray(v) for k, v in jbatch.items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if call == "loss_fn":
+        want, got = jax_api.loss_fn(jparams, jcfg, jbatch)[0], api.loss_fn(params, cfg, batch)[0]
+    elif call == "decoder_forward":
+        from repro.models import transformer as jax_tf
+
+        want = jax_tf.decoder_forward(jparams, jcfg, jbatch["tokens"])[0]
+        got = tf.decoder_forward(params, cfg, batch["tokens"])[0]
+    else:
+        want, _ = jax_api.decode_fn(jparams, jcfg, jax_api.init_cache(jcfg, 2, 8), 0, {"tokens": jbatch["tokens"][:, :1]})
+        got, _ = api.decode_fn(params, cfg, api.init_cache(cfg, 2, 8, device="cpu"), 0, {"tokens": batch["tokens"][:, :1]})
+    want = _jnp32(want)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
 def test_plain_attention_prefill_matches_flash_path():
@@ -255,8 +293,12 @@ def test_param_count_matches_reference(name, extra):
 
 
 def test_param_count_of_gpt_2_7b_and_unported_family():
-    # ~2.65 B parameters: 32 layers of ~78.7 M plus the tied 50 257 x 2560 table
+    # ~2.65 B parameters: 32 layers of ~78.7 M plus the tied 50 257 x 2560 table;
+    # the vlm family counts as repro counts it (the decoder alone), and an
+    # encoder-decoder adds its encoder layers and each decoder layer's cross
+    # attention
     n = param_count(GPT_CONFIGS["GPT-2.7B"])
     assert 2.6e9 < n < 2.7e9
-    with pytest.raises(NotImplementedError, match="item 9"):
-        param_count(GPT_CONFIGS["GPT-2.7B"].replace(family="vlm"))
+    for extra in ({"family": "vlm"}, {"family": "encdec", "encoder_layers": 3}):
+        want = jax_param_count(JAX_GPT["GPT-2.7B"].replace(**extra))
+        assert param_count(GPT_CONFIGS["GPT-2.7B"].replace(**extra)) == want
