@@ -237,11 +237,10 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
 13. ranks       GPT-2.7B at full width trained through
                 ``repro_torch.launch.train.run_pipeline`` on S=4 ranks (kfkb
                 k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps, seed 0),
-                all 32 layers on four cards, cut to GPT_LAYERS = 16 on one:
-                the first loss equals the one-process engine's at that depth
-                (on one card the pipeline phase's), the loss falls, K1 ran
-                M*L*(2S-1)/S times a step summed over the ranks (224 at 16
-                layers);
+                all 32 layers on four cards, cut to RANKS_ONE_CARD_LAYERS =
+                8 on one: the first loss equals the one-process engine's at
+                that depth, the loss falls, K1 ran M*L*(2S-1)/S times a step
+                summed over the ranks (112 at 8 layers);
                 the transport, the card count and each rank's breakdown
                 (compute, blocked in receives and sends, staging copies,
                 the replicated reduce, read from CUDA events) are printed,
@@ -314,6 +313,28 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 finite losses; each worker's K1 launches equal to its grid's
                 attention forwards.  Both share the card by time-slicing:
                 their wall times are a check, not a deployment's
+18. spmd        repro's sharded train step (distributed/spmd.py) on
+                qwen2.5-14b at full width, four ranks on a (2, 2) ("data",
+                "model") mesh, one process a rank (SPMD_FOUR: a card a rank,
+                NCCL, all 48 layers, zero3 then tp_fsdp with per-layer remat,
+                b 8 x T 2048 in M=2, 4 steps and one traced; SPMD_ONE: gloo
+                through pinned host buffers on one card, 2 layers, one step
+                of b 4 x T 512 in M=1 under zero3 and under tp_fsdp with
+                gather_params_once).  Gates: every rank's
+                local shards are the rules' shapes; the ranks agree on the
+                loss; on one card the loss and clip norm equal the
+                one-process make_train_step's over the same row groups, and
+                each leaf group's step-1 update and AdamW m and v (digests;
+                AdamW at eps SPMD_DIGEST_EPS); on four cards (no card holds
+                the training state) the first loss equals a one-process
+                forward on the serving weights, and zero3's and tp_fsdp's
+                losses and clip norms agree step by step (SPMD_CROSS_TOL);
+                finite losses and norms; K1 per rank = layers x
+                micro-batches x steps x 2
+                (the remat runs each forward again); on four cards every
+                rank's peak under 80 GiB.  Per rank: step p50, tokens/s,
+                max_memory_allocated, and a step's seconds in gathers,
+                reduce-scatters, all-reduces, staging and the rest
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
@@ -321,8 +342,8 @@ them after its run and returns them.
 The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
-ranks, the fabric in one process and across two, the dense archs'
-model check, serving and training, the MoE and hybrid archs', and the
+ranks, the fabric in one process and across two, the sharded step, the
+dense archs' model check, serving and training, the MoE and hybrid archs', and the
 encoder-decoder and VLM archs' model check and training, each at its own
 shape; K2's per main path: train and train-moe);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -350,7 +371,7 @@ PHASES = (
     "device", "build", "kernels", "model", "model-dense", "train-model", "serve", "serve-adaptive", "serve-ssm",
     "serve-dense", "train", "train-dense", "model-moe", "serve-moe", "train-moe", "model-encdec-vlm",
     "train-encdec-vlm", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
-    "adaptive-ranks", "fabric", "fabric-tcp",
+    "adaptive-ranks", "fabric", "fabric-tcp", "spmd",
 )
 
 #: the device spec of one H100 SXM (published dense peaks at its 700 W
@@ -443,6 +464,9 @@ FLASH_CASES = [
     ("seamless_dec_b4_t1024", 4, 1024, 1024, 16, 16, 64, torch.bfloat16, True, None),
     ("seamless_cross_b4_t1024_s128", 4, 1024, 128, 16, 16, 64, torch.bfloat16, False, None),
     ("qwen2-vl_gqa6_b2_t2048", 2, 2048, 2048, 12, 2, 128, torch.bfloat16, True, None),
+    # the spmd phase's qwen2.5-14b on one rank's rows: one row of T 2048 (zero3
+    # on four cards)
+    ("qwen2.5-14b_spmd_t2048", 1, 2048, 2048, 40, 8, 128, torch.bfloat16, True, None),
 ]
 TIMED_CASE = "gpt2.7b_t512"
 #: the serve-adaptive phase's GPT-2.7B, at full width cut to 16 of its 32
@@ -462,6 +486,7 @@ PATH_CASES = {
     "train-dense": "gemma3-12b_train_t2048",
     "model-moe": "kimi-k2_gqa_t512", "serve-moe": "kimi-k2_gqa_t512", "train-moe": "kimi-k2_train_t2048",
     "model-encdec-vlm": "seamless_cross_b4_t1024_s128", "train-encdec-vlm": "qwen2-vl_gqa6_b2_t2048",
+    "spmd": "qwen2.5-14b_spmd_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
@@ -469,6 +494,7 @@ TIMED_FLASH = (
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
     "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
     "seamless_enc_b4_t128", "seamless_dec_b4_t1024", "seamless_cross_b4_t1024_s128", "qwen2-vl_gqa6_b2_t2048",
+    "qwen2.5-14b_spmd_t2048",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -669,8 +695,11 @@ ADAPTIVE_GRAD_TOL = PIPE_ENGINE_GRAD_TOL
 #: placement sends on both ring directions and keeps the turn in the process)
 RANKS_MODEL_PLANS = PIPE_MODEL_PLANS + (dict(kind="zbv"),)
 #: the ranks phase: the pipeline phase's workload (S, k, PIPE_ARGS), one
-#: process per stage
+#: process per stage; on one card (a check: gloo, the ranks time-slicing
+#: it) GPT-2.7B at full width cut to 8 layers, which pays for the spmd
+#: phase's time (PERF.md, section 4)
 RANKS_STAGES, RANKS_K = PIPE_STAGES, PIPE_K
+RANKS_ONE_CARD_LAYERS = 8
 #: adaptive-ranks-model: GPT-2.7B at full width cut to 8 layers (S * v = 8
 #: divides it) on S = 4 ranks, one iteration of each plan of the walk, on the
 #: adaptive phase's batches (M = 4 micro-batches of 2 x 1024 tokens)
@@ -701,10 +730,11 @@ DIGEST_PROJECTIONS = 4
 #: process; PERF.md, section 6)
 ADAPTIVE_RANKS_MODEL_LR = 1e-3
 #: adaptive-ranks: the adaptive phase's Fig-10 scenario on S = 4 ranks, at
-#: full depth with a card per rank; on one card cut to 16 layers at full
-#: width: at 32 the four processes ran the card out of its 79.18 GiB in an
-#: AdamW update (rank 0 held 17.69 GiB; PERF.md, section 6)
-ADAPTIVE_RANKS_ONE_CARD_LAYERS = 16
+#: full depth with a card per rank; on one card cut to 8 layers at full
+#: width (S * v = 8 divides it): at 32 the four processes ran the card out
+#: of its 79.18 GiB in an AdamW update (rank 0 held 17.69 GiB; PERF.md,
+#: section 6), and 16 left no time for the spmd phase
+ADAPTIVE_RANKS_ONE_CARD_LAYERS = 8
 #: the fabric phase: two hosts, each a whole GPT-2.7B replica at full width
 #: (the adaptive phase's stages and batches, seed 0) cut to 8 layers.  A host
 #: holds fp32 parameters, gradients and AdamW m, v (16 B a parameter), and
@@ -735,6 +765,57 @@ FABRIC_TCP_TIMEOUT = 600
 #: One card and one code path: bitwise equality is expected, and the largest
 #: difference is printed
 FABRIC_LOSS_TOL, FABRIC_DIGEST_TOL = 5e-6, 1e-6
+
+
+#: the spmd phase: qwen2.5-14b at full width (d_model 5120, 40 heads of 128
+#: over 8 KV heads, d_ff 13824, vocabulary 152064, an untied head; 14 770 M
+#: parameters, 236 GB of training state at 16 B a parameter, so no one card
+#: holds it) through repro's sharded step on a (2, 2) ("data", "model") mesh,
+#: one process a rank.  Four cards (NCCL, a card a rank): all 48 layers with
+#: per-layer remat, zero3 then tp_fsdp, b 8 x T 2048 in M = 2 (each
+#: micro-batch's 4 rows over all four ranks under zero3), 4 steps and one
+#: traced.  One card (gloo through pinned host buffers, four ranks
+#: time-slicing it; a check): cut to 2 layers, one step of b 4 x T 512 in M =
+#: 1 under zero3 (a row a rank) and under tp_fsdp with gather_params_once
+#: (two rows a rank).  Each micro-batch gathers the 152064-row embedding and
+#: head and reduce-scatters their gradients through gloo, 23-54 s a
+#: micro-batch, most of the phase (PERF.md, sections 4 to 6): so the
+#: accumulation over micro-batches and the second AdamW step run on four
+#: cards and on the CPU only, and so does tp_fsdp without gather_params_once
+SPMD_ARCH = "qwen2.5-14b"
+SPMD_MESH = {"data": 2, "model": 2}
+SPMD_FOUR = dict(layers=None, batch=8, seq=2048, M=2, steps=4, traced=True, runs=(
+    dict(strategy="zero3"), dict(strategy="tp_fsdp", remat_blocks=True)))
+SPMD_ONE = dict(layers=2, batch=4, seq=512, M=1, steps=1, traced=False, runs=(
+    dict(strategy="zero3"), dict(strategy="tp_fsdp", gather_params_once=True)))
+SPMD_LR = 1e-4
+#: the ranks' losses and clip norms against the one-process step's (one
+#: card) or the first loss against a one-process forward on the serving
+#: weights (four cards), relative: the same bf16 products, on a rank's rows
+#: instead of the micro-batch's (a GEMM of other rows may round otherwise),
+#: means over the ranks in fp32: the ranks phase's limit against its
+#: one-process engine
+SPMD_LOSS_TOL = PIPE_ENGINE_LOSS_TOL
+#: four cards: zero3's losses and clip norms against tp_fsdp's at each step,
+#: relative.  Their rows split otherwise (a row a rank against two), so the
+#: bf16 products round otherwise and the states drift apart: at 4 steps the
+#: losses differed by at most 3.3e-5 and the norms by 1.05e-3 (PERF.md,
+#: section 6); the limits are ten times that
+SPMD_CROSS_TOL = {"loss": 3e-4, "grad_norm": 1e-2}
+#: one card, after step 1: each leaf group's parameter update and AdamW
+#: moments m and v against the one-process step's over the same row groups
+#: (M times the rank's share of a micro-batch: a rank's rows are then one
+#: micro-batch, the same bf16 products, and only the fp32 sums go in
+#: another order), as the relative error of a fixed projection of each group
+#: (_spmd_digests).  The update is lr times m / (sqrt(v) + eps) elementwise,
+#: so it is the loosest of the three
+SPMD_DIGEST_TOL = {"update": 1e-3, "m": 1e-4, "v": 1e-4}
+#: AdamW's eps where the digests are compared (one card).  At 1e-8 an element
+#: whose gradient is a sum that cancels moves by +-lr whatever its size, so
+#: the fp32 sums' order alone moved zero3's update digest by 7.4e-4 at M = 2
+#: (PERF.md, section 6); at 1e-3 such an element moves by lr times its
+#: gradient over eps, as the CPU test of the step sets it
+SPMD_DIGEST_EPS = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2529,9 +2610,8 @@ def phase_ranks(pipeline_first_loss) -> int:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train
 
-    # all 32 layers where each rank has a card of its own; on one card, the
-    # pipeline phase's depth
-    layers = None if torch.cuda.device_count() >= RANKS_STAGES else GPT_LAYERS
+    # all 32 layers where each rank has a card of its own; on one card, cut
+    layers = None if torch.cuda.device_count() >= RANKS_STAGES else RANKS_ONE_CARD_LAYERS
     cfg = GPT_CONFIGS["GPT-2.7B"]
     cfg = cfg if layers is None else cfg.replace(num_layers=layers)
     first_from = "the pipeline phase's"
@@ -3161,6 +3241,335 @@ def phase_fabric_tcp() -> int:
     return launches
 
 
+def _spmd_group(path: str) -> str:
+    """A leaf's group for the digests: a layer's sublayer or a top-level part."""
+    parts = path.split("/")
+    return "/".join(parts[:3] if parts[0] == "layers" else parts[:2])
+
+
+def _spmd_digests(tree, specs, mesh) -> dict:
+    """``{group: sum of each leaf times a fixed pattern of its global
+    indices}`` in float64 over the whole leaves: each rank projects its
+    shards (``cos`` of each dim's global index times a per-dim constant,
+    multiplied over the dims), a shard replicated over an axis counted on
+    that axis's rank 0 only, summed over the world."""
+    from repro_torch.distributed.sharding import spec_axes
+    from repro_torch.tree import flatten
+
+    out = {}
+    for path, t in flatten(tree).items():
+        spec = specs[path]
+        axes = [spec_axes(spec[d]) if d < len(spec) else () for d in range(t.ndim)]
+        named = {a for e in axes for a in e}
+        val = torch.zeros((), dtype=torch.float64, device=t.device)
+        if all(mesh.coord(a) == 0 for a in mesh.axis_names if a not in named):
+            pats = [torch.cos((mesh.index(a) * n + torch.arange(n, device=t.device, dtype=torch.float64))
+                              * (0.7071 + 0.13 * d)) for d, (a, n) in enumerate(zip(axes, t.shape))]
+            rows = max(1, (1 << 24) // max(1, t[0].numel())) if t.ndim else 1
+            for i in range(0, t.shape[0] if t.ndim else 1, rows):
+                v = (t[i:i + rows] if t.ndim else t).double()
+                for pat in reversed(pats[1:]):
+                    v = v @ pat
+                val += (v * pats[0][i:i + rows]).sum() if t.ndim else v
+        g = _spmd_group(path)
+        out[g] = out.get(g, 0.0) + val
+    names = sorted(out)
+    vec = torch.stack([out[n] for n in names])
+    if mesh.size > 1:
+        mesh.group.all_reduce_over(vec, mesh.axis_names)
+    return dict(zip(names, vec.tolist()))
+
+
+def _spmd_state_digests(state, specs, mesh) -> dict:
+    return {"params": _spmd_digests(state.params, specs, mesh), "m": _spmd_digests(state.opt_state.m, specs, mesh),
+            "v": _spmd_digests(state.opt_state.v, specs, mesh)}
+
+
+def _spmd_rank(group, cfg, plan, batches) -> list:
+    """One rank of the spmd phase: each run of ``plan`` (a strategy) builds
+    the sharded step, draws its shards, and steps; returns per run the
+    losses, norms, step times, each step's span seconds (gathers,
+    reduce-scatters, reduces, staging copies, the whole step), K1 launches,
+    the peak memory and, on one card, the digests after step 1."""
+    from repro_torch.device import synchronize
+    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.distributed.spmd import make_spmd_train_step
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.profiling import device_profile
+    from repro_torch.optim import constant_schedule, make_optimizer
+    from repro_torch.tree import flatten
+
+    mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"], group)
+    dev = group.device
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    out = []
+    for run in plan["runs"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt = _spmd_optimizer(plan)
+        step, (specs, _) = make_spmd_train_step(cfg, mesh, batches[0], opt, num_microbatches=plan["M"], **run)
+        state = step.init_state(seed=0)
+        synchronize(dev)
+        want = {k: local_shape(t.shape, step.specs[k], mesh) for k, t in flatten(specs.params).items()}
+        rec = {"run": run, "rows": step.row_axes, "transport": group.transport, "rank": group.rank,
+               "setup_seconds": time.perf_counter() - t0, "losses": [], "grad_norms": [], "step_ms": [], "spans": [],
+               "shapes_ok": all(tuple(t.shape) == want[k] for k, t in flatten(state.params).items())}
+        if group.rank == 0:
+            log(f"  [rank 0] {run}: setup {rec['setup_seconds']:.1f} s, memory_allocated "
+                f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        d0 = _spmd_state_digests(state, step.specs, mesh) if plan["digests"] else None
+        group.barrier()
+        group.take_seconds()
+        n0 = ops.launches
+        for i in range(plan["steps"]):
+            group.barrier()
+            t = time.perf_counter()
+            with group.span("step"):
+                state, m = step(state, batches[i])
+            synchronize(dev)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+            rec["losses"].append(float(m["loss"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+            rec["spans"].append(dict(group.take_seconds()))
+            if group.rank == 0:  # progress, before the phase's summary
+                log(f"  [rank 0] {run} step {i}: {rec['step_ms'][-1]:.1f} ms, loss {rec['losses'][-1]:.6f}, "
+                    f"spans {({k: round(v, 3) for k, v in rec['spans'][-1].items()})}, max_memory_allocated "
+                    f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            if i == 0 and d0 is not None:
+                d1 = _spmd_state_digests(state, step.specs, mesh)
+                rec["digests"] = {"update": {g: d1["params"][g] - d0["params"][g] for g in d0["params"]},
+                                  "m": d1["m"], "v": d1["v"]}
+        if plan["traced"]:  # one more step, traced on rank 0
+
+            def one():
+                step(state, batches[0])
+                synchronize(dev)
+
+            group.barrier()
+            if group.rank == 0:
+                t = time.perf_counter()
+                prof = device_profile(one, dev, {"flash": "flash_fwd", "nccl": "nccl"})
+                rec["profile"] = {"wall_ms": 1e3 * (time.perf_counter() - t), **prof}
+            else:
+                one()
+            group.take_seconds()
+        rec["flash_launches"] = ops.launches - n0
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        del state, step
+        out.append(rec)
+    return out
+
+
+def _spmd_optimizer(plan):
+    """AdamW at SPMD_LR; where digests are compared, at SPMD_DIGEST_EPS."""
+    from repro_torch.optim import constant_schedule, make_optimizer
+
+    return make_optimizer("adamw", constant_schedule(SPMD_LR), **({"eps": SPMD_DIGEST_EPS} if plan["digests"] else {}))
+
+
+def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool) -> dict:
+    """The one-process figures the ranks are held to, on this process's card
+    before the ranks take it: with a card a rank (four cards), the first
+    batch's loss from a forward on api.init_serving_params (no card holds
+    the training state); on one card, the plan's steps of the one-process
+    make_train_step over ``M`` micro-batches, their losses and clip norms,
+    and the digests after step 1; with ``cast_once`` its loss casts the
+    leaves of rank >= 2 in repro's layout to cfg.dtype first, as
+    gather_params_once does (repro's outer_loss)."""
+    from repro_torch.distributed.sharding import PartitionSpec, map_with_path
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import decay_mask
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.training.steps import _microbatches
+    from repro_torch.tree import flatten
+
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()} for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if not plan["digests"]:
+        params = api.init_serving_params(cfg, 0, "cuda")
+        with torch.no_grad():
+            loss = sum(float(api.loss_fn(params, cfg, mb)[0]) for mb in _microbatches(batches[0], M)) / M
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        return {"loss": loss, "what": "a one-process forward on init_serving_params", "peak": peak,
+                "seconds": time.perf_counter() - t0}
+    opt = _spmd_optimizer(plan)
+    state = create_train_state(api.init_params(cfg, 0, "cuda"), opt)
+    specs = {k: PartitionSpec() for k in flatten(state.params)}
+    mesh = make_local_mesh(1, 1)
+    d0 = _spmd_digests(state.params, specs, mesh)
+    cast = decay_mask(state.params)
+
+    def loss(p, b):
+        if cast_once:
+            p = map_with_path(lambda k, w: w.to(cfg.dtype) if cast[k] and w.dtype == torch.float32 else w, p)
+        return api.loss_fn(p, cfg, b)
+
+    train_step = make_train_step(loss, opt, M)
+    out = {"losses": [], "grad_norms": []}
+    for i in range(plan["steps"]):
+        state, m = train_step(state, batches[i])
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        if i == 0:
+            d1 = _spmd_state_digests(state, specs, mesh)
+            out["digests"] = {"update": {g: d1["params"][g] - d0[g] for g in d0}, "m": d1["m"], "v": d1["v"]}
+    out.update(loss=out["losses"][0], peak=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0,
+               what=f"the one-process make_train_step at M={M}{', matrices and norms cast once' if cast_once else ''}")
+    del state
+    return out
+
+
+def _spmd_ref_key(cfg, plan, run) -> tuple[int, bool]:
+    """The reference's (M, cast_once) for ``run``: on one card M times the
+    rank groups a micro-batch's rows split into, and gather_params_once's cast."""
+    if not plan["digests"]:
+        return plan["M"], False
+    return plan["M"] * _spmd_row_split(cfg, plan, run), bool(run.get("gather_params_once"))
+
+
+def _spmd_row_split(cfg, plan, run) -> int:
+    """How many ranks' row groups a micro-batch splits into under ``run``."""
+    from repro_torch.distributed.spmd import _zero3_dp_axes, act_anchor_for
+    from repro_torch.distributed.sharding import spec_axes
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"])
+    if run["strategy"] == "zero3":
+        axes = _zero3_dp_axes(mesh, plan["batch"], plan["M"])
+    else:
+        anchored = act_anchor_for(cfg, mesh, plan["batch"], plan["M"]).act_sharding
+        axes = spec_axes(anchored[0]) if anchored else ()
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _spmd_gate_steps(name, got, want, tol, what) -> None:
+    """``got``'s loss and clip norm at each step against ``want``'s,
+    relative, at ``tol`` (one limit, or one a metric)."""
+    for key, metric in (("losses", "loss"), ("grad_norms", "grad_norm")):
+        limit = tol[metric] if isinstance(tol, dict) else tol
+        rels = [abs(a - b) / abs(b) for a, b in zip(got[key], want[key], strict=True)]
+        log(f"  {metric} at each step {[round(v, 6) for v in got[key]]} vs {what} "
+            f"{[round(v, 6) for v in want[key]]}: largest rel {max(rels):.3e} <= {limit:g}")
+        if max(rels) > limit:
+            raise AssertionError(f"spmd {name}: the {metric} differs from {what}'s")
+
+
+def phase_spmd() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import param_count
+    from repro_torch.pipeline import ranks
+
+    ranks_n = math.prod(SPMD_MESH.values())
+    four = torch.cuda.device_count() >= ranks_n
+    plan = {**(SPMD_FOUR if four else SPMD_ONE), "digests": not four}
+    cfg = get_arch(SPMD_ARCH).model
+    if plan["layers"]:
+        cfg = cfg.replace(num_layers=plan["layers"])
+    data = SyntheticTextDataset(cfg.vocab_size, plan["seq"], plan["batch"], seed=0)
+    batches = [{"tokens": b.tokens.numpy(), "labels": b.labels.numpy()}
+               for b in (data.batch_at(i, "cpu") for i in range(plan["steps"]))]
+    refs = {}
+    for run in plan["runs"]:
+        key = _spmd_ref_key(cfg, plan, run)
+        if key in refs:
+            continue
+        refs[key] = ref = _spmd_reference(cfg, plan, batches, *key)
+        gc.collect()
+        torch.cuda.empty_cache()  # the card is the ranks'
+        log(f"spmd reference for {run}: {ref['what']}, loss {ref['loss']:.6f}, peak {ref['peak'] / 2**30:.2f} "
+            f"GiB, {ref['seconds']:.1f} s")
+    log(f"spmd {SPMD_ARCH} at full width, {cfg.num_layers} layers ({param_count(cfg):,} parameters), b "
+        f"{plan['batch']} x T {plan['seq']} in M={plan['M']}, {plan['steps']} steps a run, {ranks_n} ranks on a "
+        f"{SPMD_MESH} mesh, "
+        f"{torch.cuda.device_count()} card(s); the parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"while the ranks run")
+    ops.launches = 0
+    # the ranks' allocators grow segments in place: on one card four ranks
+    # share it, and fixed segments strand GiBs between their steps
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        per_rank = ranks.spawn(_spmd_rank, ranks_n, args=(cfg, plan, batches), device="cuda", timeout=900,
+                               axes=SPMD_MESH)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    if ops.launches:
+        raise AssertionError("the parent launched K1 during the spmd phase")
+    tokens = plan["batch"] * plan["seq"]
+    launches = 0
+    for j, run in enumerate(plan["runs"]):
+        recs = [r[j] for r in per_rank]
+        r0 = recs[0]
+        ref = refs[_spmd_ref_key(cfg, plan, run)]
+        name = ", ".join(f"{k}={v}" for k, v in run.items())
+        steps = plan["steps"] + int(plan["traced"])
+        want_k1 = cfg.num_layers * plan["M"] * steps * 2  # every forward again in the remat
+        p50 = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in recs]
+        log(f"spmd {name}: rows over {r0['rows']}, transport {r0['transport']}, losses {r0['losses']}, grad norms "
+            f"{[round(v, 4) for v in r0['grad_norms']]}; step p50 {max(p50):.1f} ms (slowest rank), "
+            f"{tokens / (max(p50) / 1e3):,.0f} tokens/s over the world")
+        for r, ms in zip(recs, p50):
+            mid = r["spans"][len(r["spans"]) // 2] if len(r["spans"]) > 1 else r["spans"][0]
+            comm = sum(mid.get(k, 0.0) for k in ("gather", "reduce_scatter", "reduce", "staging"))
+            log(f"  rank {r['rank']}: setup {r['setup_seconds']:.1f} s, step ms {[round(v, 1) for v in r['step_ms']]} "
+                f"(p50 {ms:.1f}); a step (the median one) {1e3 * mid.get('step', 0.0):.1f} ms = gathers "
+                f"{1e3 * mid.get('gather', 0.0):.1f} + reduce-scatters {1e3 * mid.get('reduce_scatter', 0.0):.1f} + "
+                f"all-reduces {1e3 * mid.get('reduce', 0.0):.1f} + staging {1e3 * mid.get('staging', 0.0):.1f} + "
+                f"compute and the rest {1e3 * (mid.get('step', 0.0) - comm):.1f}; max_memory_allocated "
+                f"{r['max_memory_allocated'] / 2**30:.2f} GiB; K1 {r['flash_launches']} (want {want_k1}); shards "
+                f"{'as the rules say' if r['shapes_ok'] else 'WRONG'}")
+        if "profile" in r0:
+            p = r0["profile"]
+            log(f"  traced step on rank 0: wall {p['wall_ms']:.1f} ms, kernels {p['device_ms']:.1f} ms, K1 "
+                f"{p['flash_ms']:.1f} ms, NCCL {p['nccl_ms']:.1f} ms")
+            for op in p["top"]:
+                log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        if not all(r["shapes_ok"] for r in recs):
+            raise AssertionError(f"spmd {name}: a rank's shards are not the rules' shapes")
+        if len({tuple(r["losses"]) for r in recs}) != 1:
+            raise AssertionError(f"spmd {name}: the ranks report different losses")
+        if not all(math.isfinite(v) for v in r0["losses"] + r0["grad_norms"]):
+            raise AssertionError(f"spmd {name}: non-finite loss or gradient norm")
+        if any(r["flash_launches"] != want_k1 for r in recs):
+            raise AssertionError(f"spmd {name}: K1 launches {[r['flash_launches'] for r in recs]}, want {want_k1}")
+        if four and max(r["max_memory_allocated"] for r in recs) >= 80 * 2**30:
+            raise AssertionError(f"spmd {name}: a rank's peak reached 80 GiB")
+        if plan["digests"]:
+            _spmd_gate_steps(name, r0, ref, SPMD_LOSS_TOL, ref["what"])
+            for kind, tol in SPMD_DIGEST_TOL.items():
+                errs = {g: abs(r0["digests"][kind][g] - w) / max(abs(w), 1e-30)
+                        for g, w in ref["digests"][kind].items()}
+                worst = max(errs, key=errs.get)
+                log(f"  step-1 digests of {kind} over {len(errs)} leaf groups: largest rel err {errs[worst]:.3e} "
+                    f"({worst}) <= {tol:g}")
+                if errs[worst] > tol:
+                    raise AssertionError(f"spmd {name}: the step-1 {kind} of {worst} differs from the one-process step's")
+        else:
+            rel = abs(r0["losses"][0] - ref["loss"]) / abs(ref["loss"])
+            log(f"  first loss {r0['losses'][0]:.6f} vs {ref['what']} {ref['loss']:.6f} (rel {rel:.3e} <= "
+                f"{SPMD_LOSS_TOL:g})")
+            if rel > SPMD_LOSS_TOL:
+                raise AssertionError(f"spmd {name}: the first loss differs from {ref['what']}'s")
+            if j:  # the strategies against each other, step by step
+                first = per_rank[0][0]
+                what = ", ".join(f"{k}={v}" for k, v in first["run"].items())
+                _spmd_gate_steps(name, r0, first, SPMD_CROSS_TOL, what)
+        launches += sum(r["flash_launches"] for r in recs)
+    log(f"flash launches on the spmd path: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
@@ -3267,6 +3676,10 @@ def main(argv=None) -> int:
             launches = phase_fabric_tcp()
             if kernels:
                 kernels["flash"]["per_path"]["fabric-tcp"]["launches"] = launches
+        elif name == "spmd":
+            launches = phase_spmd()
+            if kernels:
+                kernels["flash"]["per_path"]["spmd"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
         # what a phase built may hold itself alive (a training runtime and its
         # step cache's factory hold each other): free it before the next

@@ -10,9 +10,12 @@ Two modes, as in the reference:
   mamba2-780m, the default), with the optimizer its ``ArchSpec`` names
   (Adafactor for kimi-k2 and llama4, in the reference's stacked layout;
   AdamW for the rest): a train step that averages the loss and the
-  gradients over ``--microbatches`` micro-batches on one device (the
-  reference's pjit data/tensor-parallel step comes with ROADMAP queue 1,
-  item 9).  Every full-sequence attention's forward runs the flash kernel
+  gradients over ``--microbatches`` micro-batches on one device, as the
+  reference's ``--mode spmd`` runs its pjit step on a one-device mesh.
+  The sharded step over many devices is
+  :func:`repro_torch.distributed.spmd.make_spmd_train_step` (one process a
+  device through ``pipeline.ranks.spawn``), reached from the library, as
+  the reference's is: neither launcher has a flag for it.  Every full-sequence attention's forward runs the flash kernel
   K1 on the card (an encoder's bidirectional self-attention and the
   decoder's cross attention included), every Mamba2 layer's the chunked
   SSD scan in kernel K2.  The batch is built as the reference's

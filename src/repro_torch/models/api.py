@@ -79,16 +79,18 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
     return _init(cfg, gen, finish=lambda part: cast_for_serving(part, cfg))
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
-    """Mean next-token loss of a batch (its keys by family, above)."""
+def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], **hooks):
+    """Mean next-token loss of a batch (its keys by family, above);
+    ``hooks`` are the distributed step's ``use`` and ``row_sum``
+    (:mod:`repro_torch.models.transformer`)."""
     if cfg.family == "encdec":
-        return tf.encdec_loss(params, cfg, batch["src_embeds"], batch["tgt_tokens"], batch["labels"])
+        return tf.encdec_loss(params, cfg, batch["src_embeds"], batch["tgt_tokens"], batch["labels"], **hooks)
     if cfg.family == "vlm":
         return tf.decoder_loss(
             params, cfg, labels=batch["labels"], embeds=batch["embeds"],
-            mrope_positions=batch.get("mrope_positions"),
+            mrope_positions=batch.get("mrope_positions"), **hooks,
         )
-    return tf.decoder_loss(params, cfg, batch["tokens"], labels=batch["labels"])
+    return tf.decoder_loss(params, cfg, batch["tokens"], labels=batch["labels"], **hooks)
 
 
 def forward_fn(

@@ -1,9 +1,9 @@
 """Model configuration and per-layer structure description.
 
 Port of ``repro/models/common.py``, with ``torch`` dtypes in place of
-``jnp`` ones.  :class:`ModelConfig` holds every field of the reference's
-but its sharding anchor and block remat, which belong to the distributed
-path (ROADMAP.md queue 1, item 9).  Every family trains; the
+``jnp`` ones.  :class:`ModelConfig` holds every field of the reference's,
+the block remat and the sharding anchor of the distributed step
+(:mod:`repro_torch.distributed.spmd`) among them.  Every family trains; the
 encoder-decoder and vision-language families do not serve, as in the
 reference, whose serve engine and ``prefill_with_cache`` refuse them
 (:func:`check_servable`).  ``audio`` is a decoder over tokens, as the
@@ -79,6 +79,19 @@ class ModelConfig:
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
     max_seq_len: int = 131_072
+
+    # recompute each layer during the backward (torch.utils.checkpoint),
+    # the counterpart of the reference's jax.checkpoint of each scanned block:
+    # the live activations are one layer's plus the layer-boundary hiddens
+    remat_blocks: bool = False
+
+    # distribution: the reference's PartitionSpec-style anchor of the hidden
+    # stream [B, T, d], e.g. (("pod", "data"), None, None); None on one
+    # device.  Where it is set the MoE layers route each batch row as its own
+    # group in training too (the reference's moe_apply_grouped).  The port
+    # pins no sharding with it: each rank of the distributed step computes
+    # on its own rows (repro's constrain_hidden has no work to do here).
+    act_sharding: tuple | None = None
 
     # ---------------------------------------------------------------
 

@@ -18,11 +18,25 @@ Two entry points, one dispatch:
 * :func:`moe_apply_grouped` -- ``x [G, S, d]``, each of the G groups routed
   and packed on its own with its own capacity (``S`` in place of ``T``),
   the math of the reference's ``moe_apply_grouped`` (its ``slots_one``,
-  ``dispatch_one`` and ``combine_one``) without its sharding pins.  The
-  serve engine's decode routes each slot row as its own group
-  (``G = b``, ``S = 1``), as the reference engine's per-slot ``vmap`` does;
-  the G groups share one batched product over the experts, so each expert's
-  weights are read once a call.
+  ``dispatch_one`` and ``combine_one``) without its sharding pins, and
+  without its ``slots_one`` overwrite of expert 0's first slot by a dropped
+  entry (ROADMAP.md queue 3).  The serve engine's decode routes each slot
+  row as its own group (``G = b``, ``S = 1``), as the reference engine's
+  per-slot ``vmap`` does, and the training forward under
+  ``cfg.act_sharding`` each batch row (the reference's distributed form);
+  the G groups share one batched product over the experts, so each
+  expert's weights are read once a call.
+
+**Rows split over ranks.**  The distributed step gives each rank some rows
+of a micro-batch.  The load-balance term ``E * sum_e frac_e * mean_prob_e``
+over the micro-batch's G * S tokens is a product of two batch means, so the
+mean of per-rank terms is not the whole term.  With ``row_sum`` (a function
+that sums a tensor in place over the ranks holding the micro-batch's
+rows), the expert counts are summed over those ranks (``frac`` is then the
+whole micro-batch's; it carries no gradient) and each rank's term is
+``E * sum_e frac_e * local_mean_prob_e``: its mean over the ranks, value and
+gradient, is the whole micro-batch's term, as the mean of the router z-loss
+and of the cross-entropy over equal row counts are.
 
 The router logits are computed in fp32 from the fp32 router weight (the
 serving cast leaves ``router/w`` in ``param_dtype``); the expert banks are
@@ -83,11 +97,14 @@ def router_topk(cfg: ModelConfig, logits):
     return w, idx, probs
 
 
-def _load_balance_loss(cfg: ModelConfig, probs, idx):
+def _load_balance_loss(cfg: ModelConfig, probs, idx, row_sum=None):
     """Switch-style aux loss: E * <fraction routed to e> . <mean prob of e>.
-    probs [T, E], idx [T, k]."""
+    probs [T, E], idx [T, k]; ``row_sum`` sums the counts over the ranks that
+    hold the rest of the micro-batch (the module docstring)."""
     E = cfg.num_experts
     counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    if row_sum is not None:
+        counts = row_sum(counts)
     frac = counts / counts.sum().clamp(min=1.0)
     return E * (frac * probs.mean(dim=0)).sum()
 
@@ -114,7 +131,7 @@ def route(p, x, cfg: ModelConfig, capacity_factor: float | None = None) -> dict:
     return {"logits": logits, "w": w, "idx": idx, "probs": probs, "rank": rank, "keep": rank < C, "C": C}
 
 
-def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None):
+def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None, row_sum=None):
     """x [G, S, d] -> (y [G, S, d] in cfg.dtype, aux), each group routed on its own."""
     G, S, d = x.shape
     E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, cfg.dtype
@@ -143,7 +160,7 @@ def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None):
         y = y + mlp(p["shared"], x, cfg)
 
     aux = {
-        "load_balance": _load_balance_loss(cfg, r["probs"].reshape(-1, E), r["idx"].reshape(-1, k)),
+        "load_balance": _load_balance_loss(cfg, r["probs"].reshape(-1, E), r["idx"].reshape(-1, k), row_sum),
         "router_z": torch.logsumexp(r["logits"], dim=-1).square().mean(),
         "dropped_frac": 1.0 - keep.float().mean(),
     }
@@ -157,7 +174,9 @@ def moe_apply(p, x, cfg: ModelConfig, capacity_factor: float | None = None):
     return y[0], aux
 
 
-def moe_apply_grouped(p, x, cfg: ModelConfig, capacity_factor: float | None = None):
+def moe_apply_grouped(p, x, cfg: ModelConfig, capacity_factor: float | None = None, row_sum=None):
     """x [G, S, d], each group routed and packed on its own with the capacity
-    of S tokens.  Returns (y [G, S, d], aux over all G * S tokens)."""
-    return _moe(p, x, cfg, capacity_factor)
+    of S tokens.  Returns (y [G, S, d], aux over all G * S tokens); with
+    ``row_sum``, the load-balance term is this rank's share (the module
+    docstring)."""
+    return _moe(p, x, cfg, capacity_factor, row_sum)

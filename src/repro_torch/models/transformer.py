@@ -33,6 +33,20 @@ self-attention over the target tokens and cross attention over the
 encoder's memory.  Decode takes the memory as an input each step (the
 reference keeps it out of the cache, whose ``xkv`` stays ``None``; the
 port's cache has no such entry).
+
+**Training hooks of the distributed step** (:mod:`repro_torch.distributed.spmd`).
+The training forwards take ``use`` and ``row_sum``.  ``use`` maps a part of
+the parameter tree (the embedding table, the head, one layer, a norm) to
+the tree the computation reads, just before that part runs: the
+distributed step passes each rank's shards and gathers them there, so a
+layer's full weights live only while it runs (and again in its
+recompute).  ``row_sum`` is :func:`repro_torch.models.moe.moe_apply_grouped`'s
+reduce over the ranks that hold the rest of a micro-batch.  With
+``cfg.remat_blocks`` each layer runs under ``torch.utils.checkpoint``
+(non-reentrant), the gather inside it; with ``cfg.act_sharding`` set the
+MoE layers route each batch row as its own group, as the reference's do.
+The reference's ``constrain_hidden`` anchor at each block boundary has no
+counterpart: each rank's rows are its own.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
@@ -173,15 +188,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=N
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, row_sum=None):
     """The FFN sublayer: (delta, (load_balance, router_z)), the terms zero
     for a dense FFN.  An MoE FFN routes the [B, T] tokens as one group, or
-    with ``per_row_moe`` each batch row as its own group."""
+    with ``per_row_moe`` or under ``cfg.act_sharding`` each batch row as its
+    own group (``row_sum``: the module docstring)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
         h = norm_apply(p["ln2"], x, cfg)
-        if per_row_moe:
-            y, aux = moe_mod.moe_apply_grouped(p["moe"], h, cfg)
+        if per_row_moe or cfg.act_sharding is not None:
+            y, aux = moe_mod.moe_apply_grouped(p["moe"], h, cfg, row_sum=row_sum)
         else:
             B, T, d = h.shape
             y, aux = moe_mod.moe_apply(p["moe"], h.reshape(B * T, d), cfg)
@@ -194,13 +210,13 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False):
 
 def apply_layer_train(
     p, x, cfg: ModelConfig, spec: LayerSpec, *, causal: bool = True, memory=None,
-    positions=None, mrope_positions=None, plain_attention: bool = False,
+    positions=None, mrope_positions=None, plain_attention: bool = False, row_sum=None,
 ):
     """Full-sequence training forward of one layer.  Returns (x, aux), aux
     the MoE load-balance and router-z terms (zeros for a dense FFN).  A
     layer with a cross attention attends to ``memory`` after its
     self-attention.  ``plain_attention`` is :func:`attn.attn_train`'s
-    on-card comparison flag."""
+    on-card comparison flag; ``row_sum`` the MoE layer's (module docstring)."""
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
         h = attn.attn_train(
@@ -213,8 +229,29 @@ def apply_layer_train(
     if memory is not None and "xattn" in p:
         h = attn.cross_attn(p["xattn"], norm_apply(p["ln_x"], x, cfg), memory, cfg, plain_attention=plain_attention)
         x = x + h
-    delta, aux = _ffn(p, x, cfg, spec)
+    delta, aux = _ffn(p, x, cfg, spec, row_sum=row_sum)
     return x + delta, aux
+
+
+def _whole(part):
+    return part
+
+
+def _train_layers(layers, specs, x, cfg: ModelConfig, use=None, **kw):
+    """Every layer's training forward in order -> (x, load_balance sum,
+    router_z sum); each layer's parameters through ``use`` as it runs, and
+    under a checkpoint with ``cfg.remat_blocks`` (the module docstring)."""
+    use = use or _whole
+    aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(layers, specs):
+
+        def run(x, p=p, spec=spec):
+            return apply_layer_train(use(p), x, cfg, spec, **kw)
+
+        x, (lb, z) = checkpoint(run, x, use_reentrant=False) if cfg.remat_blocks else run(x)
+        aux_lb, aux_z = aux_lb + lb, aux_z + z
+    return x, aux_lb, aux_z
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device=None):
@@ -274,34 +311,37 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, finish=None):
     return params
 
 
-def _hidden_from_inputs(params, cfg: ModelConfig, tokens, embeds):
+def _hidden_from_inputs(params, cfg: ModelConfig, tokens, embeds, use=None):
     if embeds is not None:
         return embeds.to(cfg.dtype)
-    return embed(params["embed"], tokens, cfg)
+    return embed((use or _whole)({"table": params["embed"]["table"]}), tokens, cfg)
 
 
-def _head(params, cfg: ModelConfig, x, aux_lb, aux_z, last_only: bool):
+def _head(params, cfg: ModelConfig, x, aux_lb, aux_z, last_only: bool, use=None):
+    use = use or _whole
     if last_only:
         x = x[:, -1:, :]
-    x = norm_apply(params["final_norm"], x, cfg)
-    return unembed(params["embed"], x, cfg), {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
+    x = norm_apply(use(params["final_norm"]), x, cfg)
+    out = "head" if "head" in params["embed"] else "table"
+    logits = unembed(use({out: params["embed"][out]}), x, cfg)
+    return logits, {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
 
 
 def decoder_forward(
     params, cfg: ModelConfig, tokens=None, embeds=None, *, mrope_positions=None,
-    last_only: bool = False, plain_attention: bool = False,
+    last_only: bool = False, plain_attention: bool = False, use=None, row_sum=None,
 ):
     """Full-sequence forward over tokens [B, T] or embeddings [B, T, d]
     (with ``mrope_positions`` [3, B, T] for an M-RoPE config) -> (logits
     [B, T, V], aux metrics).  ``last_only`` unembeds the last position
-    alone (logits [B, 1, V]), the prefill's contract."""
-    x = _hidden_from_inputs(params, cfg, tokens, embeds)
-    aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec in zip(params["layers"], layer_specs(cfg)):
-        x, (lb, z) = apply_layer_train(p, x, cfg, spec, mrope_positions=mrope_positions, plain_attention=plain_attention)
-        aux_lb, aux_z = aux_lb + lb, aux_z + z
-    return _head(params, cfg, x, aux_lb, aux_z, last_only)
+    alone (logits [B, 1, V]), the prefill's contract; ``use`` and
+    ``row_sum`` are the distributed step's (module docstring)."""
+    x = _hidden_from_inputs(params, cfg, tokens, embeds, use)
+    x, aux_lb, aux_z = _train_layers(
+        params["layers"], layer_specs(cfg), x, cfg, use, mrope_positions=mrope_positions,
+        plain_attention=plain_attention, row_sum=row_sum,
+    )
+    return _head(params, cfg, x, aux_lb, aux_z, last_only, use)
 
 
 def _loss(logits, aux, labels):
@@ -310,10 +350,12 @@ def _loss(logits, aux, labels):
     return total, {"ce_loss": loss, **aux}
 
 
-def decoder_loss(params, cfg: ModelConfig, tokens=None, labels=None, embeds=None, *, mrope_positions=None):
+def decoder_loss(
+    params, cfg: ModelConfig, tokens=None, labels=None, embeds=None, *, mrope_positions=None, use=None, row_sum=None,
+):
     """(total loss, metrics): mean token cross-entropy plus the weighted MoE
     terms; metrics ``ce_loss``, ``moe_load_balance``, ``moe_router_z``."""
-    logits, aux = decoder_forward(params, cfg, tokens, embeds, mrope_positions=mrope_positions)
+    logits, aux = decoder_forward(params, cfg, tokens, embeds, mrope_positions=mrope_positions, use=use, row_sum=row_sum)
     return _loss(logits, aux, labels)
 
 
@@ -369,33 +411,34 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, finish=None):
     return params
 
 
-def _encode(params, cfg: ModelConfig, src_embeds, plain_attention: bool = False):
+def _encode(params, cfg: ModelConfig, src_embeds, plain_attention: bool = False, use=None):
     """The encoder's memory [B, S, d] from the frontend's frame embeddings:
     bidirectional layers, then the encoder's final norm."""
     enc = encoder_config(cfg)
-    x = src_embeds.to(cfg.dtype)
-    for p, spec in zip(params["encoder"], layer_specs(enc, cfg.encoder_layers)):
-        x, _ = apply_layer_train(p, x, enc, spec, causal=False, plain_attention=plain_attention)
-    return norm_apply(params["enc_norm"], x, cfg)
+    x, _, _ = _train_layers(
+        params["encoder"], layer_specs(enc, cfg.encoder_layers), src_embeds.to(cfg.dtype), enc, use,
+        causal=False, plain_attention=plain_attention,
+    )
+    return norm_apply((use or _whole)(params["enc_norm"]), x, cfg)
 
 
 def encdec_forward(
     params, cfg: ModelConfig, src_embeds, tgt_tokens, last_only: bool = False, plain_attention: bool = False,
+    use=None, row_sum=None,
 ):
     """(logits [B, T, V], aux) of the target tokens [B, T] over the source
     frames [B, S, d] (the modality frontend's output)."""
-    memory = _encode(params, cfg, src_embeds, plain_attention)
-    x = embed(params["embed"], tgt_tokens, cfg)
-    aux_lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux_z = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec in zip(params["decoder"], layer_specs(cfg)):
-        x, (lb, z) = apply_layer_train(p, x, cfg, spec, memory=memory, plain_attention=plain_attention)
-        aux_lb, aux_z = aux_lb + lb, aux_z + z
-    return _head(params, cfg, x, aux_lb, aux_z, last_only)
+    memory = _encode(params, cfg, src_embeds, plain_attention, use)
+    x = _hidden_from_inputs(params, cfg, tgt_tokens, None, use)
+    x, aux_lb, aux_z = _train_layers(
+        params["decoder"], layer_specs(cfg), x, cfg, use, memory=memory, plain_attention=plain_attention,
+        row_sum=row_sum,
+    )
+    return _head(params, cfg, x, aux_lb, aux_z, last_only, use)
 
 
-def encdec_loss(params, cfg: ModelConfig, src_embeds, tgt_tokens, labels):
-    logits, aux = encdec_forward(params, cfg, src_embeds, tgt_tokens)
+def encdec_loss(params, cfg: ModelConfig, src_embeds, tgt_tokens, labels, *, use=None, row_sum=None):
+    logits, aux = encdec_forward(params, cfg, src_embeds, tgt_tokens, use=use, row_sum=row_sum)
     return _loss(logits, aux, labels)
 
 

@@ -15,7 +15,11 @@ is its own group.  AdamW does not read it: its decay rule is
 ``norm_reduce`` is for a model split over ranks: a function that sums the
 rank's squared gradient norm over the ranks (the pipeline stages), so that
 every rank clips by the norm of the whole tree, as ``repro`` clips its
-stacked one.
+stacked one.  ``shards`` is Adafactor's view of sharded leaves (its
+reductions across a leaf, :mod:`repro_torch.optim.adafactor`).
+``Optimizer.config`` keeps the arguments, so that :func:`make_optimizer`
+can rebuild the optimizer for a rank's shards
+(:mod:`repro_torch.distributed.spmd`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[..., tuple]  # (params, grads, state) -> (params, state, metrics)
     schedule: Schedule
+    #: make_optimizer's arguments: make_optimizer(**{**config, ...}) rebuilds it
+    config: dict = dataclasses.field(default_factory=dict)
 
 
 def make_optimizer(
@@ -45,18 +51,23 @@ def make_optimizer(
     max_grad_norm: float | None = 1.0,
     norm_reduce=None,
     layout=None,
+    shards=None,
     **hyper,
 ) -> Optimizer:
+    config = dict(
+        name=name, schedule=schedule, max_grad_norm=max_grad_norm, norm_reduce=norm_reduce, layout=layout,
+        shards=shards, **hyper,
+    )
     schedule = schedule or constant_schedule(3e-4)
     if name == "adamw":
         init_fn, update_fn = adamw_init, adamw_update
     elif name == "adafactor":
 
         def init_fn(params):
-            return adafactor_init(params, layout)
+            return adafactor_init(params, layout, shards)
 
         def update_fn(params, grads, state, lr, **h):
-            return adafactor_update(params, grads, state, lr, layout=layout, **h)
+            return adafactor_update(params, grads, state, lr, layout=layout, shards=shards, **h)
 
     else:
         raise ValueError(f"unknown optimizer {name!r}")
@@ -70,4 +81,4 @@ def make_optimizer(
         new_params, new_state = update_fn(params, grads, state, lr, **hyper)
         return new_params, new_state, metrics
 
-    return Optimizer(name=name, init=init_fn, update=update, schedule=schedule)
+    return Optimizer(name=name, init=init_fn, update=update, schedule=schedule, config=config)

@@ -32,6 +32,16 @@ step.  A span is the time the compute stream spent on it, waits included:
 under NCCL a receive's span is the stream's stall on the transfer, under
 gloo the host's block in it.
 
+**A mesh of ranks.** :func:`spawn` with ``axes`` (``{"data": 2, "model":
+2}``, whose product is the world) lays the ranks out row-major over named
+axes, the last fastest, as ``jax.make_mesh`` lays out its devices.  Each
+rank gets its coordinate (:attr:`RankGroup.coords`) and a process group
+for every set of axes (the ranks that differ only along them), and
+:meth:`RankGroup.all_reduce_over`, :meth:`RankGroup.all_gather_over` and
+:meth:`RankGroup.reduce_scatter_over` run over such a set, a group rank's
+chunk in mesh-axis order.  Under gloo on the card they stage through pinned
+host buffers, as the transfers do: gloo's collectives take CPU tensors.
+
 Rendezvous goes through a file in a fresh temporary directory, not a
 fixed port, so several worlds can start at once on one machine.
 """
@@ -42,6 +52,9 @@ import collections
 import contextlib
 import dataclasses
 import datetime
+import importlib
+import itertools
+import math
 import multiprocessing
 import os
 import queue
@@ -61,6 +74,8 @@ __all__ = ["RankGroup", "Recv", "choose_transport", "spawn"]
 #: how long a collective or transfer may block before the process group
 #: gives up (a hung peer then fails the run instead of stalling it)
 _PG_TIMEOUT = datetime.timedelta(minutes=10)
+#: the largest piece a mesh collective moves at once
+_PIECE_BYTES = 256 * 2**20
 
 
 def choose_transport(device: torch.device, world_size: int) -> str:
@@ -111,6 +126,12 @@ class RankGroup:
     transport: str  # "nccl" or "gloo"
     stage_group: Any  # the S stages of replica d
     data_group: Any  # the D replicas of stage s; None when D == 1
+    #: the named mesh axes ((name, size), ...) and this rank's index on
+    #: each; empty when spawned without ``axes``
+    axes: tuple = ()
+    coords: dict = dataclasses.field(default_factory=dict)
+    #: {axis names in mesh order: the group of the ranks differing only along them}
+    axis_groups: dict = dataclasses.field(default_factory=dict)
     _sends: list = dataclasses.field(default_factory=list)
     #: (item, start, end) of every span since :meth:`take_seconds`: CUDA
     #: events on the card, host clock readings on the CPU
@@ -199,7 +220,9 @@ class RankGroup:
     def all_reduce_sum(self, t: torch.Tensor, axis: str = "stage") -> torch.Tensor:
         """Sum ``t`` in place over the ``"stage"`` or ``"data"`` group and
         return it."""
-        pg = self.stage_group if axis == "stage" else self.data_group
+        return self._all_reduce(t, self.stage_group if axis == "stage" else self.data_group)
+
+    def _all_reduce(self, t: torch.Tensor, pg) -> torch.Tensor:
         if pg is None:  # a group of one
             return t
         buf = self._host(t)
@@ -209,6 +232,78 @@ class RankGroup:
             with self.span("staging"):
                 t.copy_(buf)
         return t
+
+    def _axis_group(self, axes) -> tuple[Any, int]:
+        """(process group, size) of the ranks differing only along ``axes``."""
+        key = tuple(a for a, _ in self.axes if a in axes)
+        if len(key) != len(set(axes)):
+            raise ValueError(f"unknown mesh axes {axes}; the mesh has {self.axes}")
+        n = math.prod(dict(self.axes)[a] for a in key)
+        return (self.axis_groups[key] if n > 1 else None), n
+
+    def all_reduce_over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum ``t`` in place over the ranks differing only along ``axes``
+        (mesh axis names) and return it."""
+        return self._all_reduce(t, self._axis_group(axes)[0])
+
+    def _pieces(self, x: torch.Tensor, dtype) -> list[torch.Tensor]:
+        """``x`` (the collective's dim first) in pieces along its second dim,
+        each at most :data:`_PIECE_BYTES` in ``dtype``: the copies a
+        collective makes (the cast, the contiguous layout, the host buffer)
+        then stay small beside the leaf."""
+        if x.ndim < 2:
+            return [x]
+        k = min(x.shape[1], math.ceil(x.numel() * dtype.itemsize / _PIECE_BYTES))
+        return list(x.tensor_split(max(k, 1), dim=1))
+
+    def all_gather_over(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``t`` (over ``axes``) concatenated along ``dim`` in
+        mesh-axis order, on the rank's device, contiguous (a product with a
+        strided operand may take another kernel and round otherwise)."""
+        pg, n = self._axis_group(axes)
+        if n == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= n
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        if dim == 0 and not self.staged:  # straight into place
+            with self.span("gather"):
+                dist.all_gather_into_tensor(out, t.contiguous(), group=pg)
+            return out
+        moved, col = out.movedim(dim, 0), 0
+        for piece in self._pieces(t.movedim(dim, 0), t.dtype):
+            x = self._host(piece.contiguous())
+            buf = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device, pin_memory=self.staged)
+            with self.span("gather"):
+                dist.all_gather_into_tensor(buf, x, group=pg)
+            dst = moved if piece.ndim < 2 else moved.narrow(1, col, piece.shape[1])
+            with self.span("staging" if self.staged else "gather"):
+                dst.copy_(buf)
+            col += piece.shape[1] if piece.ndim > 1 else 0
+        return out
+
+    def reduce_scatter_over(self, t: torch.Tensor, axes, dim: int = 0, dtype=None) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of the ranks' ``t``
+        over ``axes``, chunked in mesh-axis order, summed in ``dtype`` (by
+        default ``t``'s), a piece at a time."""
+        pg, n = self._axis_group(axes)
+        dtype = dtype or t.dtype
+        if n == 1:
+            return t.to(dtype)
+        outs = []
+        for piece in self._pieces(t.movedim(dim, 0), dtype):
+            x = self._host(piece.to(dtype, memory_format=torch.contiguous_format))
+            out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=dtype, device=x.device,
+                              pin_memory=self.staged)
+            with self.span("reduce_scatter"):
+                dist.reduce_scatter_tensor(out, x, group=pg)
+            del x
+            if self.staged:
+                with self.span("staging"):
+                    out = out.to(self.device)
+            outs.append(out)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return out.movedim(0, dim)
 
     def barrier(self) -> None:
         if self.transport == "nccl":
@@ -231,7 +326,31 @@ class RankGroup:
         return out if self.rank == 0 else None
 
 
-def _join(S: int, D: int, rank: int, init_file: str, device_type: str) -> RankGroup:
+def _axis_groups(axes: tuple, rank: int) -> tuple[dict, dict]:
+    """This rank's coordinates over ``axes`` and its group for every
+    non-empty set of them (every rank creates every group, in one order)."""
+    names, sizes = [a for a, _ in axes], [n for _, n in axes]
+    coords, r = {}, rank
+    for a, n in reversed(axes):
+        coords[a], r = r % n, r // n
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for key in itertools.combinations(names, k):
+            if math.prod(n for a, n in axes if a in key) == 1:
+                continue
+            others = [a for a in names if a not in key]
+            for fixed in itertools.product(*(range(sizes[names.index(a)]) for a in others)):
+                members = []
+                for c in itertools.product(*(range(n) for n in sizes)):
+                    if all(c[names.index(a)] == v for a, v in zip(others, fixed)):
+                        members.append(sum(ci * math.prod(sizes[i + 1:]) for i, ci in enumerate(c)))
+                g = dist.new_group(sorted(members))
+                if all(coords[a] == v for a, v in zip(others, fixed)):
+                    groups[key] = g
+    return {a: coords[a] for a in names}, groups
+
+
+def _join(S: int, D: int, rank: int, init_file: str, device_type: str, axes: tuple = ()) -> RankGroup:
     """Join the world as global ``rank`` and build the rank's groups; every
     rank creates every group, in the same order."""
     world = S * D
@@ -255,20 +374,29 @@ def _join(S: int, D: int, rank: int, init_file: str, device_type: str) -> RankGr
             g = dist.new_group([dd * S + ss for dd in range(D)])
             if ss == s:
                 data_group = g
-    group = RankGroup(rank, s, d, S, D, device, transport, stage_group, data_group)
+    coords, axis_groups = _axis_groups(axes, rank) if axes else ({}, {})
+    group = RankGroup(rank, s, d, S, D, device, transport, stage_group, data_group, axes, coords, axis_groups)
     # every rank of a group takes part in its first collective (NCCL then
     # allows batches of point-to-point transfers among some of them)
     group.all_reduce_sum(torch.zeros(1, device=device), "stage")
     group.all_reduce_sum(torch.zeros(1, device=device), "data")
+    for key in axis_groups:
+        group.all_reduce_over(torch.zeros(1, device=device), key)
     group.barrier()
     group.take_seconds()
     return group
 
 
-def _child(fn, S, D, rank, init_file, device_type, args, results) -> None:
+def _child(fn, S, D, rank, init_file, device_type, args, results, axes) -> None:
     torch.set_num_threads(1)
+    if device_type == "cuda":
+        # the first call of a torch.library custom operator (K1's training
+        # forward) imports torch._dynamo, seconds of host time; inside a
+        # pipeline step each rank would pay it only once its first input
+        # arrived, one rank after another, so every rank pays it here, at once
+        importlib.import_module("torch._dynamo")
     try:
-        group = _join(S, D, rank, init_file, device_type)
+        group = _join(S, D, rank, init_file, device_type, axes)
         try:
             out = fn(group, *args)
             results.put((rank, True, out))
@@ -286,9 +414,14 @@ def spawn(
     args: tuple = (),
     device=None,
     timeout: float | None = 600.0,
+    axes: dict | None = None,
 ) -> list:
     """Run ``fn(group, *args)`` on ``S * D`` ranks, one process each (start
     method ``spawn``), and return each rank's result in rank order.
+
+    ``axes`` (``{name: size}``, in mesh order, sizes multiplying to ``S *
+    D``) lays the ranks out as a mesh: each group then has its coordinates
+    and the collectives over any set of the axes.
 
     ``fn`` must be importable by name (a module-level function) and its
     arguments and result picklable; plain Python and numpy objects are the
@@ -300,13 +433,16 @@ def spawn(
     still fails, when its process group's timeout expires."""
     device_type = resolve_device(device).type
     world = S * D
+    axes = tuple((axes or {}).items())
+    if axes and math.prod(n for _, n in axes) != world:
+        raise ValueError(f"mesh axes {dict(axes)} do not make {world} ranks")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     procs = [
         ctx.Process(
             target=_child,
-            args=(fn, S, D, r, os.path.join(tmp, "rendezvous"), device_type, args, results),
+            args=(fn, S, D, r, os.path.join(tmp, "rendezvous"), device_type, args, results, axes),
             daemon=True,
         )
         for r in range(world)

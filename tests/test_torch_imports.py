@@ -48,6 +48,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     for mod in ("configs.base", "configs.io", *(f"configs.{a}" for a in archs), "models.moe", "optim.adafactor",
                 "checkpoint", "checkpoint.io"):
         assert f"repro_torch.{mod}" in mods, mod
+    for mod in ("distributed", "distributed.sharding", "distributed.spmd", "distributed.rank_checks", "launch.mesh"):
+        assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -133,3 +135,22 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_sharded_step_needs_the_card_and_serving_is_not_ported():
+    """``make_spmd_train_step`` on a one-process mesh defaults to the card;
+    the serving half of ``repro``'s spmd module raises, naming its item."""
+    from repro_torch import distributed
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = GPT_CONFIGS["GPT-2.7B"].replace(**SMALL)
+    specs = {"tokens": torch.empty(2, 8, device="meta"), "labels": torch.empty(2, 8, device="meta")}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            distributed.make_spmd_train_step(cfg, make_local_mesh(), specs)
+    step, (state_specs, _) = distributed.make_spmd_train_step(cfg, make_local_mesh(), specs, device="cpu")
+    assert state_specs.params["embed"]["table"].device.type == "meta"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        distributed.make_spmd_prefill(cfg, make_local_mesh(), specs)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        distributed.make_spmd_serve_step(cfg, make_local_mesh(), specs, 16)
