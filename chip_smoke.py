@@ -60,7 +60,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 Ada-Grouper's adaptive serving: ``launch/serve_adaptive``'s
                 adaptive-vs-static comparison (repro's Fig-10 serving world,
                 24 requests, seed 0, ticks priced on specs/h100-sxm.json)
-                with GPT-2.7B (full width, 16 layers) behind each run, every tuner
+                with GPT-2.7B (full width, GPT_LAYERS = 8 layers) behind each run, every tuner
                 decision switched live into the engine through the
                 stateless PlanRuntime.  Gates: every request completes with
                 exactly its max_new_tokens; no non-finite logit; every
@@ -68,7 +68,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the engine-free run's, and the trail crosses >= 2 kinds; the
                 bursty and exclusive regimes end on different plans; each
                 plan built once (cache misses = distinct plans dispatched,
-                every later switch a hit); K1 = prefills x 16 layers; every
+                every later switch a hit); K1 = prefills x 8 layers; every
                 request's first token equal in both runs.  The simulated
                 TTFT/token-latency p99 and SLO attainment, and the measured
                 prefill and per-plan decode tick p50, wall tokens/s, switch
@@ -85,7 +85,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 mamba_decode over its prompt on the card; a traced tick
 6c. serve-dense
                 qwen1.5-4b, qwen2.5-14b, internlm2-20b and gemma3-12b at
-                full width and half depth (20, 24, 24, 24 layers), one
+                full width cut to 12 layers each, one
                 after the other, through ``serve_decode
                 --config <arch id>`` (8 slots on M=4 x b=2, 8 requests,
                 16-32 new tokens; prompts 128-512 and max_len 544, gemma3's
@@ -128,8 +128,8 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the experts shifted by one (a planted fault) rejected
 7c. serve-moe   the three at full width through ``serve_decode`` (8 slots on
                 M=4 x b=2, 8 requests, 16-32 new tokens; each decode row
-                routed as its own MoE group): jamba cut to 16 layers (two
-                periods, prompts 16-32: its Mamba layers prefill a token at
+                routed as its own MoE group): jamba cut to 8 layers (one
+                period, prompts 16-32: its Mamba layers prefill a token at
                 a time), kimi-k2 and llama4 at 2 layers (prompts 128-512),
                 the weights drawn and cast an expert bank at a time; every
                 request completes with finite logits; K1 = prefills x
@@ -190,12 +190,12 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 path against the plain attention; K1 launches in every run
                 equal the attention forwards of the plan's grid
                 (M*L*(2S-1)/S under kfkb)
-9. pipeline     GPT-2.7B at full width cut to GPT_LAYERS = 16 trained through
+9. pipeline     GPT-2.7B at full width cut to GPT_LAYERS = 8 trained through
                 ``repro_torch.launch.train.run_pipeline`` on the one-process
                 reference engine (``engine="reference"``): S=4 stages under
                 kfkb k=2, M=8 micro-batches of 1 x 1024 tokens, 6 steps and
                 one profiled step; the loss is finite and falls, and K1 ran
-                M*L*(2S-1)/S = 224 times a step
+                M*L*(2S-1)/S = 112 times a step
 10. calibrate   GPT-2.7B at full width and depth calibrated through
                 ``repro_torch.launch.dryrun_pipeline.calibrate`` (S=4, the
                 adaptive phase's micro-batch b=2 x T=1024, seed 0), once
@@ -215,7 +215,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 spread of the timed runs, the warmup vectors and the
                 tuner's choice on both costs are printed
 11. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width cut
-                to GPT_LAYERS = 16 trained through
+                to GPT_LAYERS = 8 trained through
                 ``repro_torch.launch.train_adaptive``'s
                 Fig-10 scenario (S=4, M=4 micro-batches of 2 x 1024 tokens,
                 the tuner choosing among 1F1B, 2F2B, ZB-H1, ZB-H2(w=2) and
@@ -334,7 +334,37 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 (the remat runs each forward again); on four cards every
                 rank's peak under 80 GiB.  Per rank: step p50, tokens/s,
                 max_memory_allocated, and a step's seconds in gathers,
-                reduce-scatters, all-reduces, staging and the rest
+                reduce-scatters, all-reduces, staging and the rest.
+                tp_fsdp runs the tensor-parallel products over "model"
+                (distributed/tensor_parallel.py): its leaves gathered and
+                its gradients reduce-scattered over "data" only; on one
+                card it computes in fp32 against an fp32 one-process step,
+                each digest's error taken over the digest's mass at
+                SPMD_TP_MASS_TOL (SPMD_ONE_FP32: in bf16 its products round
+                apart), and that gate must see a doubled leaf of every norm
+                scale.  --spmd-control adds tp_fsdp in bf16 against the same
+                fp32 step, which that gate must refuse (its readings logged)
+19. spmd-serve  repro's sharded prefill and decode step (make_spmd_prefill,
+                make_spmd_serve_step) on qwen2.5-14b at full width, four
+                ranks on the (2, 2) mesh, the weights stationary (each
+                rank's shard of init_serving_params, seed 0), the products
+                tensor-parallel over "model" (SPMD_SERVE_CHECK, on one card
+                through gloo and on four through NCCL: 2 layers, a prefill
+                of b 4 x T 512 twice, 4 decode steps at b 4 and 4 at b 1
+                against prefill_with_cache's cache cut to each rank's shard,
+                the KV sequence over "model"; SPMD_SERVE_FOUR, four cards
+                only: 48 layers, a prefill of b 4 x T 32768 three times, 8
+                decode steps at B 16 against a kv_len 32768 cache of seeded
+                values, from an index in the last "model" rank's range).
+                Gates: every call's logits finite and equal on every rank
+                (digests); the check's within SPMD_SERVE_TOL of one
+                process's prefill_fn and decode_step on the same weights;
+                no rank gathers an attention or MLP leaf, the embedding or
+                the head; K1 per rank = attention layers x prefills; on four
+                cards every rank's peak under 80 GiB.  Per rank: each call's
+                wall ms (p50 with the first left out, tokens/s), its
+                all-reduce and all-gather counts and bytes, its span seconds
+                (all-reduces, gathers, staging), weights, cache and peak
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
@@ -342,7 +372,8 @@ them after its run and returns them.
 The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
-ranks, the fabric in one process and across two, the sharded step, the
+ranks, the fabric in one process and across two, the sharded step and
+the sharded prefill (at a four-card rank's shape), the
 dense archs' model check, serving and training, the MoE and hybrid archs', and the
 encoder-decoder and VLM archs' model check and training, each at its own
 shape; K2's per main path: train and train-moe);
@@ -371,7 +402,7 @@ PHASES = (
     "device", "build", "kernels", "model", "model-dense", "train-model", "serve", "serve-adaptive", "serve-ssm",
     "serve-dense", "train", "train-dense", "model-moe", "serve-moe", "train-moe", "model-encdec-vlm",
     "train-encdec-vlm", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
-    "adaptive-ranks", "fabric", "fabric-tcp", "spmd",
+    "adaptive-ranks", "fabric", "fabric-tcp", "spmd", "spmd-serve",
 )
 
 #: the device spec of one H100 SXM (published dense peaks at its 700 W
@@ -467,13 +498,25 @@ FLASH_CASES = [
     # the spmd phase's qwen2.5-14b on one rank's rows: one row of T 2048 (zero3
     # on four cards)
     ("qwen2.5-14b_spmd_t2048", 1, 2048, 2048, 40, 8, 128, torch.bfloat16, True, None),
+    # the spmd-serve phase's sharded prefill on four cards, one rank's share:
+    # its 2 rows of 4 and its 20 of 40 heads over 4 of 8 KV groups at T 32768
+    # (the plain version's scores take the chunked route there: LONG_FLASH)
+    ("qwen2.5-14b_tp_b2_t32768", 2, 32768, 32768, 20, 4, 128, torch.bfloat16, True, None),
 ]
+#: cases whose plain version would hold a [B, H, T, S] fp32 score tensor no
+#: card holds (172 GB at qwen2.5-14b_tp_b2_t32768): checked against the
+#: plain version over query chunks (ref.chunked_attention) and timed over
+#: LONG_FLASH_ITERS calls, the plain version over one (it takes ~1.1 s)
+LONG_FLASH = ("qwen2.5-14b_tp_b2_t32768",)
+LONG_FLASH_ITERS = 2
 TIMED_CASE = "gpt2.7b_t512"
-#: the serve-adaptive phase's GPT-2.7B, at full width cut to 16 of its 32
-#: layers; the pipeline and adaptive phases' too, and the ranks' on fewer
-#: cards than ranks (the cuts that keep the whole script inside its time
-#: limit on a slower host; PERF.md, section 4).  The serve phase runs all 32
-GPT_LAYERS = 16
+#: the serve-adaptive phase's GPT-2.7B, at full width cut to 8 of its 32
+#: layers; the pipeline and adaptive phases' too (the cuts that keep the
+#: whole script inside its time limit on a slower host, 8 to pay for the
+#: spmd-serve phase; PERF.md, section 4), the
+#: depth of the ranks' and adaptive-ranks' one-card runs, so that those
+#: reuse these phases' first losses.  The serve phase runs all 32
+GPT_LAYERS = 8
 #: K1's shape on each main path: the longest serving prefill, the adaptive
 #: serving prefill, one pipeline micro-batch, one calibrated or adaptive
 #: micro-batch, one micro-batch on the ranks
@@ -486,7 +529,7 @@ PATH_CASES = {
     "train-dense": "gemma3-12b_train_t2048",
     "model-moe": "kimi-k2_gqa_t512", "serve-moe": "kimi-k2_gqa_t512", "train-moe": "kimi-k2_train_t2048",
     "model-encdec-vlm": "seamless_cross_b4_t1024_s128", "train-encdec-vlm": "qwen2-vl_gqa6_b2_t2048",
-    "spmd": "qwen2.5-14b_spmd_t2048",
+    "spmd": "qwen2.5-14b_spmd_t2048", "spmd-serve": "qwen2.5-14b_tp_b2_t32768",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
@@ -494,7 +537,7 @@ TIMED_FLASH = (
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
     "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
     "seamless_enc_b4_t128", "seamless_dec_b4_t1024", "seamless_cross_b4_t1024_s128", "qwen2-vl_gqa6_b2_t2048",
-    "qwen2.5-14b_spmd_t2048",
+    "qwen2.5-14b_spmd_t2048", "qwen2.5-14b_tp_b2_t32768",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -614,13 +657,14 @@ SERVE_SSM_ARGS = {
 #: serve-dense: each dense arch at full width through serve_decode, 8 slots
 #: on an M=4 x b=2 grid, 8 requests; gemma3-12b's prompts pass its window
 SERVE_DENSE_ARGS = {"slots": 8, "microbatches": 4, "requests": 8, "seed": 0, "new-tokens": (16, 32)}
-#: (arch, layers, prompt tokens, max_len): each at full width and half its
-#: depth (gemma3-12b: four 5:1 periods)
+#: (arch, layers, prompt tokens, max_len): each at full width cut to 12
+#: layers (gemma3-12b: two 5:1 periods; cut from half their depth to pay
+#: for the spmd-serve phase: PERF.md, section 4)
 SERVE_DENSE = (
-    ("qwen1.5-4b", 20, (128, 512), 544),
-    ("qwen2.5-14b", 24, (128, 512), 544),
-    ("internlm2-20b", 24, (128, 512), 544),
-    ("gemma3-12b", 24, (1024, 1536), 1568),
+    ("qwen1.5-4b", 12, (128, 512), 544),
+    ("qwen2.5-14b", 12, (128, 512), 544),
+    ("internlm2-20b", 12, (128, 512), 544),
+    ("gemma3-12b", 12, (1024, 1536), 1568),
 )
 #: serve-dense's memory gate: the peak over the bf16 weights plus the cache
 SERVE_DENSE_HEADROOM = 4 * 2**30
@@ -646,12 +690,13 @@ MODEL_MOE = (("jamba-v0.1-52b", 8, 300), ("kimi-k2-1t-a32b", 2, 300), ("llama4-m
 MOE_REL_TOL = 2e-2
 #: serve-moe: (arch, layers, prompt tokens, max_len) at full width through
 #: serve_decode, 8 slots on M=4 x b=2, 8 requests, 16-32 new tokens:
-#: jamba-v0.1-52b cut to two 8-layer periods (26.00 B parameters, 52.0 GB of
-#: bf16; all 32 layers, 103 GB, do not fit one card), its prompts 16-32
-#: tokens since its Mamba layers prefill a token at a time (~1.25 ms a token a
-#: layer); kimi-k2 and llama4-maverick at 2 layers (39.2 and 37.1 GB of bf16)
+#: jamba-v0.1-52b cut to one 8-layer period (13.27 B parameters; cut from
+#: two to pay for the spmd-serve phase; all 32 layers, 103 GB of bf16,
+#: do not fit one card), its prompts 16-32 tokens since its Mamba layers
+#: prefill a token at a time (~1.25 ms a token a layer); kimi-k2 and
+#: llama4-maverick at 2 layers (39.2 and 37.1 GB of bf16)
 SERVE_MOE = (
-    ("jamba-v0.1-52b", 16, (16, 32), 64),
+    ("jamba-v0.1-52b", 8, (16, 32), 64),
     ("kimi-k2-1t-a32b", 2, (128, 512), 544),
     ("llama4-maverick-400b-a17b", 2, (128, 512), 544),
 )
@@ -816,6 +861,61 @@ SPMD_DIGEST_TOL = {"update": 1e-3, "m": 1e-4, "v": 1e-4}
 #: (PERF.md, section 6); at 1e-3 such an element moves by lr times its
 #: gradient over eps, as the CPU test of the step sets it
 SPMD_DIGEST_EPS = 1e-3
+#: one card, tp_fsdp: its tensor-parallel products round each rank's partial
+#: sum to bf16 before the forward's all-reduce over "model", and each rank's
+#: partial input gradient before the backward's, where the one-process step
+#: rounds one whole sum, so in bf16 its arithmetic is not the one-process
+#: step's: its first loss came 3.8e-5 and its clip norm 3.2e-5 apart, and the
+#: layer-0 ln2 update digest 0.397 (PERF.md, section 6), where a norm
+#: scale's digest is bf16 rounding in any run (on the CPU both bf16 runs sit
+#: 0.40-0.73 from an fp32 run's there).  So that run computes in fp32 (the
+#: one-process step too, K1 on its fma route), where the two differ only in
+#: the order of fp32 sums, and each digest's error is taken over its mass
+#: (the sum of its terms' magnitudes, _spmd_masses) at SPMD_TP_MASS_TOL: a
+#: norm scale's terms sum to 14-404x its digest (CPU, smoke width) and
+#: 1.29e3x at full width, so the fp32 order alone moved layer-0 ln2's update
+#: digest by 1.7e-3 of its value on the card (PERF.md, section 6).  The four-card
+#: run holds tp_fsdp in bf16 to zero3 at every step (SPMD_CROSS_TOL)
+SPMD_ONE_FP32 = ("tp_fsdp",)
+#: one card, tp_fsdp in fp32: the largest step-1 digest error over its
+#: group's mass, per kind, set between two readings on the H100 (PERF.md,
+#: section 6): the sound fp32 run's, 4.77e-6 (update), 1.48e-7 (m) and
+#: 1.12e-7 (v), and the bf16 run's against the same fp32 step (the
+#: control, --spmd-control), which the limits must refuse.  A doubled leaf
+#: of a norm scale reads its digest over its mass, ~1/1290 of the update's
+#: at layer-0 ln2: the phase checks that each norm scale's reads above
+#: these limits (the gate would see it)
+SPMD_TP_MASS_TOL = {"update": 3e-5, "m": 1e-6, "v": 1e-6}
+#: the control run (--spmd-control): tp_fsdp as the one-card plan runs it,
+#: in bf16 against the fp32 one-process step
+SPMD_CONTROL_RUN = dict(strategy="tp_fsdp", gather_params_once=True, control=True)
+#: the spmd-serve phase: repro's sharded prefill and decode step
+#: (make_spmd_prefill, make_spmd_serve_step) on qwen2.5-14b at full width,
+#: four ranks on the spmd phase's (2, 2) mesh, the weights stationary (each
+#: rank's shard of init_serving_params, seed 0), the products tensor-parallel
+#: over "model".  The check (both card counts): 2 layers, a prefill of b 4 x
+#: T 512 (SPMD_SERVE_PREFILLS times), then SPMD_SERVE_CHECK["steps"]
+#: teacher-forced decode steps at b 4 (rows over "data") and as many at b 1
+#: (rows not split) against a cache of kv_len 520 built by one process's
+#: prefill_with_cache and cut to each rank's shard (the sequence over
+#: "model": 260 slots a rank; the steps at 512-515 in the second rank's);
+#: each call's logits held to one process's prefill_fn and decode_step on
+#: the same weights.  Four cards (NCCL, a card a rank) also run the
+#: deployment: all 48 layers, a prefill of b 4 x T 32768 (prefill_32k's
+#: length, its batch cut from 32 to 4), then decode steps at B 16 (decode_32k's
+#: batch cut from 128 to 16) against a kv_len 32768 cache of seeded bf16
+#: values in each rank's shard (24 GiB a rank beside ~14.8 GB of weights),
+#: from an index in the last "model" rank's range
+SPMD_SERVE_CHECK = dict(layers=2, batch=4, seq=512, kv_len=520, steps=4, prefills=2)
+SPMD_SERVE_FOUR = dict(layers=None, batch=4, seq=32768, prefills=3, decode_batch=16, kv_len=32768, steps=8,
+                       start=32768 - 16)
+#: the ranks' logits against one process's on the same bf16 weights, as the
+#: largest |difference| over the largest |logit|: the tensor-parallel
+#: products round each rank's partial sum to bf16 before the all-reduce
+#: (one more rounding a block), and the flash-decode merge rounds each key
+#: range's probabilities apart; a wrong head, slot or merge weight puts the
+#: error at the logits' own scale (rms ~1.4 at qwen2.5-14b's untied head)
+SPMD_SERVE_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -966,7 +1066,7 @@ def _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window) -> tuple[float, st
     from repro_torch.kernels.flash_attention import ref
 
     spec, peak = _h100()
-    pairs = int(ref.causal_window_mask(T, S, causal, window).sum())
+    pairs = int(ref.causal_window_mask(T, S, causal, window, "cuda").sum())
     flops = 4.0 * hd * pairs * B * H  # q.k and p.v, 2 FLOP per MAC
     nbytes = (2 * B * T * H * hd + 2 * B * S * K * hd) * torch.finfo(dtype).bits / 8
     t_bytes, t_ops = nbytes / spec.hbm_bandwidth_bytes_per_s, flops / peak(dtype)
@@ -992,7 +1092,8 @@ def _flash_kernels() -> dict:
         q, k, v = _qkv(B, T, S, H, K, hd, dtype)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = ref.attention(q, k, v, causal=causal, window=window)
+        plain_fn = ref.chunked_attention if name in LONG_FLASH else ref.attention
+        want = plain_fn(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ok, err, rel = _flash_agrees(out, want)
         log(f"flash {name:14s} B={B} T={T} S={S} H={H} K={K} hd={hd} "
@@ -1011,7 +1112,8 @@ def _flash_kernels() -> dict:
     for name in TIMED_FLASH:
         B, T, S, H, K, hd, dtype, causal, window, q, k, v, err = timed[name]
         flash = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
-        plain = lambda: ref.attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        plain_fn = ref.chunked_attention if name in LONG_FLASH else ref.attention
+        plain = lambda: plain_fn(q, k, v, causal=causal, window=window)  # noqa: E731
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         # the same function in one library call: native GQA, and a window
         # as a boolean mask (SDPA has no window argument)
@@ -1019,8 +1121,10 @@ def _flash_kernels() -> dict:
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=K != H
         )
-        ms, plain_ms, library_ms = _device_ms(flash), _device_ms(plain), _device_ms(sdpa)
-        call_ms, sdpa_call_ms = _time_ms(flash), _time_ms(sdpa)
+        n = {"iters": LONG_FLASH_ITERS, "warmup": 1} if name in LONG_FLASH else {}
+        once = {"iters": 1, "warmup": 0} if name in LONG_FLASH else {}  # the check's call warmed it up
+        ms, plain_ms, library_ms = _device_ms(flash, **n), _device_ms(plain, **once), _device_ms(sdpa, **n)
+        call_ms, sdpa_call_ms = _time_ms(flash, **n), _time_ms(sdpa, **n)
         bound_ms, bound_by = _flash_bound_ms(B, T, S, H, K, hd, dtype, causal, window)
         log(f"flash timing at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
             f"(device time); per call {call_ms:.4f} ms, sdpa {sdpa_call_ms:.4f} ms (events); "
@@ -3247,12 +3351,14 @@ def _spmd_group(path: str) -> str:
     return "/".join(parts[:3] if parts[0] == "layers" else parts[:2])
 
 
-def _spmd_digests(tree, specs, mesh) -> dict:
+def _spmd_digests(tree, specs, mesh, absolute: bool = False) -> dict:
     """``{group: sum of each leaf times a fixed pattern of its global
     indices}`` in float64 over the whole leaves: each rank projects its
     shards (``cos`` of each dim's global index times a per-dim constant,
     multiplied over the dims), a shard replicated over an axis counted on
-    that axis's rank 0 only, summed over the world."""
+    that axis's rank 0 only, summed over the world.  ``absolute``: the
+    digest's mass, the sum of |leaf| times |pattern| (what the digest's
+    terms add up to before they cancel)."""
     from repro_torch.distributed.sharding import spec_axes
     from repro_torch.tree import flatten
 
@@ -3268,6 +3374,8 @@ def _spmd_digests(tree, specs, mesh) -> dict:
             rows = max(1, (1 << 24) // max(1, t[0].numel())) if t.ndim else 1
             for i in range(0, t.shape[0] if t.ndim else 1, rows):
                 v = (t[i:i + rows] if t.ndim else t).double()
+                if absolute:
+                    v, pats = v.abs(), [pat.abs() for pat in pats]
                 for pat in reversed(pats[1:]):
                     v = v @ pat
                 val += (v * pats[0][i:i + rows]).sum() if t.ndim else v
@@ -3283,6 +3391,21 @@ def _spmd_digests(tree, specs, mesh) -> dict:
 def _spmd_state_digests(state, specs, mesh) -> dict:
     return {"params": _spmd_digests(state.params, specs, mesh), "m": _spmd_digests(state.opt_state.m, specs, mesh),
             "v": _spmd_digests(state.opt_state.v, specs, mesh)}
+
+
+def _spmd_masses(state, before: dict, specs, mesh) -> dict:
+    """The masses (``_spmd_digests(..., absolute=True)``) of step 1's update
+    (the parameters against ``before``, a copy of each leaf) and of m
+    and v, leaf by leaf (no second copy of the tree on the card)."""
+    from repro_torch.tree import flatten
+
+    out = {"update": {}, "m": {}, "v": {}}
+    for kind, tree in (("update", state.params), ("m", state.opt_state.m), ("v", state.opt_state.v)):
+        for path, t in flatten(tree).items():
+            leaf = t - before[path].to(t.device) if kind == "update" else t
+            for g, w in _spmd_digests({path: leaf}, specs, mesh, absolute=True).items():
+                out[kind][g] = out[kind].get(g, 0.0) + w
+    return out
 
 
 def _spmd_rank(group, cfg, plan, batches) -> list:
@@ -3310,7 +3433,9 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         opt = _spmd_optimizer(plan)
-        step, (specs, _) = make_spmd_train_step(cfg, mesh, batches[0], opt, num_microbatches=plan["M"], **run)
+        run_cfg = cfg.replace(dtype=torch.float32) if _spmd_fp32(plan, run) else cfg
+        kw = {k: v for k, v in run.items() if k != "control"}
+        step, (specs, _) = make_spmd_train_step(run_cfg, mesh, batches[0], opt, num_microbatches=plan["M"], **kw)
         state = step.init_state(seed=0)
         synchronize(dev)
         want = {k: local_shape(t.shape, step.specs[k], mesh) for k, t in flatten(specs.params).items()}
@@ -3370,7 +3495,7 @@ def _spmd_optimizer(plan):
     return make_optimizer("adamw", constant_schedule(SPMD_LR), **({"eps": SPMD_DIGEST_EPS} if plan["digests"] else {}))
 
 
-def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool) -> dict:
+def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool, fp32: bool = False) -> dict:
     """The one-process figures the ranks are held to, on this process's card
     before the ranks take it: with a card a rank (four cards), the first
     batch's loss from a forward on api.init_serving_params (no card holds
@@ -3378,7 +3503,10 @@ def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool) -> dict:
     make_train_step over ``M`` micro-batches, their losses and clip norms,
     and the digests after step 1; with ``cast_once`` its loss casts the
     leaves of rank >= 2 in repro's layout to cfg.dtype first, as
-    gather_params_once does (repro's outer_loss)."""
+    gather_params_once does (repro's outer_loss); with ``fp32`` it computes
+    in fp32 (the oracle of tp_fsdp's digests, SPMD_TP_ORACLE_FACTOR)."""
+    if fp32:
+        cfg, cast_once = cfg.replace(dtype=torch.float32), False
     from repro_torch.distributed.sharding import PartitionSpec, map_with_path
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import api
@@ -3403,6 +3531,7 @@ def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool) -> dict:
     specs = {k: PartitionSpec() for k in flatten(state.params)}
     mesh = make_local_mesh(1, 1)
     d0 = _spmd_digests(state.params, specs, mesh)
+    before = {k: t.detach().clone() for k, t in flatten(state.params).items()} if fp32 else None
     cast = decay_mask(state.params)
 
     def loss(p, b):
@@ -3419,18 +3548,30 @@ def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool) -> dict:
         if i == 0:
             d1 = _spmd_state_digests(state, specs, mesh)
             out["digests"] = {"update": {g: d1["params"][g] - d0[g] for g in d0}, "m": d1["m"], "v": d1["v"]}
+            if before is not None:
+                out["masses"] = _spmd_masses(state, before, specs, mesh)
+                del before
     out.update(loss=out["losses"][0], peak=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0,
-               what=f"the one-process make_train_step at M={M}{', matrices and norms cast once' if cast_once else ''}")
+               what=f"the one-process make_train_step at M={M}{', matrices and norms cast once' if cast_once else ''}"
+                    f"{' in fp32' if fp32 else ''}")
     del state
     return out
 
 
-def _spmd_ref_key(cfg, plan, run) -> tuple[int, bool]:
-    """The reference's (M, cast_once) for ``run``: on one card M times the
-    rank groups a micro-batch's rows split into, and gather_params_once's cast."""
+def _spmd_fp32(plan, run) -> bool:
+    """Whether ``run`` computes in fp32 (one card's tp_fsdp: SPMD_ONE_FP32;
+    not the bf16 control)."""
+    return plan["digests"] and run["strategy"] in SPMD_ONE_FP32 and not run.get("control")
+
+
+def _spmd_ref_key(cfg, plan, run) -> tuple[int, bool, bool]:
+    """The reference's (M, cast_once, fp32) for ``run``: on one card M times
+    the rank groups a micro-batch's rows split into, gather_params_once's
+    cast and the run's fp32 compute."""
     if not plan["digests"]:
-        return plan["M"], False
-    return plan["M"] * _spmd_row_split(cfg, plan, run), bool(run.get("gather_params_once"))
+        return plan["M"], False, False
+    return (plan["M"] * _spmd_row_split(cfg, plan, run), bool(run.get("gather_params_once")),
+            _spmd_fp32(plan, run) or bool(run.get("control")))
 
 
 def _spmd_row_split(cfg, plan, run) -> int:
@@ -3448,6 +3589,10 @@ def _spmd_row_split(cfg, plan, run) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
+def _rel_errs(got: dict, want: dict) -> dict:
+    return {g: abs(got[g] - w) / max(abs(w), 1e-30) for g, w in want.items()}
+
+
 def _spmd_gate_steps(name, got, want, tol, what) -> None:
     """``got``'s loss and clip norm at each step against ``want``'s,
     relative, at ``tol`` (one limit, or one a metric)."""
@@ -3460,7 +3605,42 @@ def _spmd_gate_steps(name, got, want, tol, what) -> None:
             raise AssertionError(f"spmd {name}: the {metric} differs from {what}'s")
 
 
-def phase_spmd() -> int:
+def _spmd_gate_masses(name, r0, ref, control: bool) -> None:
+    """tp_fsdp on one card against the fp32 one-process step: each leaf
+    group's step-1 digest error over the group's mass at SPMD_TP_MASS_TOL,
+    after a check that a doubled leaf of each norm scale would read above
+    it.  The fp32 run passes the gates; the bf16 control must fail the
+    digests' (it is not held to the loss)."""
+    if not control:
+        _spmd_gate_steps(name, r0, ref, SPMD_LOSS_TOL, ref["what"])
+    else:
+        log(f"  loss {r0['losses'][0]:.6f} and clip norm {r0['grad_norms'][0]:.6f} vs {ref['what']}'s "
+            f"{ref['losses'][0]:.6f} and {ref['grad_norms'][0]:.6f} (not gated)")
+    refused = []
+    for kind, tol in SPMD_TP_MASS_TOL.items():
+        want, mass = ref["digests"][kind], ref["masses"][kind]
+        errs = {g: abs(r0["digests"][kind][g] - w) / max(mass[g], 1e-30) for g, w in want.items()}
+        worst = max(errs, key=errs.get)
+        norms = {g: abs(want[g]) / max(mass[g], 1e-30) for g in want
+                 if {"ln1", "ln2", "final_norm"} & set(g.split("/"))}
+        faint = min(norms, key=norms.get)
+        log(f"  step-1 digests of {kind} over {len(errs)} leaf groups: largest err over the group's mass "
+            f"{errs[worst]:.3e} ({worst}; {errs[worst] * mass[worst] / max(abs(want[worst]), 1e-30):.3e} of its "
+            f"digest) {'>' if errs[worst] > tol else '<='} {tol:g}; a doubled norm scale reads at least "
+            f"{norms[faint]:.3e} ({faint})")
+        if norms[faint] <= tol:
+            raise AssertionError(f"spmd {name}: SPMD_TP_MASS_TOL's {kind} would not see a doubled {faint}")
+        if errs[worst] > tol:
+            refused.append(f"the step-1 {kind} of {worst}")
+    if control and not refused:
+        raise AssertionError(f"spmd {name}: the bf16 control passed SPMD_TP_MASS_TOL")
+    if not control and refused:
+        raise AssertionError(f"spmd {name}: {', '.join(refused)} differ from the one-process step's")
+    if control:
+        log(f"  the control is refused: {', '.join(refused)}")
+
+
+def phase_spmd(control: bool = False) -> int:
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.kernels.flash_attention import ops
@@ -3470,6 +3650,10 @@ def phase_spmd() -> int:
     ranks_n = math.prod(SPMD_MESH.values())
     four = torch.cuda.device_count() >= ranks_n
     plan = {**(SPMD_FOUR if four else SPMD_ONE), "digests": not four}
+    if control:
+        if four:
+            raise SystemExit("--spmd-control runs on one card (the digests' run)")
+        plan["runs"] = plan["runs"] + (SPMD_CONTROL_RUN,)
     cfg = get_arch(SPMD_ARCH).model
     if plan["layers"]:
         cfg = cfg.replace(num_layers=plan["layers"])
@@ -3477,14 +3661,11 @@ def phase_spmd() -> int:
     batches = [{"tokens": b.tokens.numpy(), "labels": b.labels.numpy()}
                for b in (data.batch_at(i, "cpu") for i in range(plan["steps"]))]
     refs = {}
-    for run in plan["runs"]:
-        key = _spmd_ref_key(cfg, plan, run)
-        if key in refs:
-            continue
+    for key in dict.fromkeys(_spmd_ref_key(cfg, plan, run) for run in plan["runs"]):
         refs[key] = ref = _spmd_reference(cfg, plan, batches, *key)
         gc.collect()
         torch.cuda.empty_cache()  # the card is the ranks'
-        log(f"spmd reference for {run}: {ref['what']}, loss {ref['loss']:.6f}, peak {ref['peak'] / 2**30:.2f} "
+        log(f"spmd reference {key}: {ref['what']}, loss {ref['loss']:.6f}, peak {ref['peak'] / 2**30:.2f} "
             f"GiB, {ref['seconds']:.1f} s")
     log(f"spmd {SPMD_ARCH} at full width, {cfg.num_layers} layers ({param_count(cfg):,} parameters), b "
         f"{plan['batch']} x T {plan['seq']} in M={plan['M']}, {plan['steps']} steps a run, {ranks_n} ranks on a "
@@ -3512,7 +3693,8 @@ def phase_spmd() -> int:
         recs = [r[j] for r in per_rank]
         r0 = recs[0]
         ref = refs[_spmd_ref_key(cfg, plan, run)]
-        name = ", ".join(f"{k}={v}" for k, v in run.items())
+        name = ", ".join(f"{k}={v}" for k, v in run.items() if k != "control") + (
+            " (fp32)" if _spmd_fp32(plan, run) else " (bf16, the control)" if run.get("control") else "")
         steps = plan["steps"] + int(plan["traced"])
         want_k1 = cfg.num_layers * plan["M"] * steps * 2  # every forward again in the remat
         p50 = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in recs]
@@ -3545,11 +3727,12 @@ def phase_spmd() -> int:
             raise AssertionError(f"spmd {name}: K1 launches {[r['flash_launches'] for r in recs]}, want {want_k1}")
         if four and max(r["max_memory_allocated"] for r in recs) >= 80 * 2**30:
             raise AssertionError(f"spmd {name}: a rank's peak reached 80 GiB")
-        if plan["digests"]:
+        if plan["digests"] and "masses" in ref:
+            _spmd_gate_masses(name, r0, ref, control=bool(run.get("control")))
+        elif plan["digests"]:
             _spmd_gate_steps(name, r0, ref, SPMD_LOSS_TOL, ref["what"])
             for kind, tol in SPMD_DIGEST_TOL.items():
-                errs = {g: abs(r0["digests"][kind][g] - w) / max(abs(w), 1e-30)
-                        for g, w in ref["digests"][kind].items()}
+                errs = _rel_errs(r0["digests"][kind], ref["digests"][kind])
                 worst = max(errs, key=errs.get)
                 log(f"  step-1 digests of {kind} over {len(errs)} leaf groups: largest rel err {errs[worst]:.3e} "
                     f"({worst}) <= {tol:g}")
@@ -3570,9 +3753,247 @@ def phase_spmd() -> int:
     return launches
 
 
+def _spmd_serve_check_inputs(cfg, plan) -> dict:
+    """The check's prompt and decode tokens (seeded), and the one-process
+    references on this process's card: prefill_fn's logits, then for b 4
+    and b 1 the cache of prefill_with_cache (handed to the ranks before the
+    steps) and each teacher-forced decode step's logits."""
+    from repro_torch.models import api
+
+    g = torch.Generator().manual_seed(0)
+    B, T = plan["batch"], plan["seq"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=g)
+    decode = torch.randint(0, cfg.vocab_size, (plan["steps"], B, 1), generator=g)
+    t0 = time.perf_counter()
+    params = api.init_serving_params(cfg, 0, "cuda")
+    out = {"prompt": prompt, "decode": decode}
+    with torch.no_grad():
+        out["prefill"] = api.prefill_fn(params, cfg, {"tokens": prompt.cuda()}).float().cpu()
+        for rows in (B, 1):
+            cache = api.init_cache(cfg, rows, plan["kv_len"], "cuda")
+            _, cache = api.prefill_with_cache(params, cfg, cache, {"tokens": prompt[:rows].cuda()})
+            out[f"cache_b{rows}"] = _tree_to_cpu(cache)
+            out[f"decode_b{rows}"] = [
+                api.decode_fn(params, cfg, cache, T + i, {"tokens": decode[i, :rows].cuda()})[0].float().cpu()
+                for i in range(plan["steps"])
+            ]
+    out["seconds"] = time.perf_counter() - t0
+    del params
+    return out
+
+
+def _tree_to_cpu(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _spmd_serve_call(group, fn, dev):
+    """``fn()``'s result, wall ms (synchronised) and span seconds."""
+    from repro_torch.device import synchronize
+
+    group.barrier()
+    group.take_seconds()
+    t = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t)
+    return out, ms, dict(group.take_seconds())
+
+
+def _spmd_serve_rank(group, cfg, plan, inputs, full) -> dict:
+    """One rank of the spmd-serve phase: the check's prefills and decode
+    steps (b 4, then b 1) on its shards of the 2-layer weights; on four
+    cards then the deployment at ``full``'s depth.  Returns per call the
+    logits (the check's), wall ms, span seconds and collective counts, the
+    leaves gathered over "model", K1 launches and the peak memory."""
+    from repro_torch.distributed.spmd import make_spmd_prefill, make_spmd_serve_step
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"], group)
+    dev = group.device
+    out = {"rank": group.rank, "transport": group.transport}
+
+    def serve(cfg, plan, prompt, decodes, keep_logits):
+        """The prefills, then each (tokens, cache, first index) decode run."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt})
+        t0 = time.perf_counter()
+        params = prefill.init_params(0)
+        rec = {"setup_seconds": time.perf_counter() - t0, "calls": [], "row_axes": prefill.row_axes}
+        n0 = ops.launches
+        for _ in range(plan["prefills"]):
+            prefill.tp.counts.clear()
+            logits, ms, spans = _spmd_serve_call(group, lambda: prefill(params, {"tokens": prompt}), dev)
+            rec["calls"].append({"what": "prefill", "ms": ms, "spans": spans, "counts": dict(prefill.tp.counts),
+                                 "logits": logits.float().cpu() if keep_logits else None,
+                                 "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+        rec["k1"] = ops.launches - n0
+        gathered = set(prefill.tp.gathered)
+        for tokens, make_cache, start in decodes:
+            step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": tokens[0]}, plan["kv_len"])
+            cache = make_cache(step)
+            for i, tok in enumerate(tokens):
+                step.tp.counts.clear()
+                (logits, _), ms, spans = _spmd_serve_call(group, lambda: step(params, cache, start + i, {"tokens": tok}),
+                                                          dev)
+                rec["calls"].append({"what": f"decode b{tok.shape[0]}", "ms": ms, "spans": spans,
+                                     "counts": dict(step.tp.counts),
+                                     "logits": logits.float().cpu() if keep_logits else None,
+                                     "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+            gathered |= step.tp.gathered
+            rec["cache_gib"] = sum(t.numel() * t.element_size() for t in _leaves(cache)) / 2**30
+            del cache, step
+        rec["gathered"] = sorted(gathered)
+        rec["weights_gib"] = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30
+        rec["peak"] = torch.cuda.max_memory_allocated(dev)
+        del params
+        return rec
+
+    ccfg = cfg.replace(num_layers=SPMD_SERVE_CHECK["layers"])
+    dec = inputs["decode"]
+    out["check"] = serve(ccfg, SPMD_SERVE_CHECK, inputs["prompt"], [
+        (list(dec), lambda st: st.shard_cache(inputs["cache_b4"]), SPMD_SERVE_CHECK["seq"]),
+        (list(dec[:, :1]), lambda st: st.shard_cache(inputs["cache_b1"]), SPMD_SERVE_CHECK["seq"]),
+    ], keep_logits=group.rank == 0)
+    if full is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab_size, (full["batch"], full["seq"]), generator=g)
+        tokens = list(torch.randint(0, cfg.vocab_size, (full["steps"], full["decode_batch"], 1), generator=g))
+
+        def seeded(step):  # seeded bf16 values in the rank's shard of every KV leaf
+            cache = step.init_cache()
+            gen = torch.Generator(device=dev).manual_seed(2 + group.rank)
+            for t in _leaves(cache):
+                t.normal_(generator=gen)
+            return cache
+
+        out["full"] = serve(cfg, full, prompt, [(tokens, seeded, full["start"])], keep_logits=False)
+    return out
+
+
+def _digest(logits) -> tuple[float, float]:
+    """Two sums of ``logits`` in float64, the second weighted by a fixed
+    pattern of positions: equal on every rank that holds the same logits."""
+    x = logits.double().flatten()
+    return float(x.sum()), float((x * torch.cos(torch.arange(x.numel(), device=x.device, dtype=torch.float64))).sum())
+
+
+def _leaves(tree):
+    from repro_torch.tree import flatten
+
+    return list(flatten(tree).values())
+
+
+def _spmd_serve_report(name, recs, tokens_per_call) -> None:
+    """Per rank: setup, each call's wall ms and span seconds, the
+    all-reduce count and bytes a call, peak memory."""
+    for r in recs:
+        rec = r[name]
+        log(f"  rank {r['rank']} ({r['transport']}): setup {rec['setup_seconds']:.1f} s, weights "
+            f"{rec['weights_gib']:.2f} GiB, cache {rec['cache_gib']:.2f} GiB, max_memory_allocated "
+            f"{rec['peak'] / 2**30:.2f} GiB, K1 {rec['k1']}, gathered over model: {rec['gathered'] or 'nothing'}")
+        for kind in dict.fromkeys(c["what"] for c in rec["calls"]):
+            calls = [c for c in rec["calls"] if c["what"] == kind]
+            ms = sorted(c["ms"] for c in calls[1:])  # the first left out
+            p50 = ms[len(ms) // 2]
+            c0 = calls[-1]
+            log(f"    {kind}: {len(calls)} calls, ms {[round(c['ms'], 1) for c in calls]} (p50 {p50:.1f}, the first "
+                f"left out; {tokens_per_call[kind] / (p50 / 1e3):,.0f} tokens/s); a call's all-reduces "
+                f"{c0['counts'].get('all_reduce', 0)} ({c0['counts'].get('all_reduce_bytes', 0):,} B), all-gathers "
+                f"{c0['counts'].get('all_gather', 0)} ({c0['counts'].get('all_gather_bytes', 0):,} B); spans of the "
+                f"last: {({k: round(v, 4) for k, v in c0['spans'].items()})}")
+
+
+def phase_spmd_serve() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.tensor_parallel import DENSE_PARTS
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import param_count
+    from repro_torch.pipeline import ranks
+
+    ranks_n = math.prod(SPMD_MESH.values())
+    four = torch.cuda.device_count() >= ranks_n
+    cfg = get_arch(SPMD_ARCH).model
+    ccfg = cfg.replace(num_layers=SPMD_SERVE_CHECK["layers"])
+    inputs = _spmd_serve_check_inputs(ccfg, SPMD_SERVE_CHECK)
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is the ranks'
+    log(f"spmd-serve references (one process, {ccfg.num_layers} layers, init_serving_params seed 0): prefill_fn "
+        f"b {SPMD_SERVE_CHECK['batch']} x T {SPMD_SERVE_CHECK['seq']}, prefill_with_cache and "
+        f"{SPMD_SERVE_CHECK['steps']} decode steps at b 4 and b 1 (kv_len {SPMD_SERVE_CHECK['kv_len']}) in "
+        f"{inputs['seconds']:.1f} s")
+    full = SPMD_SERVE_FOUR if four else None
+    log(f"spmd-serve {SPMD_ARCH} at full width on {ranks_n} ranks, a {SPMD_MESH} mesh, {torch.cuda.device_count()} "
+        f"card(s): the check at {ccfg.num_layers} layers"
+        + (f", then {cfg.num_layers} layers ({param_count(cfg):,} parameters)" if four else ""))
+    ops.launches = 0
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        per_rank = ranks.spawn(_spmd_serve_rank, ranks_n, args=(cfg, SPMD_SERVE_CHECK, inputs, full), device="cuda",
+                               timeout=900, axes=SPMD_MESH)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    if ops.launches:
+        raise AssertionError("the parent launched K1 during the spmd-serve phase")
+    B, T, steps = SPMD_SERVE_CHECK["batch"], SPMD_SERVE_CHECK["seq"], SPMD_SERVE_CHECK["steps"]
+    log(f"spmd-serve check ({ccfg.num_layers} layers), transport {per_rank[0]['transport']}:")
+    _spmd_serve_report("check", per_rank, {"prefill": B * T, "decode b4": B, "decode b1": 1})
+    launches = 0
+    runs = ["check"] + (["full"] if four else [])
+    for run in runs:
+        layers = ccfg.num_layers if run == "check" else cfg.num_layers
+        recs = [r[run] for r in per_rank]
+        for r, rec in zip(per_rank, recs):
+            dense = [p for p in rec["gathered"] if set(p.split("/")) & set(DENSE_PARTS)]
+            if dense:
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']} gathered dense leaves {dense}")
+            if rec["k1"] != layers * (SPMD_SERVE_CHECK if run == "check" else full)["prefills"]:
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']} launched K1 {rec['k1']} times")
+            if not all(c["finite"] for c in rec["calls"]):
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']} has non-finite logits")
+            if four and rec["peak"] >= 80 * 2**30:
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']}'s peak reached 80 GiB")
+        digests = [[c["digest"] for c in rec["calls"]] for rec in recs]
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f"spmd-serve {run}: the ranks' logits differ")
+        launches += sum(rec["k1"] for rec in recs)
+        log(f"  {run}: every rank's logits equal ({len(digests[0])} calls' digests), finite; no rank gathered a dense "
+            f"leaf; K1 {[rec['k1'] for rec in recs]}")
+    # the check's logits against the one process's
+    calls = per_rank[0]["check"]["calls"]
+    wants = [inputs["prefill"]] * SPMD_SERVE_CHECK["prefills"] + inputs["decode_b4"] + inputs["decode_b1"]
+    worst = 0.0
+    for c, want in zip(calls, wants, strict=True):
+        rel = float((c["logits"] - want).abs().max() / want.abs().max())
+        agree = float((c["logits"].argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"  {c['what']}: logits vs one process's: largest |diff| / largest |logit| {rel:.3e} (<= "
+            f"{SPMD_SERVE_TOL:g}), greedy tokens equal {agree:.3f}")
+        worst = max(worst, rel)
+    if worst > SPMD_SERVE_TOL:
+        raise AssertionError(f"spmd-serve: the ranks' logits differ from one process's by {worst:.3e}")
+    if four:
+        f = SPMD_SERVE_FOUR
+        log(f"spmd-serve deployment ({cfg.num_layers} layers, {per_rank[0]['transport']}): prefill b {f['batch']} x T "
+            f"{f['seq']}, decode B {f['decode_batch']} at kv_len {f['kv_len']} from index {f['start']}:")
+        _spmd_serve_report("full", per_rank, {"prefill": f["batch"] * f["seq"], f"decode b{f['decode_batch']}":
+                                               f["decode_batch"]})
+    log(f"flash launches on the spmd-serve path: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
+    ap.add_argument("--spmd-control", action="store_true",
+                    help="the spmd phase (one card) also runs tp_fsdp in bf16, which its digest gate must refuse")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     unknown = set(only) - set(PHASES)
@@ -3677,9 +4098,13 @@ def main(argv=None) -> int:
             if kernels:
                 kernels["flash"]["per_path"]["fabric-tcp"]["launches"] = launches
         elif name == "spmd":
-            launches = phase_spmd()
+            launches = phase_spmd(args.spmd_control)
             if kernels:
                 kernels["flash"]["per_path"]["spmd"]["launches"] = launches
+        elif name == "spmd-serve":
+            launches = phase_spmd_serve()
+            if kernels:
+                kernels["flash"]["per_path"]["spmd-serve"]["launches"] = launches
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
         # what a phase built may hold itself alive (a training runtime and its
         # step cache's factory hold each other): free it before the next

@@ -49,8 +49,11 @@ backward's recomputed attention products are in its bytes, not its FLOPs.
   parameters and inputs drawn from :data:`SEED` there: warmup 1, repeats 3, the
   mean of the repeats, as ``core/profiler.py::time_callable``; CUDA events
   on the compute stream, synchronised before each run and before reading
-  (the host clock only when ``device="cpu"`` was asked for).  One stage is
-  held at a time.
+  (the host clock only when ``device="cpu"`` was asked for), with garbage
+  collection off inside a run.  Every stage is held at once and timed in
+  rounds (each round runs every program of every stage once), so that load
+  on the host, which the partly host-bound programs feel, falls on all
+  stages alike.
 
 ``repro``'s ``"hlo"`` method prices on one TPU's constants; here it raises.
 A roofline on other constants is a :class:`DeviceSpec` passed as
@@ -60,6 +63,7 @@ A roofline on other constants is a :class:`DeviceSpec` passed as
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 
@@ -231,33 +235,47 @@ def count_stage(staged: StagedModel, s: int, b: int, T: int) -> dict[str, Progra
     return {p: ProgramCounts(flops=plain[p].flops, hbm_bytes=run[p].hbm_bytes) for p in TASK_PROGRAMS}
 
 
-def _time_program(setup, run, device: torch.device) -> list[float]:
-    """Seconds of each of REPEATS runs of ``run`` after WARMUP: CUDA events
-    on the compute stream on a card, the host clock on the CPU."""
-    runs = []
-    for i in range(WARMUP + REPEATS):
-        arg = setup() if setup else None
-        synchronize(device)
+def _time_once(setup, run, device: torch.device) -> float:
+    """Seconds of one run of ``run``: CUDA events on the compute stream on a
+    card, the host clock on the CPU.  No garbage collection runs inside it."""
+    arg = setup() if setup else None
+    synchronize(device)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
         if device.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             run(arg)
             end.record()
             end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            run(arg)
-            seconds = time.perf_counter() - t0
-        if i >= WARMUP:
-            runs.append(seconds)
+            return start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        run(arg)
+        return time.perf_counter() - t0
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _time_stages(staged: StagedModel, b: int, T: int, device: torch.device) -> list[dict[str, list[float]]]:
+    """Per stage, the seconds of each of REPEATS runs of its programs after
+    WARMUP.  Every stage is held at once and the runs go in rounds, each
+    round every program of every stage once: the programs are partly
+    host-bound, so a stretch of load on the host falls on every stage alike
+    instead of on the one timed during it."""
+    programs = []
+    for s in range(staged.num_stages):
+        gen = _generator(device)
+        programs.append(_stage_programs(staged, s, _stage_params(staged, s, gen), b, T, gen))
+    runs = [{name: [] for name in progs} for progs in programs]
+    for i in range(WARMUP + REPEATS):
+        for progs, out in zip(programs, runs):
+            for name, (setup, run) in progs.items():
+                seconds = _time_once(setup, run, device)
+                if i >= WARMUP:
+                    out[name].append(seconds)
     return runs
-
-
-def _time_stage(staged: StagedModel, s: int, b: int, T: int, device: torch.device) -> dict[str, list[float]]:
-    gen = _generator(device)
-    programs = _stage_programs(staged, s, _stage_params(staged, s, gen), b, T, gen)
-    return {name: _time_program(setup, run, device) for name, (setup, run) in programs.items()}
 
 
 def _tree_bytes(tree) -> float:
@@ -318,12 +336,13 @@ def calibrate_stage_costs(
     itemsize = torch.empty((), dtype=cfg.dtype, device="meta").element_size()
     act_bytes = float(b * T * d * itemsize)
 
+    timed = _time_stages(staged, b, T, dev) if method == "wallclock" else None
     profiles: list[dict[str, StageTaskProfile]] = []
     specs: list[StageMemorySpec] = []
     for s in range(S):
         counts = count_stage(staged, s, b, T)
-        if method == "wallclock":
-            runs = _time_stage(staged, s, b, T, dev)
+        if timed is not None:
+            runs = timed[s]
             prof = {p: StageTaskProfile(c.flops, c.hbm_bytes, sum(runs[p]) / REPEATS, tuple(runs[p]))
                     for p, c in counts.items()}
         else:

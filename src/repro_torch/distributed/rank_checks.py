@@ -16,17 +16,34 @@ A case is a dict: ``cfg``, ``strategy``, ``M``, ``steps``, ``batch`` (numpy
 arrays by key, the global batch), ``optimizer`` (``"adamw"`` or
 ``"adafactor"``), ``lr``, optional ``hyper`` (its hyper-parameters),
 ``gather_params_once`` and ``remat_blocks``, and ``params`` (``repro``'s flat stacked parameters as
-numpy) or ``seed`` (drawn on the ranks by the step's ``init_state``).
+numpy) or ``seed`` (drawn on the ranks by the step's ``init_state``).  Each
+result also carries every rank's matmul FLOPs in its first step
+(``torch.utils.flop_counter``).
+
+:func:`spmd_serve_cases` runs the sharded prefill and decode step: a case
+is a dict of ``cfg``, ``params`` (``repro``'s, as above), ``prompt`` [B, T]
+tokens, ``cache`` (``repro``'s flat decode cache after its
+``prefill_with_cache`` of the prompt), ``kv_len`` and ``decode`` [steps,
+B, 1] tokens, stepped from index T.  Rank 0 returns the prefill's and each
+step's logits and the cache gathered after the steps (the port's flat
+layout); every rank returns its counts of collectives per call and the
+leaves it gathered over "model".
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import bridge
 from repro_torch.distributed.sharding import gather, local_shape, local_shard, reduce_scatter, spec_axes
-from repro_torch.distributed.spmd import make_spmd_train_step, state_specs_for
+from repro_torch.distributed.spmd import (
+    make_spmd_prefill,
+    make_spmd_serve_step,
+    make_spmd_train_step,
+    state_specs_for,
+)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.transformer import reference_layout
@@ -34,7 +51,7 @@ from repro_torch.optim import AdamWState, constant_schedule, make_optimizer
 from repro_torch.pipeline import ranks
 from repro_torch.tree import flatten
 
-__all__ = ["spmd_cases", "repro_state", "shard_round_trips"]
+__all__ = ["spmd_cases", "spmd_serve_cases", "repro_state", "shard_round_trips"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -73,14 +90,20 @@ def _one(group, case):
     want = {k: local_shape(t.shape, step.specs[k], mesh) for k, t in flatten(state_specs.params).items()}
     got = {k: tuple(t.shape) for k, t in flatten(state.params).items()}
     n0 = flash_ops.launches
-    metrics = []
-    for _ in range(case["steps"]):
-        state, m = step(state, batch)
+    metrics, flops = [], None
+    for i in range(case["steps"]):
+        if i == 0:
+            with FlopCounterMode(display=False) as counter:
+                state, m = step(state, batch)
+            flops = counter.get_total_flops()
+        else:
+            state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = flash_ops.launches - n0
     full = step.gather_state(state)
     return {
         "metrics": metrics, "launches": launches, "shapes_agree": got == want, "row_axes": step.row_axes,
+        "flops": flops,
         "state": repro_state(full, cfg) if group.rank == 0 else None,
     }
 
@@ -88,6 +111,40 @@ def _one(group, case):
 def spmd_cases(group, cases: list) -> list:
     """Every case on this rank, in order; rank 0's results carry the state."""
     return [_one(group, case) for case in cases]
+
+
+def _serve_one(group, case):
+    cfg = case["cfg"]
+    mesh = make_local_mesh(group.axes[0][1], group.axes[1][1], group)
+    prompt = torch.from_numpy(case["prompt"])
+    decode = [torch.from_numpy(t) for t in case["decode"]]
+    B, T = prompt.shape
+    prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt})
+    step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": decode[0]}, case["kv_len"])
+    params = prefill.shard_params(bridge.params_from_repro(case["params"], prefill.cfg, device=group.device))
+    cache = step.shard_cache(bridge.cache_from_repro(case["cache"], cfg, device=group.device))
+    tp = step.tp
+    n0 = flash_ops.launches
+    logits = [_np(prefill(params, {"tokens": prompt}))]
+    counts = [dict(prefill.tp.counts)]
+    k1 = flash_ops.launches - n0
+    for i, tokens in enumerate(decode):
+        tp.counts.clear()
+        logits.append(_np(step(params, cache, T + i, {"tokens": tokens})[0]))
+        counts.append(dict(tp.counts))
+    full = flatten(step.gather_cache(cache))
+    return {
+        "logits": logits if group.rank == 0 else None,
+        "cache": {k: _np(v) for k, v in full.items()} if group.rank == 0 else None,
+        "counts": counts, "k1": k1, "row_axes": step.row_axes,
+        "gathered": sorted(prefill.tp.gathered | tp.gathered),
+        "cache_shapes": {k: tuple(v.shape) for k, v in flatten(cache).items()},
+    }
+
+
+def spmd_serve_cases(group, cases: list) -> list:
+    """Every serving case on this rank, in order (the module docstring)."""
+    return [_serve_one(group, case) for case in cases]
 
 
 def shard_round_trips(group, cases: list, piece_bytes: int | None = None) -> list:

@@ -1,12 +1,11 @@
-"""The sharded training step: one process per device, the state held as each
-rank's shard under ``repro``'s sharding rules.
+"""The sharded train step, prefill and decode step: one process per
+device, the weights (and state) held as each rank's shard under ``repro``'s
+sharding rules.
 
-Port of the training half of ``repro/distributed/spmd.py``
-(``make_spmd_train_step``, ``state_specs_for``, ``act_anchor_for``,
-``_state_shardings``, ``_zero3_dp_axes``); the serving half
-(``make_spmd_prefill``, ``make_spmd_serve_step``) is ROADMAP.md queue 1,
-item 9.  ``repro`` jits one program over a device mesh and lets GSPMD place
-the collectives.  Here each rank is a process of
+Port of ``repro/distributed/spmd.py`` (``make_spmd_train_step``,
+``make_spmd_prefill``, ``make_spmd_serve_step``, ``state_specs_for``,
+``act_anchor_for``, ``_state_shardings``, ``_zero3_dp_axes``).  ``repro``
+jits one program over a device mesh and lets GSPMD place the collectives.  Here each rank is a process of
 :func:`repro_torch.pipeline.ranks.spawn` (NCCL when each rank has a card,
 else gloo with pinned host staging), the mesh is
 :func:`repro_torch.launch.mesh.make_local_mesh` at the rank's coordinate,
@@ -24,22 +23,30 @@ and the step says where every collective goes:
   :func:`act_anchor_for` anchors the hidden stream) and over the axes of
   :func:`_zero3_dp_axes` for ``zero3``.  Ranks along the other axes hold the
   same rows.
-* **Compute: gather at use.**  Each part of the model (the embedding
-  table, each layer, a norm, the head) is all-gathered to full just before
-  it runs, matrices in ``cfg.dtype`` (the model casts them there at use
-  anyway) and the rest in their own dtype, and freed after it; the backward
-  reduce-scatters each gradient to its shard, averaged over the ranks (a
-  leaf replicated over an axis is summed over that axis too).  With
+* **Compute under ``zero3``: gather at use.**  Each part of the model (the
+  embedding table, each layer, a norm, the head) is all-gathered to full
+  just before it runs, matrices in ``cfg.dtype`` (the model casts them
+  there at use anyway) and the rest in their own dtype, and freed after it;
+  the backward reduce-scatters each gradient to its shard, averaged over
+  the ranks (a leaf replicated over an axis is summed over that axis too).
+* **Compute under ``tp_fsdp``: tensor-parallel products over "model"**
+  (:mod:`repro_torch.distributed.tensor_parallel`).  A leaf is gathered over
+  its data axes only (the FSDP half) and the products run on its "model"
+  shard: column and row products with one all-reduce over "model" per
+  attention and MLP block, the vocab-split embedding and logits.  The
+  backward reduce-scatters each gradient over the data axes only, averaged
+  over the row groups.  The leaves no product follows (the MoE layer, the
+  Mamba2 layer, an attention block whose heads do not split whole) are
+  gathered over "model" too, as ``zero3`` gathers every leaf.  The ranks
+  along "model" share their rows' work instead of repeating it.  With
   ``remat_blocks`` (always under ``zero3``) each layer, its gather
   included, runs again in the backward; ``remat`` recomputes the whole
   loss.  With ``gather_params_once`` (``tp_fsdp``) every leaf is gathered
   once a step, before the micro-batches, the leaves of rank >= 2 in
   ``repro``'s stacked layout cast to ``cfg.dtype`` first, as ``repro`` casts
   them; the gradients still reduce-scatter at each use.  Every rank runs K1
-  on its own rows in each attention layer, and K2 in each Mamba2 layer.
-  ``tp_fsdp`` takes ``repro``'s *layout* but not its tensor-parallel
-  products: the ranks along "model" repeat their data slice's work
-  (Megatron-style compute over "model" is ROADMAP.md queue 1, item 9).
+  on its own rows (under ``tp_fsdp`` its own heads) in each attention layer,
+  and K2 in each Mamba2 layer.
 * **MoE.**  Under the anchor the MoE layers route each row as its own group
   (``moe_apply_grouped``), the expert counts summed over the ranks of the
   micro-batch's rows, so the load-balance term is the micro-batch's
@@ -52,6 +59,18 @@ and the step says where every collective goes:
   axis's rank 0 only) summed over the world; Adafactor's row and column
   means and its update RMS sum over the ranks that split the reduced dims
   (:class:`ShardedStats`).
+
+**Serving** (:func:`make_spmd_prefill`, :func:`make_spmd_serve_step`): the
+weights are stationary, each rank holding its shard of
+``param_shardings(..., fsdp=False)`` (drawn by ``init_params``, the
+serving cast's, or cut from a full tree); the prefill is ``prefill_fn`` and
+the decode ``decode_fn`` through the tensor-parallel products, K1 on each
+rank's heads in every attention layer of the prefill; the decode cache is
+each rank's shard under ``cache_shardings`` (the batch over the data axes,
+the KV sequence over "model"), updated in place as ``repro`` donates it.
+The rows follow :func:`act_anchor_for`: over the data axes when the batch
+divides them, else (B = 1) every rank takes them all; the logits are
+gathered over the row axes, so each rank returns ``repro``'s whole output.
 
 :func:`state_specs_for` traces the init under ``FakeTensorMode``: a seeded
 ``torch.Generator`` does not draw on ``meta``, and the fake mode runs the
@@ -77,6 +96,7 @@ from repro_torch.distributed.sharding import (
     PartitionSpec as P,
     _spec_for,
     _zero3_spec,
+    cache_shardings,
     gather,
     local_shape,
     local_shard,
@@ -87,6 +107,7 @@ from repro_torch.distributed.sharding import (
     spec_axes,
     zero3_param_pspecs,
 )
+from repro_torch.distributed.tensor_parallel import MODEL, LeafUse, TensorParallel, gather_spec, leaf_use
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdafactorState, AdamWState, Optimizer, decay_mask, make_optimizer
@@ -99,7 +120,11 @@ __all__ = [
     "state_specs_for",
     "act_anchor_for",
     "make_spmd_train_step",
+    "make_spmd_prefill",
+    "make_spmd_serve_step",
     "SpmdTrainStep",
+    "SpmdPrefill",
+    "SpmdServeStep",
     "ShardedStats",
 ]
 
@@ -203,6 +228,42 @@ def _named(spec) -> set:
     return {a for entry in spec for a in spec_axes(entry)}
 
 
+def _part_paths(cfg: ModelConfig) -> list:
+    """The leaf paths of each part the init's ``finish`` sees, in order."""
+    calls = []
+    with FakeTensorMode():
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        params = api._init(cfg, gen, lambda part: calls.append(list(flatten(part).values())) or part)
+    path_of = {id(t): k for k, t in flatten(params).items()}
+    return [[path_of[id(t)] for t in leaves] for leaves in calls]
+
+
+def _draw_shards(cfg: ModelConfig, specs: dict, mesh, device, seed: int, serving: bool = False):
+    """The rank's shards (under ``specs``, by path) of ``api.init_params(cfg,
+    seed)``, or with ``serving`` of ``api.init_serving_params``: every rank
+    draws the whole seeded stream on its device and keeps its shard of each
+    part as soon as the part is drawn (and cast)."""
+    calls, cut = iter(_part_paths(cfg)), set()
+
+    def finish(part):
+        paths = iter(next(calls))
+        if serving:
+            part = api.cast_for_serving(part, cfg)
+
+        def one(t):
+            path = next(paths)
+            if id(t) in cut:
+                return t
+            s = local_shard(t, specs[path], mesh).clone()
+            cut.add(id(s))
+            return s
+
+        return tree_map(one, part)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return api._init(cfg, gen, finish)
+
+
 class ShardedStats(Whole):
     """Adafactor's reductions over leaves split over the mesh.  Per group:
     the spec of its stacked local shards (``compute``), its full shape and
@@ -255,21 +316,33 @@ class ShardedStats(Whole):
 
 
 class _Gather(torch.autograd.Function):
-    """A leaf's full value from its shard (the forward's all-gather, or the
-    step's gather made once); the backward reduce-scatters its gradient."""
+    """A leaf as its use reads it from the rank's shard (the forward's
+    all-gather over the axes of ``step._gather[path]``, or the step's gather
+    made once; under ``tp_fsdp`` narrowed to the columns of its
+    :class:`~repro_torch.distributed.tensor_parallel.LeafUse`); the backward
+    reduce-scatters its gradient to the shard."""
 
     @staticmethod
     def forward(ctx, shard, path, step):
         ctx.path, ctx.step = path, step
-        once = step._once.get(path)
-        if once is not None:
-            return once.detach()
-        x = shard.to(step._dtype[path])
-        spec = step.specs[path]
-        return gather(x, spec, step.mesh) if _named(spec) else (x.clone() if x is shard else x)
+        x = step._once.get(path)
+        if x is not None:
+            x = x.detach()
+        else:
+            x = shard.to(step._dtype[path])
+            spec = step._gather[path]
+            x = gather(x, spec, step.mesh) if _named(spec) else (x.clone() if x is shard else x)
+        cols = step.uses[path].cols
+        ctx.shape = x.shape
+        return x if cols is None else x.narrow(-1, *cols).contiguous()
 
     @staticmethod
     def backward(ctx, g):
+        cols = ctx.step.uses[ctx.path].cols
+        if cols is not None:
+            full = g.new_zeros(ctx.shape)
+            full.narrow(-1, *cols).copy_(g)
+            g = full
         return ctx.step._grad_shard(g, ctx.path), None, None
 
 
@@ -287,6 +360,13 @@ class SpmdTrainStep:
         pspecs, _ = _rules(mesh, strategy)
         self.specs = flatten(pspecs(state_specs.params))
         self.full_shapes = {k: tuple(t.shape) for k, t in flatten(state_specs.params).items()}
+        # tp_fsdp: the products over "model" (tensor_parallel); zero3 gathers every leaf whole
+        self.tp = TensorParallel(mesh) if strategy == "tp_fsdp" else None
+        if self.tp is None:
+            self.uses = {k: LeafUse(model=True) for k in self.specs}
+        else:
+            self.uses = {k: leaf_use(k, spec, cfg, self.tp.size, self.tp.rank) for k, spec in self.specs.items()}
+        self._gather = {k: gather_spec(spec, self.uses[k], data=True) for k, spec in self.specs.items()}
         # at use, matrices in cfg.dtype (the model casts them there);
         # gathered once, every leaf of rank >= 2 in repro's stacked layout
         cast_once = decay_mask(state_specs.params)
@@ -349,15 +429,28 @@ class SpmdTrainStep:
         return t
 
     def _grad_shard(self, g, path):
-        """The shard of the gradient of the mean over the ranks of their
-        losses, from this rank's gradient of the full leaf."""
-        spec = self.specs[path]
-        x = reduce_scatter(g, spec, self.mesh, torch.float32) if _named(spec) else g.float()
-        if x is g:
-            x = x.clone()
-        if self.mesh.size > 1:
-            self.mesh.group.all_reduce_over(x, tuple(a for a in self.mesh.axis_names if a not in _named(spec)))
-        return x.div_(self.mesh.size)
+        """The shard of the gradient of the mean over the row groups of their
+        losses, from this rank's gradient of the leaf as used.  Under
+        ``zero3`` (every rank a row group) and for a ``"sum"`` use, the
+        ranks' gradients are summed over every axis; under ``tp_fsdp`` the
+        ranks along "model" hold one row group's loss, so a leaf's gradient
+        is its own shard's (``"local"``) or every such rank's alike
+        (``"replicated"``: the rank keeps its chunk), summed over the data
+        axes only."""
+        spec, use = self.specs[path], self.uses[path]
+        groups = self.mesh.size
+        if self.tp is not None:
+            groups //= self.tp.size
+            if use.grad == "replicated":
+                g = local_shard(g, P(*(e if MODEL in spec_axes(e) else None for e in spec)), self.mesh)
+            if use.grad != "sum":
+                spec = gather_spec(spec, LeafUse(), data=True)
+        x = reduce_scatter(g, spec, self.mesh, torch.float32) if _named(spec) else g.float().clone()
+        summed = tuple(a for a in self.mesh.axis_names
+                       if a not in _named(spec) and (self.tp is None or use.grad == "sum" or a != MODEL))
+        if summed and self.mesh.size > 1:
+            self.mesh.group.all_reduce_over(x, summed)
+        return x.div_(groups)
 
     def _use(self, part):
         return tree_map(lambda t: _Gather.apply(t, self._path_of[id(t)], self), part)
@@ -375,36 +468,11 @@ class SpmdTrainStep:
 
     # -- state -------------------------------------------------------------------
 
-    def _part_paths(self) -> list:
-        """The leaf paths of each part the init's ``finish`` sees, in order."""
-        calls = []
-        with FakeTensorMode():
-            gen = torch.Generator(device="cpu").manual_seed(0)
-            params = api._init(self.cfg, gen, lambda part: calls.append(list(flatten(part).values())) or part)
-        path_of = {id(t): k for k, t in flatten(params).items()}
-        return [[path_of[id(t)] for t in leaves] for leaves in calls]
-
     def init_state(self, seed: int = 0) -> TrainState:
         """The rank's shards of ``create_train_state(api.init_params(cfg,
         seed))``: every rank draws the whole seeded stream on its device and
         keeps its shard of each part as soon as the part is drawn."""
-        calls, cut = iter(self._part_paths()), set()
-
-        def finish(part):
-            paths = iter(next(calls))
-
-            def one(t):
-                path = next(paths)
-                if id(t) in cut:
-                    return t
-                s = local_shard(t, self.specs[path], self.mesh).clone()
-                cut.add(id(s))
-                return s
-
-            return tree_map(one, part)
-
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return create_train_state(api._init(self.cfg, gen, finish), self.optimizer)
+        return create_train_state(_draw_shards(self.cfg, self.specs, self.mesh, self.device, seed), self.optimizer)
 
     def shard_state(self, params) -> TrainState:
         """A fresh state from a full parameter tree (cut to the rank's shards)."""
@@ -431,7 +499,7 @@ class SpmdTrainStep:
 
     def _loss(self, leaves, rows):
         def fn():
-            return api.loss_fn(leaves, self.cfg, rows, use=self._use, row_sum=self._row_sum)
+            return api.loss_fn(leaves, self.cfg, rows, use=self._use, row_sum=self._row_sum, tp=self.tp)
 
         return checkpoint(fn, use_reentrant=False) if self.remat else fn()
 
@@ -441,7 +509,7 @@ class SpmdTrainStep:
         self._path_of = {id(t): k for k, t in flat.items()}
         if self.gather_params_once:
             with torch.no_grad():
-                self._once = {k: gather(t.to(self._dtype[k]), self.specs[k], self.mesh) for k, t in flat.items()}
+                self._once = {k: gather(t.to(self._dtype[k]), self._gather[k], self.mesh) for k, t in flat.items()}
         loss_sum, metrics = None, {}
         try:
             for mb in _microbatches(batch, self.M):
@@ -501,9 +569,149 @@ def make_spmd_train_step(
             remat = False
     else:
         raise ValueError(f"unknown strategy {strategy!r}")
-    if device is None:
-        device = mesh.group.device if mesh.group is not None else resolve_device(None)
     state_specs = state_specs_for(cfg, optimizer)
     step = SpmdTrainStep(cfg, mesh, optimizer, M, remat, gather_params_once, strategy, row_axes, state_specs,
-                         torch.device(device))
+                         torch.device(_device(mesh, device)))
     return step, (state_specs, dict(batch_specs))
+
+
+class _Serving:
+    """What the sharded prefill and decode share: the anchored config, the
+    stationary weights' specs (``param_pspecs(..., fsdp=False)``) and each
+    leaf's use, the rank's rows, and the ``use`` hook that hands the model
+    the rank's shards (gathering only the leaves no product follows)."""
+
+    def __init__(self, cfg, mesh, batch_size: int, device, kv_len: int | None = None):
+        self.cfg = act_anchor_for(cfg, mesh, batch_size)
+        self.mesh, self.device = mesh, torch.device(device)
+        anchor = self.cfg.act_sharding
+        self.row_axes = spec_axes(anchor[0]) if anchor else ()
+        self.tp = TensorParallel(mesh, kv_len)
+        self.param_specs = state_specs_for(cfg, make_optimizer()).params
+        self.specs = flatten(param_pspecs(self.param_specs, mesh, fsdp=False))
+        self.uses = {k: leaf_use(k, spec, self.cfg, self.tp.size, self.tp.rank) for k, spec in self.specs.items()}
+        self._gather = {k: gather_spec(spec, self.uses[k], data=True) for k, spec in self.specs.items()}
+        self._path_of: dict = {}
+
+    def init_params(self, seed: int = 0):
+        """The rank's shards of ``api.init_serving_params(cfg, seed)``."""
+        return _draw_shards(self.cfg, self.specs, self.mesh, self.device, seed, serving=True)
+
+    def shard_params(self, params):
+        """The rank's shards of a full parameter tree."""
+        return map_with_path(lambda k, t: local_shard(t.to(self.device), self.specs[k], self.mesh).clone(), params)
+
+    def _leaf(self, t, path):
+        spec, cols = self._gather[path], self.uses[path].cols
+        if _named(spec):
+            t = gather(t, spec, self.mesh)
+            if MODEL in _named(spec):
+                self.tp.gathered.add(path)
+        return t if cols is None else t.narrow(-1, *cols)
+
+    def _use(self, part):
+        return tree_map(lambda t: self._leaf(t, self._path_of[id(t)]), part)
+
+    def local_rows(self, batch: Mapping[str, torch.Tensor]) -> dict:
+        """The rank's rows of ``batch`` on its device."""
+        n = math.prod(self.mesh.shape[a] for a in self.row_axes)
+        i = self.mesh.index(self.row_axes)
+        out = {}
+        for k, v in batch.items():
+            d = _batch_dim(k)
+            out[k] = v.narrow(d, i * (v.shape[d] // n), v.shape[d] // n).to(self.device)
+        return out
+
+    def _all_rows(self, logits):
+        if self.row_axes and self.mesh.size > 1:
+            return self.mesh.group.all_gather_over(logits, self.row_axes, dim=0)
+        return logits
+
+    def _run(self, params, fn):
+        self._path_of = {id(t): k for k, t in flatten(params).items()}
+        try:
+            with torch.no_grad():
+                return fn()
+        finally:
+            self._path_of = {}
+
+
+class SpmdPrefill(_Serving):
+    """One rank's sharded prefill: ``prefill(params, batch) -> logits [B, 1,
+    V]`` of the whole global ``batch`` (every rank passes the same one and
+    takes its rows), ``params`` the rank's shards.  Build it with
+    :func:`make_spmd_prefill`."""
+
+    def __call__(self, params, batch: Mapping[str, torch.Tensor]):
+        rows = self.local_rows(batch)
+        return self._run(params, lambda: self._all_rows(
+            api.prefill_fn(params, self.cfg, rows, use=self._use, tp=self.tp)))
+
+
+class SpmdServeStep(_Serving):
+    """One rank's sharded decode step: ``step(params, cache, index, batch)
+    -> (logits [B, 1, V], cache)``, ``cache`` the rank's shard under
+    ``cache_shardings`` (updated in place), ``index`` one position or a [B]
+    vector of the global batch's.  Build it with
+    :func:`make_spmd_serve_step`."""
+
+    def __init__(self, cfg, mesh, batch_size: int, kv_len: int, device):
+        super().__init__(cfg, mesh, batch_size, device, kv_len)
+        self.kv_len = kv_len
+        self.cache_specs = api.init_cache(self.cfg, batch_size, kv_len, device="meta")
+        self.cache_pspecs = flatten(map_with_path(lambda _, s: s.spec, cache_shardings(self.cache_specs, mesh)))
+
+    def init_cache(self):
+        """The rank's shard of an empty cache."""
+        return map_with_path(
+            lambda k, t: torch.zeros(local_shape(t.shape, self.cache_pspecs[k], self.mesh), dtype=t.dtype,
+                                     device=self.device), self.cache_specs)
+
+    def shard_cache(self, cache):
+        """The rank's shard of a full cache (``api.init_cache``'s layout)."""
+        return map_with_path(lambda k, t: local_shard(t.to(self.device), self.cache_pspecs[k], self.mesh).clone(),
+                             cache)
+
+    def gather_cache(self, cache):
+        """The full cache on every rank from each rank's shard."""
+        return map_with_path(lambda k, t: gather(t, self.cache_pspecs[k], self.mesh), cache)
+
+    def __call__(self, params, cache, index, batch: Mapping[str, torch.Tensor]):
+        rows = self.local_rows(batch)
+        index = torch.as_tensor(index, dtype=torch.long)
+        if index.ndim:
+            index = self.local_rows({"index": index})["index"]
+        else:
+            index = index.to(self.device)
+        logits = self._run(params, lambda: api.decode_fn(params, self.cfg, cache, index, rows, use=self._use,
+                                                         tp=self.tp)[0])
+        return self._all_rows(logits), cache
+
+
+def _device(mesh, device):
+    """``device``, else the rank group's, else cuda."""
+    if device is not None:
+        return device
+    return mesh.group.device if mesh.group is not None else resolve_device(None)
+
+
+def make_spmd_prefill(cfg: ModelConfig, mesh, batch_specs: Mapping, device=None):
+    """Returns ``(prefill, (param_specs, batch_specs))`` as ``repro``'s does:
+    ``prefill`` an :class:`SpmdPrefill` for the rank at ``mesh``'s
+    coordinate (the module docstring), ``param_specs`` the full parameter
+    tree's meta tensors.  ``batch_specs`` maps batch keys to anything with
+    a ``shape`` (the global batch)."""
+    batch_size = next(v.shape[0] for k, v in batch_specs.items() if k != "mrope_positions")
+    step = SpmdPrefill(cfg, mesh, batch_size, _device(mesh, device))
+    return step, (step.param_specs, dict(batch_specs))
+
+
+def make_spmd_serve_step(cfg: ModelConfig, mesh, batch_specs: Mapping, kv_len: int, device=None):
+    """Returns ``(step, (param_specs, cache_specs, index_spec, batch_specs))``
+    as ``repro``'s does: ``step`` an :class:`SpmdServeStep` (one new token
+    against a ``kv_len`` cache, the module docstring), the specs as meta
+    tensors of the full trees."""
+    batch_size = next(iter(batch_specs.values())).shape[0]
+    step = SpmdServeStep(cfg, mesh, batch_size, kv_len, _device(mesh, device))
+    index_spec = torch.empty((), dtype=torch.int32, device="meta")
+    return step, (step.param_specs, step.cache_specs, index_spec, dict(batch_specs))

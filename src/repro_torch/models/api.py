@@ -81,7 +81,7 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], **hooks):
     """Mean next-token loss of a batch (its keys by family, above);
-    ``hooks`` are the distributed step's ``use`` and ``row_sum``
+    ``hooks`` are the distributed step's ``use``, ``row_sum`` and ``tp``
     (:mod:`repro_torch.models.transformer`)."""
     if cfg.family == "encdec":
         return tf.encdec_loss(params, cfg, batch["src_embeds"], batch["tgt_tokens"], batch["labels"], **hooks)
@@ -95,28 +95,31 @@ def loss_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], **hooks
 
 def forward_fn(
     params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *, last_only: bool = False,
-    plain_attention: bool = False,
+    plain_attention: bool = False, **hooks,
 ):
     """(logits, aux) of the full-sequence forward; ``last_only`` unembeds
     the last position alone.  ``plain_attention`` runs every full-sequence
-    attention through the kernel's plain version (the on-card comparison)."""
+    attention through the kernel's plain version (the on-card comparison);
+    ``hooks`` are the sharded prefill's ``use`` and ``tp``."""
     if cfg.family == "encdec":
         return tf.encdec_forward(
             params, cfg, batch["src_embeds"], batch["tgt_tokens"], last_only=last_only,
-            plain_attention=plain_attention,
+            plain_attention=plain_attention, **hooks,
         )
     if cfg.family == "vlm":
         return tf.decoder_forward(
             params, cfg, embeds=batch["embeds"], mrope_positions=batch.get("mrope_positions"),
-            last_only=last_only, plain_attention=plain_attention,
+            last_only=last_only, plain_attention=plain_attention, **hooks,
         )
-    return tf.decoder_forward(params, cfg, batch["tokens"], last_only=last_only, plain_attention=plain_attention)
+    return tf.decoder_forward(
+        params, cfg, batch["tokens"], last_only=last_only, plain_attention=plain_attention, **hooks,
+    )
 
 
-def prefill_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
+def prefill_fn(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], **hooks):
     """Inference prefill: the full-sequence forward, the last position's
     logits [B, 1, V] only (no [B, T, V] tensor)."""
-    return forward_fn(params, cfg, batch, last_only=True)[0]
+    return forward_fn(params, cfg, batch, last_only=True, **hooks)[0]
 
 
 def cast_for_serving(params, cfg: ModelConfig):
@@ -159,12 +162,14 @@ def prefill_with_cache(
 
 def decode_fn(
     params, cfg: ModelConfig, cache, index, batch: Mapping[str, torch.Tensor], *, per_row_moe: bool = False,
+    **hooks,
 ):
     """One decode step; ``index`` is one position or a [B] vector of them.
     MoE layers route the batch as one group (the reference's
     ``decode_fn``), or with ``per_row_moe`` each row as its own group (the
     reference engine's per-slot decode).  An encoder-decoder decodes against
-    ``batch["memory"]``."""
+    ``batch["memory"]``.  ``hooks`` are the sharded serve step's ``use`` and
+    ``tp``."""
     if cfg.family == "encdec":
-        return tf.encdec_decode_step(params, cfg, cache, index, batch["tokens"], batch["memory"])
-    return tf.decode_step(params, cfg, cache, index, batch["tokens"], per_row_moe=per_row_moe)
+        return tf.encdec_decode_step(params, cfg, cache, index, batch["tokens"], batch["memory"], **hooks)
+    return tf.decode_step(params, cfg, cache, index, batch["tokens"], per_row_moe=per_row_moe, **hooks)

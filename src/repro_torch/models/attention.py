@@ -65,6 +65,7 @@ __all__ = [
     "CHUNKED_ATTN_THRESHOLD",
     "attn_prefill",
     "attn_decode",
+    "decode_qkv",
     "init_kv_cache",
     "sdpa",
 ]
@@ -108,13 +109,16 @@ def _merge_heads(x):
     return x.reshape(*x.shape[:-2], -1)
 
 
-def sdpa(q, k, v, mask=None):
+def sdpa(q, k, v, mask=None, return_lse: bool = False):
     """Grouped-query scaled-dot-product attention (the decode path).
 
     q: [B,T,H,hd]; k, v: [B,S,K,hd] with H = K*r; mask broadcastable over
     [B,K,r,T,S], or None for none.  Scores in fp32 (the reference's ``preferred_element_type``),
     masked with -1e30; the probabilities are cast to v's type before the
-    second product.
+    second product.  ``return_lse`` also returns each query's fp32
+    log-sum-exp of its scores, [B,T,H]: the weight by which the sharded
+    decode merges the outputs of split key ranges
+    (:func:`repro_torch.distributed.tensor_parallel.merge_partials`).
     """
     B, T, H, hd = q.shape
     K = k.shape[2]
@@ -124,8 +128,10 @@ def sdpa(q, k, v, mask=None):
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrts,bskh->btkrh", probs.to(v.dtype), v)
-    return out.reshape(B, T, H, hd)
+    out = torch.einsum("bkrts,bskh->btkrh", probs.to(v.dtype), v).reshape(B, T, H, hd)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).permute(0, 3, 1, 2).reshape(B, T, H)
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions, mrope_positions=None):
@@ -199,15 +205,21 @@ def attn_prefill(p, x, cache, cfg: ModelConfig, *, window: int | None = None, pl
     return dense(p["wo"], _merge_heads(out), cfg), cache
 
 
+def decode_qkv(p, x, index, cfg: ModelConfig):
+    """The new tokens' q, k, v [B, 1, heads, hd] at positions ``index`` [B]
+    (an M-RoPE config broadcasts the position to its three streams)."""
+    positions = index[:, None]
+    mrope_positions = positions.expand(3, x.shape[0], 1) if cfg.mrope else None
+    return _project_qkv(p, x, cfg, positions, mrope_positions)
+
+
 def attn_decode(p, x, cache, index, cfg: ModelConfig, *, window: int | None = None):
     """One-token decode.  x: [B, 1, d]; ``index``: [B] positions of the new
     tokens (one per row) or one int for every row.  Returns (out, cache).
     Windowed layers use a ring buffer."""
     B = x.shape[0]
     index = torch.as_tensor(index, dtype=torch.long, device=x.device).expand(B)
-    positions = index[:, None]
-    mrope_positions = positions.expand(3, B, 1) if cfg.mrope else None
-    q, k, v = _project_qkv(p, x, cfg, positions, mrope_positions)
+    q, k, v = decode_qkv(p, x, index, cfg)
     L = cache["k"].shape[1]
     slot = index % L  # ring buffer when windowed; the position otherwise
     rows = torch.arange(B, device=x.device)

@@ -46,7 +46,12 @@ reduce over the ranks that hold the rest of a micro-batch.  With
 (non-reentrant), the gather inside it; with ``cfg.act_sharding`` set the
 MoE layers route each batch row as its own group, as the reference's do.
 The reference's ``constrain_hidden`` anchor at each block boundary has no
-counterpart: each rank's rows are its own.
+counterpart: each rank's rows are its own.  ``tp`` (a
+:class:`repro_torch.distributed.tensor_parallel.TensorParallel`) runs the
+attention and dense MLP blocks, the embedding and the logits on the rank's
+shards over "model" (the training forwards, the prefill and
+:func:`decode_step`, whose ``use`` then hands over the rank's stationary
+shards); without it the model is the one-process one.
 """
 
 from __future__ import annotations
@@ -188,11 +193,18 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=N
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, row_sum=None):
+def _attention(tp, cfg: ModelConfig):
+    """(config, enter, exit) of an attention block: the rank's heads and
+    the tensor-parallel entry and exit under ``tp``, else ``cfg`` and the
+    identities."""
+    return tp.attention(cfg) if tp is not None else (cfg, _whole, _whole)
+
+
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, row_sum=None, tp=None):
     """The FFN sublayer: (delta, (load_balance, router_z)), the terms zero
     for a dense FFN.  An MoE FFN routes the [B, T] tokens as one group, or
     with ``per_row_moe`` or under ``cfg.act_sharding`` each batch row as its
-    own group (``row_sum``: the module docstring)."""
+    own group (``row_sum``, ``tp``: the module docstring)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
         h = norm_apply(p["ln2"], x, cfg)
@@ -204,32 +216,38 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, row
             y = y.reshape(B, T, d)
         return y, (aux["load_balance"], aux["router_z"])
     if "mlp" in p:
-        return mlp(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg), (zero, zero)
+        enter, exit_ = tp.mlp(p["mlp"], cfg.d_ff) if tp is not None else (_whole, _whole)
+        return exit_(mlp(p["mlp"], enter(norm_apply(p["ln2"], x, cfg)), cfg)), (zero, zero)
     return torch.zeros_like(x), (zero, zero)
 
 
 def apply_layer_train(
     p, x, cfg: ModelConfig, spec: LayerSpec, *, causal: bool = True, memory=None,
-    positions=None, mrope_positions=None, plain_attention: bool = False, row_sum=None,
+    positions=None, mrope_positions=None, plain_attention: bool = False, row_sum=None, tp=None,
 ):
     """Full-sequence training forward of one layer.  Returns (x, aux), aux
     the MoE load-balance and router-z terms (zeros for a dense FFN).  A
     layer with a cross attention attends to ``memory`` after its
     self-attention.  ``plain_attention`` is :func:`attn.attn_train`'s
-    on-card comparison flag; ``row_sum`` the MoE layer's (module docstring)."""
+    on-card comparison flag; ``row_sum`` and ``tp`` the distributed step's
+    (module docstring)."""
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
-        h = attn.attn_train(
-            p["attn"], h, cfg, window=spec.window, causal=causal, positions=positions,
+        c, enter, exit_ = _attention(tp, cfg)
+        h = exit_(attn.attn_train(
+            p["attn"], enter(h), c, window=spec.window, causal=causal, positions=positions,
             mrope_positions=mrope_positions, plain_attention=plain_attention,
-        )
+        ))
     else:
         h = mamba_mod.mamba_train(p["mamba"], h, cfg)
     x = x + h
     if memory is not None and "xattn" in p:
-        h = attn.cross_attn(p["xattn"], norm_apply(p["ln_x"], x, cfg), memory, cfg, plain_attention=plain_attention)
+        c, enter, exit_ = _attention(tp, cfg)
+        h = exit_(attn.cross_attn(
+            p["xattn"], enter(norm_apply(p["ln_x"], x, cfg)), enter(memory), c, plain_attention=plain_attention,
+        ))
         x = x + h
-    delta, aux = _ffn(p, x, cfg, spec, row_sum=row_sum)
+    delta, aux = _ffn(p, x, cfg, spec, row_sum=row_sum, tp=tp)
     return x + delta, aux
 
 
@@ -279,17 +297,25 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain
 
 
 def apply_layer_decode(
-    p, x, cache, index, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, *, memory=None,
+    p, x, cache, index, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, *, memory=None, tp=None,
 ):
+    """One layer's one-token step; under ``tp`` (the sharded serve step) on
+    the rank's shards of the weights and of the layer's cache."""
     h = norm_apply(p["ln1"], x, cfg)
     if spec.kind == "attn":
-        h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
+        if tp is not None:
+            h = tp.attn_decode(p["attn"], h, cache["kv"], index, cfg, spec.window)
+        else:
+            h, _ = attn.attn_decode(p["attn"], h, cache["kv"], index, cfg, window=spec.window)
+    elif tp is not None:
+        h = tp.ssm_decode(p["mamba"], h, cache["ssm"], cfg)
     else:
         h, _ = mamba_mod.mamba_decode(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
     if memory is not None and "xattn" in p:
-        x = x + attn.cross_attn_decode(p["xattn"], norm_apply(p["ln_x"], x, cfg), memory, cfg)
-    delta, _ = _ffn(p, x, cfg, spec, per_row_moe)
+        c, enter, exit_ = _attention(tp, cfg)
+        x = x + exit_(attn.cross_attn_decode(p["xattn"], enter(norm_apply(p["ln_x"], x, cfg)), memory, c))
+    delta, _ = _ffn(p, x, cfg, spec, per_row_moe, tp=tp)
     return x + delta, cache
 
 
@@ -311,37 +337,41 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, finish=None):
     return params
 
 
-def _hidden_from_inputs(params, cfg: ModelConfig, tokens, embeds, use=None):
+def _hidden_from_inputs(params, cfg: ModelConfig, tokens, embeds, use=None, tp=None):
     if embeds is not None:
         return embeds.to(cfg.dtype)
-    return embed((use or _whole)({"table": params["embed"]["table"]}), tokens, cfg)
+    return (tp.embed if tp is not None else embed)((use or _whole)({"table": params["embed"]["table"]}), tokens, cfg)
 
 
-def _head(params, cfg: ModelConfig, x, aux_lb, aux_z, last_only: bool, use=None):
+def _logits(params, cfg: ModelConfig, x, use=None, tp=None):
+    """The final norm and the unembedding of x."""
     use = use or _whole
-    if last_only:
-        x = x[:, -1:, :]
     x = norm_apply(use(params["final_norm"]), x, cfg)
     out = "head" if "head" in params["embed"] else "table"
-    logits = unembed(use({out: params["embed"][out]}), x, cfg)
-    return logits, {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
+    return (tp.unembed if tp is not None else unembed)(use({out: params["embed"][out]}), x, cfg)
+
+
+def _head(params, cfg: ModelConfig, x, aux_lb, aux_z, last_only: bool, use=None, tp=None):
+    if last_only:
+        x = x[:, -1:, :]
+    return _logits(params, cfg, x, use, tp), {"moe_load_balance": aux_lb, "moe_router_z": aux_z}
 
 
 def decoder_forward(
     params, cfg: ModelConfig, tokens=None, embeds=None, *, mrope_positions=None,
-    last_only: bool = False, plain_attention: bool = False, use=None, row_sum=None,
+    last_only: bool = False, plain_attention: bool = False, use=None, row_sum=None, tp=None,
 ):
     """Full-sequence forward over tokens [B, T] or embeddings [B, T, d]
     (with ``mrope_positions`` [3, B, T] for an M-RoPE config) -> (logits
     [B, T, V], aux metrics).  ``last_only`` unembeds the last position
-    alone (logits [B, 1, V]), the prefill's contract; ``use`` and
-    ``row_sum`` are the distributed step's (module docstring)."""
-    x = _hidden_from_inputs(params, cfg, tokens, embeds, use)
+    alone (logits [B, 1, V]), the prefill's contract; ``use``, ``row_sum``
+    and ``tp`` are the distributed step's (module docstring)."""
+    x = _hidden_from_inputs(params, cfg, tokens, embeds, use, tp)
     x, aux_lb, aux_z = _train_layers(
         params["layers"], layer_specs(cfg), x, cfg, use, mrope_positions=mrope_positions,
-        plain_attention=plain_attention, row_sum=row_sum,
+        plain_attention=plain_attention, row_sum=row_sum, tp=tp,
     )
-    return _head(params, cfg, x, aux_lb, aux_z, last_only, use)
+    return _head(params, cfg, x, aux_lb, aux_z, last_only, use, tp)
 
 
 def _loss(logits, aux, labels):
@@ -352,10 +382,13 @@ def _loss(logits, aux, labels):
 
 def decoder_loss(
     params, cfg: ModelConfig, tokens=None, labels=None, embeds=None, *, mrope_positions=None, use=None, row_sum=None,
+    tp=None,
 ):
     """(total loss, metrics): mean token cross-entropy plus the weighted MoE
     terms; metrics ``ce_loss``, ``moe_load_balance``, ``moe_router_z``."""
-    logits, aux = decoder_forward(params, cfg, tokens, embeds, mrope_positions=mrope_positions, use=use, row_sum=row_sum)
+    logits, aux = decoder_forward(
+        params, cfg, tokens, embeds, mrope_positions=mrope_positions, use=use, row_sum=row_sum, tp=tp,
+    )
     return _loss(logits, aux, labels)
 
 
@@ -379,16 +412,17 @@ def prefill_with_cache(params, cfg: ModelConfig, cache, tokens, *, plain_attenti
     return unembed(params["embed"], x, cfg), cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, index, tokens, *, per_row_moe: bool = False):
+def decode_step(params, cfg: ModelConfig, cache, index, tokens, *, per_row_moe: bool = False, use=None, tp=None):
     """One-token decode.  tokens [B, 1]; ``index`` [B] per-row positions (or
     one int).  MoE layers route the B tokens as one group, or with
     ``per_row_moe`` each row as its own.  Returns (logits [B, 1, V], cache),
-    the cache updated in place."""
-    x = embed(params["embed"], tokens, cfg)
+    the cache updated in place.  ``use`` and ``tp`` are the sharded serve
+    step's (module docstring)."""
+    use = use or _whole
+    x = _hidden_from_inputs(params, cfg, tokens, None, use, tp)
     for p, spec, c in zip(params["layers"], layer_specs(cfg), cache["layers"]):
-        x, _ = apply_layer_decode(p, x, c, index, cfg, spec, per_row_moe)
-    x = norm_apply(params["final_norm"], x, cfg)
-    return unembed(params["embed"], x, cfg), cache
+        x, _ = apply_layer_decode(use(p), x, c, index, cfg, spec, per_row_moe, tp=tp)
+    return _logits(params, cfg, x, use, tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -411,34 +445,34 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, finish=None):
     return params
 
 
-def _encode(params, cfg: ModelConfig, src_embeds, plain_attention: bool = False, use=None):
+def _encode(params, cfg: ModelConfig, src_embeds, plain_attention: bool = False, use=None, tp=None):
     """The encoder's memory [B, S, d] from the frontend's frame embeddings:
     bidirectional layers, then the encoder's final norm."""
     enc = encoder_config(cfg)
     x, _, _ = _train_layers(
         params["encoder"], layer_specs(enc, cfg.encoder_layers), src_embeds.to(cfg.dtype), enc, use,
-        causal=False, plain_attention=plain_attention,
+        causal=False, plain_attention=plain_attention, tp=tp,
     )
     return norm_apply((use or _whole)(params["enc_norm"]), x, cfg)
 
 
 def encdec_forward(
     params, cfg: ModelConfig, src_embeds, tgt_tokens, last_only: bool = False, plain_attention: bool = False,
-    use=None, row_sum=None,
+    use=None, row_sum=None, tp=None,
 ):
     """(logits [B, T, V], aux) of the target tokens [B, T] over the source
     frames [B, S, d] (the modality frontend's output)."""
-    memory = _encode(params, cfg, src_embeds, plain_attention, use)
-    x = _hidden_from_inputs(params, cfg, tgt_tokens, None, use)
+    memory = _encode(params, cfg, src_embeds, plain_attention, use, tp)
+    x = _hidden_from_inputs(params, cfg, tgt_tokens, None, use, tp)
     x, aux_lb, aux_z = _train_layers(
         params["decoder"], layer_specs(cfg), x, cfg, use, memory=memory, plain_attention=plain_attention,
-        row_sum=row_sum,
+        row_sum=row_sum, tp=tp,
     )
-    return _head(params, cfg, x, aux_lb, aux_z, last_only, use)
+    return _head(params, cfg, x, aux_lb, aux_z, last_only, use, tp)
 
 
-def encdec_loss(params, cfg: ModelConfig, src_embeds, tgt_tokens, labels, *, use=None, row_sum=None):
-    logits, aux = encdec_forward(params, cfg, src_embeds, tgt_tokens, use=use, row_sum=row_sum)
+def encdec_loss(params, cfg: ModelConfig, src_embeds, tgt_tokens, labels, *, use=None, row_sum=None, tp=None):
+    logits, aux = encdec_forward(params, cfg, src_embeds, tgt_tokens, use=use, row_sum=row_sum, tp=tp)
     return _loss(logits, aux, labels)
 
 
@@ -446,11 +480,11 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return {"decoder": [init_layer_cache(cfg, spec, batch, max_len, device) for spec in layer_specs(cfg)]}
 
 
-def encdec_decode_step(params, cfg: ModelConfig, cache, index, tgt_tokens, memory):
+def encdec_decode_step(params, cfg: ModelConfig, cache, index, tgt_tokens, memory, *, use=None, tp=None):
     """One decoder token [B, 1] against the fixed encoder ``memory`` [B, S,
     d].  Returns (logits [B, 1, V], cache), the cache updated in place."""
-    x = embed(params["embed"], tgt_tokens, cfg)
+    use = use or _whole
+    x = _hidden_from_inputs(params, cfg, tgt_tokens, None, use, tp)
     for p, spec, c in zip(params["decoder"], layer_specs(cfg), cache["decoder"]):
-        x, _ = apply_layer_decode(p, x, c, index, cfg, spec, memory=memory)
-    x = norm_apply(params["final_norm"], x, cfg)
-    return unembed(params["embed"], x, cfg), cache
+        x, _ = apply_layer_decode(use(p), x, c, index, cfg, spec, memory=memory, tp=tp)
+    return _logits(params, cfg, x, use, tp), cache

@@ -434,6 +434,33 @@ def test_wallclock_on_cpu_times_every_program():
             assert prof[p].flops == sprof[p].flops
 
 
+def test_wallclock_times_every_stage_in_rounds_without_collection(monkeypatch):
+    import gc
+
+    from repro_torch.core import calibrate as calib
+
+    staged = StagedModel.build(_cfg(), 2)
+    order, real = [], calib._time_once
+
+    def spy(setup, run, device):
+        def run_and_note(arg):
+            order.append((id(run), gc.isenabled()))
+            return run(arg)
+
+        return real(setup, run_and_note, device)
+
+    monkeypatch.setattr(calib, "_time_once", spy)
+    programs = len(TASK_PROGRAMS)
+    runs = calib._time_stages(staged, 2, 8, torch.device("cpu"))
+    assert [sorted(r) for r in runs] == [sorted(TASK_PROGRAMS)] * 2
+    assert all(len(v) == calib.REPEATS for r in runs for v in r.values())
+    # one round = every program of stage 0, then of stage 1; WARMUP + REPEATS rounds
+    round_ = order[: 2 * programs]
+    assert len({r for r, _ in round_}) == 2 * programs
+    assert order == round_ * (calib.WARMUP + calib.REPEATS)
+    assert not any(on for _, on in order) and gc.isenabled()
+
+
 def test_wallclock_needs_the_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

@@ -138,19 +138,32 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
 
 
 def test_sharded_step_needs_the_card_and_serving_is_not_ported():
-    """``make_spmd_train_step`` on a one-process mesh defaults to the card;
-    the serving half of ``repro``'s spmd module raises, naming its item."""
+    """``make_spmd_train_step``, ``make_spmd_prefill`` and
+    ``make_spmd_serve_step`` on a one-process mesh default to the card;
+    with ``device="cpu"`` the serving half (ported since its item of
+    ROADMAP.md queue 1 was done) equals the one-process prefill and decode."""
     from repro_torch import distributed
     from repro_torch.launch.mesh import make_local_mesh
 
     cfg = GPT_CONFIGS["GPT-2.7B"].replace(**SMALL)
     specs = {"tokens": torch.empty(2, 8, device="meta"), "labels": torch.empty(2, 8, device="meta")}
     if not torch.cuda.is_available():
+        for make in (distributed.make_spmd_train_step, distributed.make_spmd_prefill):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(cfg, make_local_mesh(), specs)
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            distributed.make_spmd_train_step(cfg, make_local_mesh(), specs)
+            distributed.make_spmd_serve_step(cfg, make_local_mesh(), specs, 16)
     step, (state_specs, _) = distributed.make_spmd_train_step(cfg, make_local_mesh(), specs, device="cpu")
     assert state_specs.params["embed"]["table"].device.type == "meta"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        distributed.make_spmd_prefill(cfg, make_local_mesh(), specs)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        distributed.make_spmd_serve_step(cfg, make_local_mesh(), specs, 16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    prefill, (param_specs, _) = distributed.make_spmd_prefill(cfg, make_local_mesh(), {"tokens": tokens}, device="cpu")
+    decode, _ = distributed.make_spmd_serve_step(cfg, make_local_mesh(), {"tokens": tokens[:, :1]}, 16, device="cpu")
+    assert param_specs["embed"]["table"].device.type == "meta"
+    params = prefill.init_params(0)
+    want_params = api.init_serving_params(cfg, 0, "cpu")
+    torch.testing.assert_close(prefill(params, {"tokens": tokens}), api.prefill_fn(want_params, cfg, {"tokens": tokens}),
+                               rtol=0, atol=0)
+    cache, want_cache = decode.init_cache(), api.init_cache(cfg, 2, 16, "cpu")
+    got, _ = decode(params, cache, 0, {"tokens": tokens[:, :1]})
+    want, _ = api.decode_fn(want_params, cfg, want_cache, 0, {"tokens": tokens[:, :1]})
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -19,7 +19,10 @@ both MoE archs at capacity factor E so that no entry is dropped
 queue 3; the last test holds that apart); jamba smoke (hybrid, the plain
 SSD on the CPU) under ``zero3`` at B 4 (rows over "data"): at B 8 ``repro``'s zero3 anchors
 the rows on ("data", "model") and its MoE pins then name "model" twice
-(``DuplicateSpecError``, ROADMAP.md queue 3).  Everything in fp32.
+(``DuplicateSpecError``, ROADMAP.md queue 3); and qwen2.5-14b smoke under
+``tp_fsdp`` on a (1, 4) mesh (a second spawn, and ``repro`` on a (1, 4)
+mesh), whose 2 KV heads do not split whole over "model": ``wk`` and ``wv``
+are gathered and each rank trains its whole heads.  Everything in fp32.
 
 Tolerance: 1e-4 of the largest entry of each compared tensor, the limit of
 ``tests/test_torch_archs.py`` and ``tests/test_torch_hybrid.py``, on the
@@ -42,6 +45,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.checkpoint.io import _path_str
 from repro.configs import get_arch as jax_get_arch
@@ -50,13 +55,17 @@ from repro.models import moe as jax_moe
 from repro_torch import bridge
 from repro_torch.configs import get_arch
 from repro_torch.distributed import rank_checks
-from repro_torch.distributed.spmd import act_anchor_for
+from repro_torch.distributed.sharding import param_pspecs
+from repro_torch.distributed.spmd import act_anchor_for, state_specs_for
+from repro_torch.distributed.tensor_parallel import head_split, leaf_use
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import api, moe
 from repro_torch.models.transformer import reference_layout
 from repro_torch.optim import constant_schedule, make_optimizer
 from repro_torch.pipeline import ranks
 from repro_torch.training import create_train_state, make_train_step
+from repro_torch.training.steps import _microbatches
+from repro_torch.tree import flatten, tree_map
 
 _REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TOL = 1e-4
@@ -72,7 +81,10 @@ CASES = [
     ("qwen-gather_once", "qwen1.5-4b", "tp_fsdp", "adamw", ADAMW, True, {}),
     ("kimi-tp_fsdp", "kimi-k2-1t-a32b", "tp_fsdp", "adafactor", {}, False, {"capacity_factor": "E"}),
     ("jamba-zero3", "jamba-v0.1-52b", "zero3", "adamw", ADAMW, False, {"capacity_factor": "E"}),
+    ("qwen2.5-tp4", "qwen2.5-14b", "tp_fsdp", "adamw", ADAMW, False, {}),
 ]
+#: cases on another ("data", "model") mesh than (2, 2): K = 2 KV heads at tp 4
+MESH = {"qwen2.5-tp4": (1, 4)}
 IDS = [c[0] for c in CASES]
 BY_ID = {c[0]: c for c in CASES}
 
@@ -129,11 +141,11 @@ _REPRO_SCRIPT = textwrap.dedent(
     from repro.training import create_train_state
 
     inp, cases = np.load(sys.argv[1]), json.loads(sys.argv[3])
-    # jax 0.9's make_mesh types its axes Explicit, under which the step's
-    # with_sharding_constraint refuses its specs
-    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
     out = {}
-    for cid, arch, strategy, opt_name, hyper, once, changes, M, steps in cases:
+    for cid, arch, strategy, opt_name, hyper, once, changes, M, steps, shape in cases:
+        # jax 0.9's make_mesh types its axes Explicit, under which the step's
+        # with_sharding_constraint refuses its specs
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
         cfg = get_arch(arch).smoke.replace(dtype=jnp.float32, **changes)
         shapes = jax.eval_shape(lambda: api.init_params(jax.random.PRNGKey(0), cfg))
         leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
@@ -168,7 +180,7 @@ def repro_step(tmp_path_factory):
         params, batch = _inputs(cid)
         arrays.update({f"{cid}/params/{k}": v for k, v in params.items()})
         arrays.update({f"{cid}/batch/{k}": v for k, v in batch.items()})
-        cases.append((cid, arch, strategy, opt, hyper, once, _changes(arch, changes), M, STEPS))
+        cases.append((cid, arch, strategy, opt, hyper, once, _changes(arch, changes), M, STEPS, MESH.get(cid, (2, 2))))
     np.savez(tmp / "in.npz", **arrays)
     env = {**os.environ, "PYTHONPATH": os.path.join(_REPO, "src"), "JAX_PLATFORMS": "cpu"}
     env.pop("XLA_FLAGS", None)
@@ -198,15 +210,19 @@ def repro_step(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(repro_step):
-    """Every case on four gloo ranks, a (2, 2) mesh (one spawn)."""
-    cases = []
+    """Every case on four gloo ranks: one spawn a mesh, (2, 2) and (1, 4)."""
+    per_mesh = {}
     for cid, arch, strategy, opt, hyper, once, changes in CASES:
         params, batch = _inputs(cid)
-        cases.append(dict(cfg=_cfgs(arch, changes)[1], strategy=strategy, M=M, steps=STEPS, batch=batch,
-                          optimizer=opt, hyper=hyper, lr=1e-3, gather_params_once=once, params=params))
-    per_rank = ranks.spawn(rank_checks.spmd_cases, 4, args=(cases,), device="cpu", timeout=600,
-                           axes={"data": 2, "model": 2})
-    return {cid: [r[i] for r in per_rank] for i, cid in enumerate(IDS)}
+        per_mesh.setdefault(MESH.get(cid, (2, 2)), []).append((cid, dict(
+            cfg=_cfgs(arch, changes)[1], strategy=strategy, M=M, steps=STEPS, batch=batch, optimizer=opt,
+            hyper=hyper, lr=1e-3, gather_params_once=once, params=params)))
+    out = {}
+    for (data, model), items in per_mesh.items():
+        per_rank = ranks.spawn(rank_checks.spmd_cases, 4, args=([c for _, c in items],), device="cpu",
+                               timeout=600, axes={"data": data, "model": model})
+        out.update({cid: [r[i] for r in per_rank] for i, (cid, _) in enumerate(items)})
+    return out
 
 
 def _close(got, want, name=""):
@@ -247,6 +263,23 @@ def test_every_rank_holds_its_shard_and_agrees(world, cid):
     assert all(r["launches"] == 0 for r in per_rank)
 
 
+def test_a_head_split_that_is_not_whole_gathers_wk_and_wv():
+    """The (1, 4) case's heads (qwen2.5-14b smoke, 8 query heads over 2 KV
+    heads): a rank's shard of ``wk`` and ``wv`` is half a head, so those two
+    are gathered over "model" and each rank computes on its whole heads
+    (``"kv_gather"``), their gradients summed back over "model"; the case's
+    step is held to ``repro``'s above."""
+    cfg = _cfgs("qwen2.5-14b", {})[1]
+    mesh = make_local_mesh(*MESH["qwen2.5-tp4"])
+    specs = param_pspecs(state_specs_for(cfg, make_optimizer()).params, mesh, fsdp=True)
+    for r in range(4):
+        assert head_split(cfg, 4, r).mode == "kv_gather"
+        for name in ("wq", "wk", "wv", "wo"):
+            path = f"layers/0/attn/{name}/w"
+            use = leaf_use(path, flatten(specs)[path], cfg, 4, r)
+            assert (use.model, use.grad) == ((True, "sum") if name in ("wk", "wv") else (False, "local"))
+
+
 def test_rows_split_as_repro_anchors_them(world):
     """tp_fsdp splits each micro-batch's rows over "data" (its anchor);
     zero3 over every axis (four rows a micro-batch), as ``_zero3_dp_axes``."""
@@ -278,6 +311,46 @@ def test_sharded_step_matches_one_process_step(world, cid):
         metrics.append({k: float(v) for k, v in m.items()})
     r0 = world[cid][0]
     _compare(r0["metrics"], r0["state"], metrics, rank_checks.repro_state(state, cfg))
+
+
+def _row_group_flops(cid, groups: int) -> int:
+    """Matmul FLOPs of one step's forwards and backwards in one process on the
+    first of ``groups`` row groups of each micro-batch, under the config and
+    remat the sharded step runs (the whole loss checkpointed under
+    ``tp_fsdp``, each layer under ``zero3``): what a rank computes when its
+    peers along "model" repeat its rows' work."""
+    _, arch, strategy, *_, changes = BY_ID[cid]
+    cfg = _cfgs(arch, changes)[1]
+    if strategy == "zero3":
+        cfg = cfg.replace(act_sharding=(("data", "model"), None, None), remat_blocks=True)
+    else:
+        cfg = act_anchor_for(cfg, make_local_mesh(2, 2), B, M)
+    params, batch = _inputs(cid)
+    leaves = tree_map(lambda t: t.requires_grad_(True), bridge.params_from_repro(params, cfg, device="cpu"))
+    with FlopCounterMode(display=False) as counter:
+        for mb in _microbatches({k: torch.from_numpy(v) for k, v in batch.items()}, M):
+            rows = {k: v[: v.shape[0] // groups] for k, v in mb.items()}
+
+            def loss(rows=rows):
+                return api.loss_fn(leaves, cfg, rows)[0]
+
+            (checkpoint(loss, use_reentrant=False) if strategy == "tp_fsdp" else loss()).backward()
+    return counter.get_total_flops()
+
+
+def test_tp_fsdp_ranks_along_model_split_the_work(world):
+    """qwen1.5-4b smoke: under ``tp_fsdp`` each rank's matmul FLOPs in a step
+    are half of what its row group costs unsplit (the tensor-parallel
+    products split every matmul of a dense model over the two ranks along
+    "model"; no leaf of it is gathered whole), where before the ranks
+    along "model" each did the whole; under ``zero3`` each rank's count is
+    its own row's, unchanged."""
+    tp = [r["flops"] for r in world["qwen-tp_fsdp"]]
+    z3 = [r["flops"] for r in world["qwen-zero3"]]
+    unsplit = _row_group_flops("qwen-tp_fsdp", 2)
+    assert len(set(tp)) == 1 and len(set(z3)) == 1
+    assert 0.5 <= tp[0] / unsplit <= 0.5 + 1e-3, (tp[0], unsplit)
+    assert z3[0] == _row_group_flops("qwen-zero3", 4), (z3[0],)
 
 
 def test_grouped_load_balance_over_split_rows_equals_the_whole():
