@@ -343,7 +343,22 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 SPMD_TP_MASS_TOL (SPMD_ONE_FP32: in bf16 its products round
                 apart), and that gate must see a doubled leaf of every norm
                 scale.  --spmd-control adds tp_fsdp in bf16 against the same
-                fp32 step, which that gate must refuse (its readings logged)
+                fp32 step, which that gate must refuse (its readings logged).
+                Then jamba-v0.1-52b (SPMD_JAMBA_ONE: 2 layers and 4 of 16
+                experts at full width, one fp32 tp_fsdp step of b 4 x T 512
+                against the anchored one-process step under the ranks'
+                routing; SPMD_JAMBA_FOUR: one 8-layer period with all 16
+                experts, b 8 x T 2048 in M=2, 3 steps): its MoE expert-parallel and its Mamba2 by heads
+                over "model", K2 per rank = Mamba2 layers x micro-batches x
+                steps x 2 on its heads; gates: each step's collectives over
+                "model" are the products' (_tp_counts), no rank gathered an
+                expert bank, in_proj or out_proj over "model" (the router
+                and conv_w only), every rank of a column routed alike
+                (digests of each MoE call's idx and keep).  On both archs
+                and every card count, every leaf's shard on every rank
+                changed by the steps and every leaf got a gradient
+                (AdamW's m; the smallest relative change logged).
+                ``--only spmd-jamba`` runs jamba alone
 19. spmd-serve  repro's sharded prefill and decode step (make_spmd_prefill,
                 make_spmd_serve_step) on qwen2.5-14b at full width, four
                 ranks on the (2, 2) mesh, the weights stationary (each
@@ -364,7 +379,19 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 cards every rank's peak under 80 GiB.  Per rank: each call's
                 wall ms (p50 with the first left out, tokens/s), its
                 all-reduce and all-gather counts and bytes, its span seconds
-                (all-reduces, gathers, staging), weights, cache and peak
+                (all-reduces, gathers, staging), weights, cache and peak.
+                Then jamba-v0.1-52b (SPMD_SERVE_JAMBA_CHECK: 2 layers and 4
+                experts, a prefill of b 4 x T 512 filling a fresh kv_len 520
+                cache, 4 decode steps from it, held to one process's
+                prefill_with_cache and decode_fn; SPMD_SERVE_JAMBA_FOUR, four
+                cards: 32 layers and 16 experts, 28.9 GB of bf16 a rank,
+                a prefill of b 4 x T 2048 three times, 8 decode steps at B
+                16 against a kv_len 32768 cache of seeded values): its MoE
+                on each rank's experts, its Mamba2 on each rank's heads (the
+                prefill's recurrence too: K2 never); gates as above, and
+                each call's collectives over "model" (_tp_counts), only the
+                router and conv_w gathered over "model", each column routed
+                alike; per rank the draw's peak above its weights
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
@@ -373,10 +400,11 @@ The line before the last is a JSON object with every kernel's figures (K1's
 also per main path: serving, adaptive serving, pipeline training, the
 calibration, the adaptive loop, the ranks, the adaptive loop on the
 ranks, the fabric in one process and across two, the sharded step and
-the sharded prefill (at a four-card rank's shape), the
-dense archs' model check, serving and training, the MoE and hybrid archs', and the
-encoder-decoder and VLM archs' model check and training, each at its own
-shape; K2's per main path: train and train-moe);
+the sharded prefill (at a four-card rank's shape; jamba's on both at
+its rank's), the dense archs' model check, serving and training, the MoE
+and hybrid archs', and the encoder-decoder and VLM archs' model check and
+training, each at its own shape; K2's per main path: train, train-moe and
+jamba's sharded step on a rank's heads);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -384,6 +412,7 @@ from __future__ import annotations
 
 import argparse
 from concurrent.futures import ThreadPoolExecutor
+import contextlib
 import gc
 import json
 import math
@@ -404,6 +433,9 @@ PHASES = (
     "train-encdec-vlm", "pipeline-model", "pipeline", "calibrate", "adaptive", "ranks-model", "ranks", "adaptive-ranks-model",
     "adaptive-ranks", "fabric", "fabric-tcp", "spmd", "spmd-serve",
 )
+#: what --only may name besides PHASES: the spmd and spmd-serve phases on
+#: jamba-v0.1-52b alone (its four-card deployment without qwen2.5-14b's)
+JAMBA_ALONE = {"spmd-jamba": "spmd", "spmd-serve-jamba": "spmd-serve"}
 
 #: the device spec of one H100 SXM (published dense peaks at its 700 W
 #: limit), read by the port's loader: bytes/s of HBM, and FLOP/s per input
@@ -502,6 +534,10 @@ FLASH_CASES = [
     # its 2 rows of 4 and its 20 of 40 heads over 4 of 8 KV groups at T 32768
     # (the plain version's scores take the chunked route there: LONG_FLASH)
     ("qwen2.5-14b_tp_b2_t32768", 2, 32768, 32768, 20, 4, 128, torch.bfloat16, True, None),
+    # jamba's attention on a four-card rank (tp 2): its 2 rows of a b 4 x T
+    # 2048 prefill, or of a micro-batch of the train period, and its 16 of
+    # 32 heads over 4 of 8 KV groups
+    ("jamba_tp_b2_t2048", 2, 2048, 2048, 16, 4, 128, torch.bfloat16, True, None),
 ]
 #: cases whose plain version would hold a [B, H, T, S] fp32 score tensor no
 #: card holds (172 GB at qwen2.5-14b_tp_b2_t32768): checked against the
@@ -530,6 +566,7 @@ PATH_CASES = {
     "model-moe": "kimi-k2_gqa_t512", "serve-moe": "kimi-k2_gqa_t512", "train-moe": "kimi-k2_train_t2048",
     "model-encdec-vlm": "seamless_cross_b4_t1024_s128", "train-encdec-vlm": "qwen2-vl_gqa6_b2_t2048",
     "spmd": "qwen2.5-14b_spmd_t2048", "spmd-serve": "qwen2.5-14b_tp_b2_t32768",
+    "spmd-jamba": "jamba_tp_b2_t2048", "spmd-serve-jamba": "jamba_tp_b2_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
@@ -537,7 +574,7 @@ TIMED_FLASH = (
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
     "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
     "seamless_enc_b4_t128", "seamless_dec_b4_t1024", "seamless_cross_b4_t1024_s128", "qwen2-vl_gqa6_b2_t2048",
-    "qwen2.5-14b_spmd_t2048", "qwen2.5-14b_tp_b2_t32768",
+    "qwen2.5-14b_spmd_t2048", "qwen2.5-14b_tp_b2_t32768", "jamba_tp_b2_t2048",
 )
 #: the traces _device_ms takes before it gives up on a trace with no kernel
 DEVICE_TRACES = 3
@@ -577,10 +614,15 @@ SSD_KERNEL_CASES = [
     # train-moe micro-batch (mma route, 4 warps a block), and fp32 (fma)
     ("jamba_train", 1, 2048, 128, 64, 16, 64, _BF16, _BF16),
     ("jamba_fp32", 1, 256, 8, 64, 16, 64, _F32, _F32),
+    # a four-card rank's share of jamba's sharded train step (tp 2): its 64
+    # of 128 heads on its 2 rows of a b 8 x T 2048, M = 2 micro-batch, x/B/C
+    # views of its conv output [2, 2048, 64 x 64 + 32]
+    ("jamba_tp_b2_t2048", 2, 2048, 64, 64, 16, 64, _BF16, _BF16),
 ]
 SSD_TIMED_CASE = "mamba2-780m_train"
-#: K2's shape on each main path: mamba2-780m's train phase, jamba's train-moe
-SSD_PATH_CASES = {"train": SSD_TIMED_CASE, "train-moe": "jamba_train"}
+#: K2's shape on each main path: mamba2-780m's train phase, jamba's
+#: train-moe, a rank's heads in jamba's sharded step
+SSD_PATH_CASES = {"train": SSD_TIMED_CASE, "train-moe": "jamba_train", "spmd-jamba": "jamba_tp_b2_t2048"}
 #: train-model check, K2 vs plain SSD, 2 bf16 layers at full width.  The
 #: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL; on
 #: the mma route in more of them); that perturbs everything downstream by a
@@ -916,6 +958,56 @@ SPMD_SERVE_FOUR = dict(layers=None, batch=4, seq=32768, prefills=3, decode_batch
 #: range's probabilities apart; a wrong head, slot or merge weight puts the
 #: error at the logits' own scale (rms ~1.4 at qwen2.5-14b's untied head)
 SPMD_SERVE_TOL = 5e-2
+#: the spmd and spmd-serve phases' second arch: jamba-v0.1-52b (Mamba2 and
+#: attention 7:1, an MoE of 16 experts top-2 on every other layer; d_model
+#: 4096, Mamba2 128 heads of 64, GQA 32 over 8 at hd 128; 51.6 B parameters,
+#: 103 GB of bf16, so no card holds it), its MoE expert-parallel and its
+#: Mamba2 by heads over "model" (distributed/tensor_parallel.py).  One card
+#: (gloo, a check): cut to its first 2 layers (Mamba2 + dense MLP, then
+#: attention + MoE) and to 4 of its 16 experts.  spmd: tp_fsdp with
+#: gather_params_once, one step of b 4 x T 512 in M = 1, in fp32
+#: (SPMD_ONE_FP32) against the fp32 one-process step under the anchored
+#: config (each row routed as its own group) over the whole micro-batch (the
+#: load-balance term counts its experts over every row of it), held at
+#: SPMD_LOSS_TOL and SPMD_TP_MASS_TOL.  spmd-serve: a prefill of b 4 x T 512
+#: filling a fresh kv_len 520 cache (the rank's shard: the SSM state by
+#: heads, the conv window and the KV sequence over "model"), then
+#: SPMD_SERVE_JAMBA_CHECK["steps"] teacher-forced decode steps from it,
+#: against one process's prefill_with_cache and decode_fn (anchored) at
+#: SPMD_SERVE_TOL.  Four cards (NCCL, a card a rank; --only spmd-jamba and
+#: spmd-serve-jamba run it alone): spmd-serve at full size (32 layers, 16 experts, stationary bf16
+#: weights), a prefill of b 4 x T 2048 three times and 8 decode steps at B
+#: 16 against a kv_len 32768 cache of seeded values; spmd one 8-layer
+#: period (layers 0-7) at full width with all 16 experts, tp_fsdp with
+#: per-layer remat, b 8 x T 2048 in M = 2, 3 steps (the first warms up)
+SPMD_JAMBA = "jamba-v0.1-52b"
+SPMD_JAMBA_ONE = dict(layers=2, experts=4, batch=4, seq=512, M=1, steps=1, traced=False, runs=(
+    dict(strategy="tp_fsdp", gather_params_once=True),))
+SPMD_JAMBA_FOUR = dict(layers=8, experts=None, batch=8, seq=2048, M=2, steps=3, traced=False, runs=(
+    dict(strategy="tp_fsdp", remat_blocks=True),))
+SPMD_SERVE_JAMBA_CHECK = dict(layers=2, experts=4, batch=4, seq=512, kv_len=520, steps=4, prefills=1,
+                              from_prefill=True)
+SPMD_SERVE_JAMBA_FOUR = dict(layers=None, experts=None, batch=4, seq=2048, prefills=3, decode_batch=16,
+                             kv_len=32768, steps=8, start=32768 - 16)
+#: each arch's plans: {four cards: (spmd, spmd-serve check, spmd-serve deployment)}
+SPMD_PLANS = {
+    SPMD_ARCH: {False: (SPMD_ONE, SPMD_SERVE_CHECK, None), True: (SPMD_FOUR, SPMD_SERVE_CHECK, SPMD_SERVE_FOUR)},
+    SPMD_JAMBA: {False: (SPMD_JAMBA_ONE, SPMD_SERVE_JAMBA_CHECK, None),
+                 True: (SPMD_JAMBA_FOUR, SPMD_SERVE_JAMBA_CHECK, SPMD_SERVE_JAMBA_FOUR)},
+}
+SPMD_ARCHS = tuple(SPMD_PLANS)
+#: one card, an MoE arch: a token the ranks route to other experts than the
+#: one-process step does must be a near tie there, its k-th and (k+1)-th
+#: router probabilities within this of each other (fp32 rounding of the
+#: hidden moves them by ~1e-7; jamba's check broke one at 1.18e-6, PERF.md
+#: section 6); the step is then held to the one-process step under the
+#: ranks' routing (_forced_routing), the digests at SPMD_TP_MASS_TOL
+SPMD_ROUTE_TIE = 1e-5
+#: four cards: a rank's peak while it draws its serving shards, above them,
+#: against one fp32 expert bank (the largest part drawn whole; each bank is
+#: cut and cast as soon as it is drawn, an MoE layer's mixer before its
+#: banks): the allocator's rounding on top
+SPMD_DRAW_SLACK = 1.02
 
 
 def log(msg: str) -> None:
@@ -3413,11 +3505,13 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
     the sharded step, draws its shards, and steps; returns per run the
     losses, norms, step times, each step's span seconds (gathers,
     reduce-scatters, reduces, staging copies, the whole step), K1 launches,
-    the peak memory and, on one card, the digests after step 1."""
+    the peak memory, which leaves the steps moved (:func:`_leaf_moves`) and,
+    on one card, the digests after step 1."""
     from repro_torch.device import synchronize
-    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.distributed.sharding import local_shape, spec_axes
     from repro_torch.distributed.spmd import make_spmd_train_step
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.profiling import device_profile
     from repro_torch.optim import constant_schedule, make_optimizer
@@ -3433,22 +3527,30 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         opt = _spmd_optimizer(plan)
-        run_cfg = cfg.replace(dtype=torch.float32) if _spmd_fp32(plan, run) else cfg
+        run_cfg = _spmd_run_cfg(cfg, plan, run)
         kw = {k: v for k, v in run.items() if k != "control"}
         step, (specs, _) = make_spmd_train_step(run_cfg, mesh, batches[0], opt, num_microbatches=plan["M"], **kw)
         state = step.init_state(seed=0)
         synchronize(dev)
         want = {k: local_shape(t.shape, step.specs[k], mesh) for k, t in flatten(specs.params).items()}
+        shard_bytes = sum(t.numel() * t.element_size() for t in flatten(state.params).values())
         rec = {"run": run, "rows": step.row_axes, "transport": group.transport, "rank": group.rank,
                "setup_seconds": time.perf_counter() - t0, "losses": [], "grad_norms": [], "step_ms": [], "spans": [],
-               "shapes_ok": all(tuple(t.shape) == want[k] for k, t in flatten(state.params).items())}
+               "shapes_ok": all(tuple(t.shape) == want[k] for k, t in flatten(state.params).items()),
+               "init_peak_over_state": torch.cuda.max_memory_allocated(dev) - torch.cuda.memory_allocated(dev),
+               "param_gib": shard_bytes / 2**30,
+               "gathered": sorted(k for k, spec in step._gather.items()
+                                  if "model" in {a for e in spec for a in spec_axes(e)})}
+        if step.tp is not None:
+            step.tp.keep_routes = True
         if group.rank == 0:
             log(f"  [rank 0] {run}: setup {rec['setup_seconds']:.1f} s, memory_allocated "
                 f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
         d0 = _spmd_state_digests(state, step.specs, mesh) if plan["digests"] else None
+        before = {k: t.detach().to("cpu", copy=True) for k, t in flatten(state.params).items()}
         group.barrier()
         group.take_seconds()
-        n0 = ops.launches
+        n0, k0 = ops.launches, ssd_ops.launches
         for i in range(plan["steps"]):
             group.barrier()
             t = time.perf_counter()
@@ -3467,6 +3569,8 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
                 d1 = _spmd_state_digests(state, step.specs, mesh)
                 rec["digests"] = {"update": {g: d1["params"][g] - d0["params"][g] for g in d0["params"]},
                                   "m": d1["m"], "v": d1["v"]}
+        rec["moves"] = _leaf_moves(before, state)
+        del before
         if plan["traced"]:  # one more step, traced on rank 0
 
             def one():
@@ -3482,10 +3586,85 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
                 one()
             group.take_seconds()
         rec["flash_launches"] = ops.launches - n0
+        rec["ssd_launches"] = ssd_ops.launches - k0
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        if step.tp is not None:
+            rec["counts"], rec["routes"] = dict(step.tp.counts), _route_digest(step.tp.routes)
+            if plan["digests"]:  # one card: the first step's routing itself, to set beside the reference's
+                rec["route_tensors"] = [(i.cpu().numpy(), k.cpu().numpy()) for i, k in step.tp.routes]
         del state, step
         out.append(rec)
     return out
+
+
+def _leaf_moves(before: dict, state) -> dict:
+    """Which of the rank's parameter shards the steps left bitwise as they
+    were (``before``, on the host), which got no gradient (AdamW's first
+    moment all zero), and the smallest relative change, ||after - before||
+    / ||before||, with its leaf."""
+    from repro_torch.tree import flatten
+
+    m = flatten(state.opt_state.m)
+    out = {"unchanged": [], "no_grad": [], "least": (None, math.inf)}
+    for k, t in flatten(state.params).items():
+        b = before[k].to(t.device)
+        if torch.equal(t, b):
+            out["unchanged"].append(k)
+        if not bool(m[k].ne(0).any()):
+            out["no_grad"].append(k)
+        rel = float((t.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+        del b
+        if rel < out["least"][1]:
+            out["least"] = (k, rel)
+    return out
+
+
+def _route_digest(routes) -> list:
+    """Per MoE call two sums of its ``idx`` (the second weighted by a fixed
+    pattern of positions) and its count of kept entries: equal on every rank
+    that routed alike."""
+    out = []
+    for idx, keep in routes:
+        x = idx.double().flatten()
+        w = torch.cos(torch.arange(x.numel(), device=x.device, dtype=torch.float64))
+        out.append((float(x.sum()), float((x * w).sum()), int(keep.sum())))
+    return out
+
+
+def _tp_counts(cfg, what: str, M: int = 1, remat: str = "loss", kv_len: int | None = None, tp: int = 2,
+               cache: bool = False) -> dict:
+    """The collectives over "model" TensorParallel runs in a call of ``what``:
+    a ``"train"`` step (M micro-batches, its forward again in the backward:
+    the whole loss under ``remat="loss"``, each layer under ``"blocks"``,
+    none under ``"none"``), a
+    ``"prefill"`` (filling a cache with ``cache``) or a ``"decode"`` step.
+    A forward all-reduces once for the embedding, once per attention, dense
+    MLP and MoE block and twice per Mamba2 layer (the gated norm, out_proj)
+    and all-gathers the logits and each Mamba2 layer's in_proj output; the
+    backward all-reduces each block's input gradient (a Mamba2 layer's and
+    its norm's: two), the head's input and reduce-scatters each in_proj
+    output's gradient; decode all-gathers twice per attention layer whose
+    cache the sequence splits, and a filling prefill once (its k and v).
+    The heads and experts split whole (jamba and qwen2.5 at tp 2)."""
+    from repro_torch.models.common import layer_specs
+
+    specs = layer_specs(cfg)
+    attn = sum(s.kind == "attn" for s in specs)
+    mamba = len(specs) - attn
+    blocks = attn + sum(s.moe or cfg.d_ff > 0 for s in specs)
+    fwd = {"all_reduce": 1 + blocks + 2 * mamba, "all_gather": 1 + mamba}
+    if what == "train":
+        again = {"loss": fwd, "blocks": {"all_reduce": blocks + 2 * mamba, "all_gather": mamba},
+                 "none": {"all_reduce": 0, "all_gather": 0}}[remat]
+        back = 1 + blocks + 2 * mamba
+        out = {"all_reduce": M * (fwd["all_reduce"] + again["all_reduce"] + back),
+               "all_gather": M * (fwd["all_gather"] + again["all_gather"]), "reduce_scatter": M * mamba}
+    elif what == "decode":
+        split = sum(s.kind == "attn" and (min(kv_len, s.window) if s.window else kv_len) % tp == 0 for s in specs)
+        out = {"all_reduce": fwd["all_reduce"], "all_gather": fwd["all_gather"] + 2 * split}
+    else:
+        out = {"all_reduce": fwd["all_reduce"], "all_gather": fwd["all_gather"] + (attn if cache else 0)}
+    return {k: v for k, v in out.items() if v}  # TensorParallel.counts holds no zero
 
 
 def _spmd_optimizer(plan):
@@ -3508,8 +3687,12 @@ def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool, fp32: bool = Fa
     if fp32:
         cfg, cast_once = cfg.replace(dtype=torch.float32), False
     from repro_torch.distributed.sharding import PartitionSpec, map_with_path
+    from repro_torch.distributed.spmd import act_anchor_for
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import api
+
+    if cfg.num_experts:  # each row routed as its own group, as the ranks route it
+        cfg = act_anchor_for(cfg, make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"]), plan["batch"], plan["M"])
     from repro_torch.optim import decay_mask
     from repro_torch.training import create_train_state, make_train_step
     from repro_torch.training.steps import _microbatches
@@ -3558,6 +3741,49 @@ def _spmd_reference(cfg, plan, batches, M: int, cast_once: bool, fp32: bool = Fa
     return out
 
 
+@contextlib.contextmanager
+def _forced_routing(calls, stats: dict):
+    """``moe.router_topk`` made to pick, call by call, the experts of
+    ``calls`` (idx [G, S, k] each), their weights its own normalised
+    probabilities (or scores) of those experts; ``stats`` gets the tokens
+    whose own top-k differs (``flips`` of ``tokens``) and the least gap
+    between their k-th and (k+1)-th probability (``gap``)."""
+    from repro_torch.models import moe as moe_mod
+
+    real, calls = moe_mod.router_topk, iter(calls)
+    stats.update(flips=0, tokens=0, gap=math.inf)
+
+    def topk(cfg, logits):
+        _, idx, probs = real(cfg, logits)
+        forced = next(calls).to(idx.device)
+        differ = (forced != idx).any(-1)
+        stats["flips"] += int(differ.sum())
+        stats["tokens"] += differ.numel()
+        if differ.any():
+            top = probs.detach().sort(dim=-1, descending=True).values
+            k = idx.shape[-1]
+            stats["gap"] = min(stats["gap"], float((top[..., k - 1] - top[..., k])[differ].min()))
+        scores = torch.sigmoid(logits.float()) if cfg.router_scoring == "sigmoid" else probs
+        w = scores.gather(-1, forced)
+        return w / w.sum(-1, keepdim=True).clamp(min=1e-9), forced, probs
+
+    moe_mod.router_topk = topk
+    try:
+        yield
+    finally:
+        moe_mod.router_topk = real
+
+
+def _spmd_column_routes(recs) -> list:
+    """The ranks' MoE calls' idx joined over the row groups (the first rank
+    of each column), in the one-process step's row order.  One step of one
+    micro-batch: the ranks' forward routes the MoE layers in the order the
+    one-process step does (their recompute after it is left over)."""
+    tp = SPMD_MESH["model"]
+    cols = [recs[c]["route_tensors"] for c in range(0, len(recs), tp)]
+    return [torch.cat([torch.from_numpy(col[j][0]) for col in cols]) for j in range(len(cols[0]))]
+
+
 def _spmd_fp32(plan, run) -> bool:
     """Whether ``run`` computes in fp32 (one card's tp_fsdp: SPMD_ONE_FP32;
     not the bf16 control)."""
@@ -3566,11 +3792,13 @@ def _spmd_fp32(plan, run) -> bool:
 
 def _spmd_ref_key(cfg, plan, run) -> tuple[int, bool, bool]:
     """The reference's (M, cast_once, fp32) for ``run``: on one card M times
-    the rank groups a micro-batch's rows split into, gather_params_once's
+    the rank groups a micro-batch's rows split into (an MoE: M), gather_params_once's
     cast and the run's fp32 compute."""
     if not plan["digests"]:
         return plan["M"], False, False
-    return (plan["M"] * _spmd_row_split(cfg, plan, run), bool(run.get("gather_params_once")),
+    # an MoE's load-balance term counts its experts over the whole micro-batch
+    rows = 1 if cfg.num_experts else _spmd_row_split(cfg, plan, run)
+    return (plan["M"] * rows, bool(run.get("gather_params_once")),
             _spmd_fp32(plan, run) or bool(run.get("control")))
 
 
@@ -3640,63 +3868,140 @@ def _spmd_gate_masses(name, r0, ref, control: bool) -> None:
         log(f"  the control is refused: {', '.join(refused)}")
 
 
-def phase_spmd(control: bool = False) -> int:
+def _spmd_cfg(arch: str, plan: dict):
+    """``arch`` at full width, cut to the plan's layers and experts."""
     from repro_torch.configs import get_arch
-    from repro_torch.data import SyntheticTextDataset
+
+    cfg = get_arch(arch).model
+    if plan.get("layers"):
+        cfg = cfg.replace(num_layers=plan["layers"])
+    if plan.get("experts"):
+        cfg = cfg.replace(num_experts=plan["experts"])
+    return cfg
+
+
+def _spmd_gate_model_gathers(what, cfg, gathered) -> None:
+    """No rank gathered over "model" an MoE or Mamba2 leaf but the router and
+    conv_w (no expert bank, shared-expert leaf, in_proj or out_proj)."""
+    layer = {"/".join(p.split("/")[2:]) for p in gathered if {"moe", "mamba"} & set(p.split("/"))}
+    allowed = {"moe/router/w", "mamba/conv_w"}
+    if not layer <= allowed:
+        raise AssertionError(f"{what}: gathered over model {sorted(layer - allowed)}")
+
+
+def _spmd_gate_routes(what, recs) -> None:
+    """Every rank of a column ("model" fastest in the rank order) routed
+    alike: the same digests of each MoE call's idx and keep."""
+    tp = SPMD_MESH["model"]
+    for i in range(0, len(recs), tp):
+        column = [r["routes"] for r in recs[i:i + tp]]
+        if any(c != column[0] for c in column):
+            raise AssertionError(f"{what}: the ranks of a column routed apart")
+
+
+def phase_spmd(control: bool = False, archs=SPMD_ARCHS) -> dict:
+    """Every arch's spmd runs in one spawn of the ranks; returns each arch's
+    K1 and K2 launches."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models.common import param_count
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.pipeline import ranks
 
     ranks_n = math.prod(SPMD_MESH.values())
     four = torch.cuda.device_count() >= ranks_n
-    plan = {**(SPMD_FOUR if four else SPMD_ONE), "digests": not four}
-    if control:
-        if four:
-            raise SystemExit("--spmd-control runs on one card (the digests' run)")
-        plan["runs"] = plan["runs"] + (SPMD_CONTROL_RUN,)
-    cfg = get_arch(SPMD_ARCH).model
-    if plan["layers"]:
-        cfg = cfg.replace(num_layers=plan["layers"])
-    data = SyntheticTextDataset(cfg.vocab_size, plan["seq"], plan["batch"], seed=0)
-    batches = [{"tokens": b.tokens.numpy(), "labels": b.labels.numpy()}
-               for b in (data.batch_at(i, "cpu") for i in range(plan["steps"]))]
-    refs = {}
-    for key in dict.fromkeys(_spmd_ref_key(cfg, plan, run) for run in plan["runs"]):
-        refs[key] = ref = _spmd_reference(cfg, plan, batches, *key)
-        gc.collect()
-        torch.cuda.empty_cache()  # the card is the ranks'
-        log(f"spmd reference {key}: {ref['what']}, loss {ref['loss']:.6f}, peak {ref['peak'] / 2**30:.2f} "
-            f"GiB, {ref['seconds']:.1f} s")
-    log(f"spmd {SPMD_ARCH} at full width, {cfg.num_layers} layers ({param_count(cfg):,} parameters), b "
-        f"{plan['batch']} x T {plan['seq']} in M={plan['M']}, {plan['steps']} steps a run, {ranks_n} ranks on a "
-        f"{SPMD_MESH} mesh, "
-        f"{torch.cuda.device_count()} card(s); the parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
-        f"while the ranks run")
-    ops.launches = 0
+    if control and four:
+        raise SystemExit("--spmd-control runs on one card (the digests' run)")
+    items = [_spmd_prepare(arch, control and arch == SPMD_ARCH, four) for arch in archs]
+    ops.launches = ssd_ops.launches = 0
     # the ranks' allocators grow segments in place: on one card four ranks
     # share it, and fixed segments strand GiBs between their steps
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        per_rank = ranks.spawn(_spmd_rank, ranks_n, args=(cfg, plan, batches), device="cuda", timeout=900,
-                               axes=SPMD_MESH)
+        per_rank = ranks.spawn(_spmd_ranks, ranks_n, args=([(it["cfg"], it["plan"], it["batches"]) for it in items],),
+                               device="cuda", timeout=900, axes=SPMD_MESH)
     finally:
         if alloc is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    if ops.launches:
-        raise AssertionError("the parent launched K1 during the spmd phase")
+    if ops.launches or ssd_ops.launches:
+        raise AssertionError("the parent launched K1 or K2 while the spmd ranks ran")
+    return {it["arch"]: _spmd_check(it, [r[k] for r in per_rank], four) for k, it in enumerate(items)}
+
+
+def _spmd_ranks(group, items) -> list:
+    """One rank of the spmd phase: :func:`_spmd_rank` of each arch's item."""
+    return [_spmd_rank(group, cfg, plan, batches) for cfg, plan, batches in items]
+
+
+def _spmd_forced(cfg, plan) -> bool:
+    """Whether the one-process reference runs after the ranks, under their
+    routing (an MoE arch on one card, where the digests are compared)."""
+    return plan["digests"] and bool(cfg.num_experts)
+
+
+def _spmd_prepare(arch: str, control: bool, four: bool) -> dict:
+    """An arch's plan, config, batches and the one-process references that
+    run before the ranks take the card."""
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.models.common import param_count
+
+    plan = {**SPMD_PLANS[arch][four][0], "digests": not four}
+    if control:
+        plan["runs"] = plan["runs"] + (SPMD_CONTROL_RUN,)
+    cfg = _spmd_cfg(arch, plan)
+    data = SyntheticTextDataset(cfg.vocab_size, plan["seq"], plan["batch"], seed=0)
+    batches = [{"tokens": b.tokens.numpy(), "labels": b.labels.numpy()}
+               for b in (data.batch_at(i, "cpu") for i in range(plan["steps"]))]
+    refs = {}
+    for key in dict.fromkeys(_spmd_ref_key(cfg, plan, run) for run in plan["runs"]):
+        if _spmd_forced(cfg, plan):
+            continue
+        refs[key] = ref = _spmd_reference(cfg, plan, batches, *key)
+        gc.collect()
+        torch.cuda.empty_cache()  # the card is the ranks'
+        log(f"spmd reference {arch} {key}: {ref['what']}, loss {ref['loss']:.6f}, peak {ref['peak'] / 2**30:.2f} "
+            f"GiB, {ref['seconds']:.1f} s")
+    log(f"spmd {arch} at full width, {cfg.num_layers} layers ({param_count(cfg):,} parameters"
+        f"{f', {cfg.num_experts} experts' if cfg.num_experts else ''}), b {plan['batch']} x T {plan['seq']} in "
+        f"M={plan['M']}, {plan['steps']} steps a run, {math.prod(SPMD_MESH.values())} ranks on a {SPMD_MESH} mesh, "
+        f"{torch.cuda.device_count()} card(s)")
+    return {"arch": arch, "cfg": cfg, "plan": plan, "batches": batches, "refs": refs}
+
+
+def _spmd_check(item: dict, per_rank: list, four: bool) -> dict:
+    """An arch's runs on the ranks against its references and gates; its K1
+    and K2 launches."""
+    from repro_torch.models.common import layer_specs
+
+    arch, cfg, plan, batches, refs = (item[k] for k in ("arch", "cfg", "plan", "batches", "refs"))
+    n_attn = sum(s.kind == "attn" for s in layer_specs(cfg))
     tokens = plan["batch"] * plan["seq"]
-    launches = 0
+    launches = {"flash": 0, "ssd": 0}
     for j, run in enumerate(plan["runs"]):
         recs = [r[j] for r in per_rank]
         r0 = recs[0]
-        ref = refs[_spmd_ref_key(cfg, plan, run)]
-        name = ", ".join(f"{k}={v}" for k, v in run.items() if k != "control") + (
+        name = f"{arch} " + ", ".join(f"{k}={v}" for k, v in run.items() if k != "control") + (
             " (fp32)" if _spmd_fp32(plan, run) else " (bf16, the control)" if run.get("control") else "")
+        if _spmd_forced(cfg, plan):
+            # the one-process step under the ranks' routing: a near tie that
+            # the ranks' rounding broke the other way moves the digests by a
+            # token's whole contribution
+            stats = {}
+            with _forced_routing(_spmd_column_routes(recs), stats):
+                ref = _spmd_reference(cfg, plan, batches, *_spmd_ref_key(cfg, plan, run))
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"spmd reference {name}: {ref['what']} under the ranks' routing, loss {ref['loss']:.6f}, "
+                f"{ref['seconds']:.1f} s; its own top-k picks another expert for {stats['flips']} of "
+                f"{stats['tokens']} tokens, the least top-k gap of those {stats['gap']:.3e} (<= {SPMD_ROUTE_TIE:g})")
+            if stats["flips"] and stats["gap"] > SPMD_ROUTE_TIE:
+                raise AssertionError(f"spmd {name}: the ranks routed a token apart from a near tie")
+        else:
+            ref = refs[_spmd_ref_key(cfg, plan, run)]
         steps = plan["steps"] + int(plan["traced"])
-        want_k1 = cfg.num_layers * plan["M"] * steps * 2  # every forward again in the remat
+        want_k1 = n_attn * plan["M"] * steps * 2  # every forward again in the remat
+        want_k2 = (cfg.num_layers - n_attn) * plan["M"] * steps * 2
         p50 = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in recs]
         log(f"spmd {name}: rows over {r0['rows']}, transport {r0['transport']}, losses {r0['losses']}, grad norms "
             f"{[round(v, 4) for v in r0['grad_norms']]}; step p50 {max(p50):.1f} ms (slowest rank), "
@@ -3709,14 +4014,45 @@ def phase_spmd(control: bool = False) -> int:
                 f"{1e3 * mid.get('gather', 0.0):.1f} + reduce-scatters {1e3 * mid.get('reduce_scatter', 0.0):.1f} + "
                 f"all-reduces {1e3 * mid.get('reduce', 0.0):.1f} + staging {1e3 * mid.get('staging', 0.0):.1f} + "
                 f"compute and the rest {1e3 * (mid.get('step', 0.0) - comm):.1f}; max_memory_allocated "
-                f"{r['max_memory_allocated'] / 2**30:.2f} GiB; K1 {r['flash_launches']} (want {want_k1}); shards "
+                f"{r['max_memory_allocated'] / 2**30:.2f} GiB (shards {r['param_gib']:.2f} GiB of parameters; the "
+                f"draw's peak {r['init_peak_over_state'] / 2**30:.2f} GiB above the state); K1 {r['flash_launches']} "
+                f"(want {want_k1}), K2 {r['ssd_launches']} (want {want_k2}); shards "
                 f"{'as the rules say' if r['shapes_ok'] else 'WRONG'}")
+        if "counts" in r0:
+            # per-layer remat recomputes a layer only as far as its saved
+            # tensors need (non-reentrant checkpoints stop early): between none
+            # and the whole layer
+            rcfg = _spmd_run_cfg(cfg, plan, run)
+            hi = _tp_counts(rcfg, "train", plan["M"], "blocks" if run.get("remat_blocks") else "loss")
+            lo = _tp_counts(rcfg, "train", plan["M"], "none") if run.get("remat_blocks") else hi
+            got = {k: v // steps for k, v in r0["counts"].items() if not k.endswith("_bytes")}
+            log(f"  collectives over model a step (rank 0): {got} (want {lo}{f' to {hi}' if lo != hi else ''}), "
+                f"bytes {({k: v // steps for k, v in r0['counts'].items() if k.endswith('_bytes')})}; gathered over "
+                f"model: {r0['gathered'] or 'nothing'}; MoE calls routed {len(r0['routes'])}")
+            inside = set(got) == set(hi) and all(lo.get(k, 0) <= got[k] <= hi[k] for k in hi)
+            if any(r["counts"] != r0["counts"] for r in recs) or not inside:
+                raise AssertionError(f"spmd {name}: the collectives over model are not the products'")
+            for r in recs:
+                _spmd_gate_model_gathers(f"spmd {name} rank {r['rank']}", cfg, r["gathered"])
+            _spmd_gate_routes(f"spmd {name}", recs)
         if "profile" in r0:
             p = r0["profile"]
             log(f"  traced step on rank 0: wall {p['wall_ms']:.1f} ms, kernels {p['device_ms']:.1f} ms, K1 "
                 f"{p['flash_ms']:.1f} ms, NCCL {p['nccl_ms']:.1f} ms")
             for op in p["top"]:
                 log(f"    {op['ms']:10.3f} ms  x{op['count']:<5d} {op['name'][:90]}")
+        # a leaf moves on every rank and gets a gradient; a rank's shard of
+        # the embedding table gets none where no token of the batch falls in
+        # its rows (weight decay still moves it)
+        least = min((r["moves"]["least"] + (r["rank"],) for r in recs), key=lambda x: x[1])
+        no_grad = {r["rank"]: r["moves"]["no_grad"] for r in recs if r["moves"]["no_grad"]}
+        stuck = sorted({k for r in recs for k in r["moves"]["unchanged"]}
+                       | set.intersection(*(set(r["moves"]["no_grad"]) for r in recs)))
+        log(f"  every rank's shard of every leaf changed by the {plan['steps']} step(s), every leaf with a gradient: "
+            f"{'yes' if not stuck else 'NO'}; the smallest relative change {least[1]:.3e} ({least[0]}, rank "
+            f"{least[2]}); shards without a gradient, by rank: {no_grad or 'none'}")
+        if stuck:
+            raise AssertionError(f"spmd {name}: leaves unchanged on a rank or without a gradient: {stuck[:8]}")
         if not all(r["shapes_ok"] for r in recs):
             raise AssertionError(f"spmd {name}: a rank's shards are not the rules' shapes")
         if len({tuple(r["losses"]) for r in recs}) != 1:
@@ -3725,6 +4061,8 @@ def phase_spmd(control: bool = False) -> int:
             raise AssertionError(f"spmd {name}: non-finite loss or gradient norm")
         if any(r["flash_launches"] != want_k1 for r in recs):
             raise AssertionError(f"spmd {name}: K1 launches {[r['flash_launches'] for r in recs]}, want {want_k1}")
+        if any(r["ssd_launches"] != want_k2 for r in recs):
+            raise AssertionError(f"spmd {name}: K2 launches {[r['ssd_launches'] for r in recs]}, want {want_k2}")
         if four and max(r["max_memory_allocated"] for r in recs) >= 80 * 2**30:
             raise AssertionError(f"spmd {name}: a rank's peak reached 80 GiB")
         if plan["digests"] and "masses" in ref:
@@ -3748,16 +4086,27 @@ def phase_spmd(control: bool = False) -> int:
                 first = per_rank[0][0]
                 what = ", ".join(f"{k}={v}" for k, v in first["run"].items())
                 _spmd_gate_steps(name, r0, first, SPMD_CROSS_TOL, what)
-        launches += sum(r["flash_launches"] for r in recs)
-    log(f"flash launches on the spmd path: {launches}")
+        launches["flash"] += sum(r["flash_launches"] for r in recs)
+        launches["ssd"] += sum(r["ssd_launches"] for r in recs)
+    log(f"flash and ssd launches on the spmd path ({arch}): {launches}")
     return launches
+
+
+def _spmd_run_cfg(cfg, plan, run):
+    """The config a run computes in (fp32 on one card's tp_fsdp)."""
+    return cfg.replace(dtype=torch.float32) if _spmd_fp32(plan, run) else cfg
 
 
 def _spmd_serve_check_inputs(cfg, plan) -> dict:
     """The check's prompt and decode tokens (seeded), and the one-process
-    references on this process's card: prefill_fn's logits, then for b 4
-    and b 1 the cache of prefill_with_cache (handed to the ranks before the
-    steps) and each teacher-forced decode step's logits."""
+    references on this process's card, under the anchored config (an MoE's
+    rows each routed as its own group, as the ranks route them): the
+    prefill's logits (prefill_fn's; prefill_with_cache's where the ranks
+    decode from their prefill's cache, ``from_prefill``), then for b 4 (and
+    b 1 but there) the cache of prefill_with_cache (handed to the ranks
+    before the steps) and each teacher-forced decode step's logits."""
+    from repro_torch.distributed.spmd import act_anchor_for
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import api
 
     g = torch.Generator().manual_seed(0)
@@ -3768,13 +4117,18 @@ def _spmd_serve_check_inputs(cfg, plan) -> dict:
     params = api.init_serving_params(cfg, 0, "cuda")
     out = {"prompt": prompt, "decode": decode}
     with torch.no_grad():
-        out["prefill"] = api.prefill_fn(params, cfg, {"tokens": prompt.cuda()}).float().cpu()
-        for rows in (B, 1):
-            cache = api.init_cache(cfg, rows, plan["kv_len"], "cuda")
-            _, cache = api.prefill_with_cache(params, cfg, cache, {"tokens": prompt[:rows].cuda()})
-            out[f"cache_b{rows}"] = _tree_to_cpu(cache)
+        if not plan.get("from_prefill"):
+            out["prefill"] = api.prefill_fn(params, cfg, {"tokens": prompt.cuda()}).float().cpu()
+        for rows in (B,) if plan.get("from_prefill") else (B, 1):
+            rcfg = act_anchor_for(cfg, make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"]), rows)
+            cache = api.init_cache(rcfg, rows, plan["kv_len"], "cuda")
+            logits, cache = api.prefill_with_cache(params, rcfg, cache, {"tokens": prompt[:rows].cuda()})
+            if plan.get("from_prefill"):
+                out["prefill"] = logits.float().cpu()
+            else:
+                out[f"cache_b{rows}"] = _tree_to_cpu(cache)
             out[f"decode_b{rows}"] = [
-                api.decode_fn(params, cfg, cache, T + i, {"tokens": decode[i, :rows].cuda()})[0].float().cpu()
+                api.decode_fn(params, rcfg, cache, T + i, {"tokens": decode[i, :rows].cuda()})[0].float().cpu()
                 for i in range(plan["steps"])
             ]
     out["seconds"] = time.perf_counter() - t0
@@ -3803,75 +4157,91 @@ def _spmd_serve_call(group, fn, dev):
 
 def _spmd_serve_rank(group, cfg, plan, inputs, full) -> dict:
     """One rank of the spmd-serve phase: the check's prefills and decode
-    steps (b 4, then b 1) on its shards of the 2-layer weights; on four
-    cards then the deployment at ``full``'s depth.  Returns per call the
-    logits (the check's), wall ms, span seconds and collective counts, the
-    leaves gathered over "model", K1 launches and the peak memory."""
+    steps (b 4, then b 1; or, ``from_prefill``, b 4 from the cache its
+    last prefill filled) on its shards of the cut weights; on four cards
+    then the deployment at ``full``'s depth.  Returns per call the logits
+    (the check's), wall ms, span seconds and collective counts, the leaves
+    gathered over "model", K1 and K2 launches, each MoE call's routing
+    digest, the peak memory and the draw's."""
     from repro_torch.distributed.spmd import make_spmd_prefill, make_spmd_serve_step
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.mesh import make_local_mesh
 
     mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"], group)
     dev = group.device
     out = {"rank": group.rank, "transport": group.transport}
 
+    def call(rec, what, fn, tp, keep_logits):
+        tp.counts.clear()
+        logits, ms, spans = _spmd_serve_call(group, fn, dev)
+        rec["calls"].append({"what": what, "ms": ms, "spans": spans, "counts": dict(tp.counts),
+                             # numpy: a returned tensor is shared through a file
+                             # descriptor that the rank, once it exits, closes
+                             "logits": logits.float().cpu().numpy() if keep_logits else None,
+                             "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+
     def serve(cfg, plan, prompt, decodes, keep_logits):
-        """The prefills, then each (tokens, cache, first index) decode run."""
+        """The prefills, then each (tokens, cache, first index) decode run
+        (a cache None: the one the last prefill filled)."""
         torch.cuda.reset_peak_memory_stats(dev)
-        prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt})
+        prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt}, kv_len=plan["kv_len"])
         t0 = time.perf_counter()
         params = prefill.init_params(0)
-        rec = {"setup_seconds": time.perf_counter() - t0, "calls": [], "row_axes": prefill.row_axes}
-        n0 = ops.launches
-        for _ in range(plan["prefills"]):
-            prefill.tp.counts.clear()
-            logits, ms, spans = _spmd_serve_call(group, lambda: prefill(params, {"tokens": prompt}), dev)
-            rec["calls"].append({"what": "prefill", "ms": ms, "spans": spans, "counts": dict(prefill.tp.counts),
-                                 "logits": logits.float().cpu() if keep_logits else None,
-                                 "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+        rec = {"setup_seconds": time.perf_counter() - t0, "calls": [], "row_axes": prefill.row_axes,
+               "weights_gib": sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30,
+               "draw_peak_gib": (torch.cuda.max_memory_allocated(dev) - torch.cuda.memory_allocated(dev)) / 2**30}
+        prefill.tp.keep_routes = True
+        n0, k0 = ops.launches, ssd_ops.launches
+        filled = None
+        for i in range(plan["prefills"]):
+            if plan.get("from_prefill") and i == plan["prefills"] - 1:
+                filled = prefill.init_cache()
+            call(rec, "prefill", lambda: prefill(params, {"tokens": prompt}, filled), prefill.tp, keep_logits)
         rec["k1"] = ops.launches - n0
-        gathered = set(prefill.tp.gathered)
+        gathered, routes = set(prefill.tp.gathered), list(prefill.tp.routes)
         for tokens, make_cache, start in decodes:
             step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": tokens[0]}, plan["kv_len"])
-            cache = make_cache(step)
+            step.tp.keep_routes = True
+            cache = filled if make_cache is None else make_cache(step)
             for i, tok in enumerate(tokens):
-                step.tp.counts.clear()
-                (logits, _), ms, spans = _spmd_serve_call(group, lambda: step(params, cache, start + i, {"tokens": tok}),
-                                                          dev)
-                rec["calls"].append({"what": f"decode b{tok.shape[0]}", "ms": ms, "spans": spans,
-                                     "counts": dict(step.tp.counts),
-                                     "logits": logits.float().cpu() if keep_logits else None,
-                                     "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+                call(rec, f"decode b{tok.shape[0]}", lambda: step(params, cache, start + i, {"tokens": tok})[0],
+                     step.tp, keep_logits)
             gathered |= step.tp.gathered
+            routes += step.tp.routes
             rec["cache_gib"] = sum(t.numel() * t.element_size() for t in _leaves(cache)) / 2**30
             del cache, step
-        rec["gathered"] = sorted(gathered)
-        rec["weights_gib"] = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30
+        filled = None
+        rec["gathered"], rec["routes"] = sorted(gathered), _route_digest(routes)
+        rec["k2"] = ssd_ops.launches - k0  # the prefill steps the recurrence; decode too
         rec["peak"] = torch.cuda.max_memory_allocated(dev)
         del params
         return rec
 
-    ccfg = cfg.replace(num_layers=SPMD_SERVE_CHECK["layers"])
     dec = inputs["decode"]
-    out["check"] = serve(ccfg, SPMD_SERVE_CHECK, inputs["prompt"], [
-        (list(dec), lambda st: st.shard_cache(inputs["cache_b4"]), SPMD_SERVE_CHECK["seq"]),
-        (list(dec[:, :1]), lambda st: st.shard_cache(inputs["cache_b1"]), SPMD_SERVE_CHECK["seq"]),
-    ], keep_logits=group.rank == 0)
+    T = plan["seq"]
+    if plan.get("from_prefill"):
+        decodes = [(list(dec), None, T)]
+    else:
+        decodes = [(list(dec), lambda st: st.shard_cache(inputs["cache_b4"]), T),
+                   (list(dec[:, :1]), lambda st: st.shard_cache(inputs["cache_b1"]), T)]
+    out["check"] = serve(cfg, plan, inputs["prompt"], decodes, keep_logits=group.rank == 0)
     if full is not None:
+        fcfg, f = full
         gc.collect()
         torch.cuda.empty_cache()
         g = torch.Generator().manual_seed(1)
-        prompt = torch.randint(0, cfg.vocab_size, (full["batch"], full["seq"]), generator=g)
-        tokens = list(torch.randint(0, cfg.vocab_size, (full["steps"], full["decode_batch"], 1), generator=g))
+        prompt = torch.randint(0, fcfg.vocab_size, (f["batch"], f["seq"]), generator=g)
+        tokens = list(torch.randint(0, fcfg.vocab_size, (f["steps"], f["decode_batch"], 1), generator=g))
 
-        def seeded(step):  # seeded bf16 values in the rank's shard of every KV leaf
+        def seeded(step):  # seeded values in the rank's shard of every cache leaf
             cache = step.init_cache()
             gen = torch.Generator(device=dev).manual_seed(2 + group.rank)
             for t in _leaves(cache):
                 t.normal_(generator=gen)
             return cache
 
-        out["full"] = serve(cfg, full, prompt, [(tokens, seeded, full["start"])], keep_logits=False)
+        out["full"] = serve(fcfg, f, prompt, [(tokens, seeded, f["start"])], keep_logits=False)
     return out
 
 
@@ -3894,11 +4264,12 @@ def _spmd_serve_report(name, recs, tokens_per_call) -> None:
     for r in recs:
         rec = r[name]
         log(f"  rank {r['rank']} ({r['transport']}): setup {rec['setup_seconds']:.1f} s, weights "
-            f"{rec['weights_gib']:.2f} GiB, cache {rec['cache_gib']:.2f} GiB, max_memory_allocated "
+            f"{rec['weights_gib']:.2f} GiB (the draw's peak {rec['draw_peak_gib']:.2f} GiB above them), cache "
+            f"{rec['cache_gib']:.2f} GiB, max_memory_allocated "
             f"{rec['peak'] / 2**30:.2f} GiB, K1 {rec['k1']}, gathered over model: {rec['gathered'] or 'nothing'}")
         for kind in dict.fromkeys(c["what"] for c in rec["calls"]):
             calls = [c for c in rec["calls"] if c["what"] == kind]
-            ms = sorted(c["ms"] for c in calls[1:])  # the first left out
+            ms = sorted(c["ms"] for c in calls[1:] or calls)  # the first left out where there are more
             p50 = ms[len(ms) // 2]
             c0 = calls[-1]
             log(f"    {kind}: {len(calls)} calls, ms {[round(c['ms'], 1) for c in calls]} (p50 {p50:.1f}, the first "
@@ -3908,104 +4279,154 @@ def _spmd_serve_report(name, recs, tokens_per_call) -> None:
                 f"last: {({k: round(v, 4) for k, v in c0['spans'].items()})}")
 
 
-def phase_spmd_serve() -> int:
-    from repro_torch.configs import get_arch
-    from repro_torch.distributed.tensor_parallel import DENSE_PARTS
+def phase_spmd_serve(archs=SPMD_ARCHS) -> dict:
+    """Every arch's spmd-serve runs in one spawn of the ranks; returns each
+    arch's K1 launches."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models.common import param_count
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.pipeline import ranks
 
     ranks_n = math.prod(SPMD_MESH.values())
     four = torch.cuda.device_count() >= ranks_n
-    cfg = get_arch(SPMD_ARCH).model
-    ccfg = cfg.replace(num_layers=SPMD_SERVE_CHECK["layers"])
-    inputs = _spmd_serve_check_inputs(ccfg, SPMD_SERVE_CHECK)
-    gc.collect()
-    torch.cuda.empty_cache()  # the card is the ranks'
-    log(f"spmd-serve references (one process, {ccfg.num_layers} layers, init_serving_params seed 0): prefill_fn "
-        f"b {SPMD_SERVE_CHECK['batch']} x T {SPMD_SERVE_CHECK['seq']}, prefill_with_cache and "
-        f"{SPMD_SERVE_CHECK['steps']} decode steps at b 4 and b 1 (kv_len {SPMD_SERVE_CHECK['kv_len']}) in "
-        f"{inputs['seconds']:.1f} s")
-    full = SPMD_SERVE_FOUR if four else None
-    log(f"spmd-serve {SPMD_ARCH} at full width on {ranks_n} ranks, a {SPMD_MESH} mesh, {torch.cuda.device_count()} "
-        f"card(s): the check at {ccfg.num_layers} layers"
-        + (f", then {cfg.num_layers} layers ({param_count(cfg):,} parameters)" if four else ""))
-    ops.launches = 0
+    items = [_spmd_serve_prepare(arch, four) for arch in archs]
+    ops.launches = ssd_ops.launches = 0
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        per_rank = ranks.spawn(_spmd_serve_rank, ranks_n, args=(cfg, SPMD_SERVE_CHECK, inputs, full), device="cuda",
+        per_rank = ranks.spawn(_spmd_serve_ranks, ranks_n, args=([it["args"] for it in items],), device="cuda",
                                timeout=900, axes=SPMD_MESH)
     finally:
         if alloc is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    if ops.launches:
-        raise AssertionError("the parent launched K1 during the spmd-serve phase")
-    B, T, steps = SPMD_SERVE_CHECK["batch"], SPMD_SERVE_CHECK["seq"], SPMD_SERVE_CHECK["steps"]
-    log(f"spmd-serve check ({ccfg.num_layers} layers), transport {per_rank[0]['transport']}:")
+    if ops.launches or ssd_ops.launches:
+        raise AssertionError("the parent launched K1 or K2 while the spmd-serve ranks ran")
+    return {it["arch"]: _spmd_serve_check(it, [r[k] for r in per_rank], four) for k, it in enumerate(items)}
+
+
+def _spmd_serve_ranks(group, items) -> list:
+    """One rank of the spmd-serve phase: :func:`_spmd_serve_rank` of each arch's item."""
+    return [_spmd_serve_rank(group, *item) for item in items]
+
+
+def _spmd_serve_prepare(arch: str, four: bool) -> dict:
+    """An arch's check config and plan, its one-process references (on this
+    process's card, before the ranks take it) and the deployment's plan."""
+    from repro_torch.models.common import param_count
+
+    ranks_n = math.prod(SPMD_MESH.values())
+    _, check, full = SPMD_PLANS[arch][four]
+    ccfg = _spmd_cfg(arch, check)
+    inputs = _spmd_serve_check_inputs(ccfg, check)
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is the ranks'
+    B, T, steps = check["batch"], check["seq"], check["steps"]
+    log(f"spmd-serve references (one process, {ccfg.num_layers} layers, {ccfg.num_experts or 'no'} experts, "
+        f"init_serving_params seed 0): "
+        + (f"prefill_with_cache b {B} x T {T} and {steps} decode steps from its cache"
+           if check.get("from_prefill") else
+           f"prefill_fn b {B} x T {T}, prefill_with_cache and {steps} decode steps at b 4 and b 1")
+        + f" (kv_len {check['kv_len']}) in {inputs['seconds']:.1f} s")
+    fcfg = _spmd_cfg(arch, full) if full else None
+    log(f"spmd-serve {arch} at full width on {ranks_n} ranks, a {SPMD_MESH} mesh, {torch.cuda.device_count()} "
+        f"card(s): the check at {ccfg.num_layers} layers"
+        + (f", then {fcfg.num_layers} layers ({param_count(fcfg):,} parameters)" if full else ""))
+    return {"arch": arch, "ccfg": ccfg, "check": check, "inputs": inputs, "fcfg": fcfg, "full": full,
+            "args": (ccfg, check, inputs, (fcfg, full) if full else None)}
+
+
+def _spmd_serve_check(item: dict, per_rank: list, four: bool) -> int:
+    """An arch's serving on the ranks against one process's and the gates;
+    its K1 launches."""
+    from repro_torch.distributed.tensor_parallel import DENSE_PARTS
+    from repro_torch.models.common import layer_specs
+
+    arch, ccfg, check, inputs, fcfg, full = (item[k] for k in ("arch", "ccfg", "check", "inputs", "fcfg", "full"))
+    B, T = check["batch"], check["seq"]
+    log(f"spmd-serve {arch} check ({ccfg.num_layers} layers), transport {per_rank[0]['transport']}:")
     _spmd_serve_report("check", per_rank, {"prefill": B * T, "decode b4": B, "decode b1": 1})
     launches = 0
-    runs = ["check"] + (["full"] if four else [])
-    for run in runs:
-        layers = ccfg.num_layers if run == "check" else cfg.num_layers
+    for run in ["check"] + (["full"] if full else []):
+        cfg, plan = (ccfg, check) if run == "check" else (fcfg, full)
+        attn = sum(s.kind == "attn" for s in layer_specs(cfg))
         recs = [r[run] for r in per_rank]
         for r, rec in zip(per_rank, recs):
             dense = [p for p in rec["gathered"] if set(p.split("/")) & set(DENSE_PARTS)]
             if dense:
                 raise AssertionError(f"spmd-serve {run}: rank {r['rank']} gathered dense leaves {dense}")
-            if rec["k1"] != layers * (SPMD_SERVE_CHECK if run == "check" else full)["prefills"]:
-                raise AssertionError(f"spmd-serve {run}: rank {r['rank']} launched K1 {rec['k1']} times")
+            _spmd_gate_model_gathers(f"spmd-serve {run} rank {r['rank']}", cfg, rec["gathered"])
+            if rec["k1"] != attn * plan["prefills"] or rec["k2"]:
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']} launched K1 {rec['k1']} times, K2 "
+                                     f"{rec['k2']}")
             if not all(c["finite"] for c in rec["calls"]):
                 raise AssertionError(f"spmd-serve {run}: rank {r['rank']} has non-finite logits")
             if four and rec["peak"] >= 80 * 2**30:
                 raise AssertionError(f"spmd-serve {run}: rank {r['rank']}'s peak reached 80 GiB")
+            bank = 4 * cfg.num_experts * cfg.d_model * cfg.expert_ff  # one fp32 expert bank, drawn whole
+            if run == "full" and cfg.num_experts and rec["draw_peak_gib"] * 2**30 > bank * SPMD_DRAW_SLACK:
+                raise AssertionError(f"spmd-serve {run}: rank {r['rank']}'s draw peaked {rec['draw_peak_gib']:.2f} "
+                                     f"GiB above its weights, over one fp32 expert bank ({bank / 2**30:.2f} GiB)")
+            for i, c in enumerate(rec["calls"]):
+                what = "decode" if c["what"].startswith("decode") else "prefill"
+                filled = what == "prefill" and plan.get("from_prefill") and i == plan["prefills"] - 1
+                want = _tp_counts(cfg, what, kv_len=plan["kv_len"], tp=SPMD_MESH["model"], cache=filled)
+                got = {k: v for k, v in c["counts"].items() if not k.endswith("_bytes")}
+                if got != want:
+                    raise AssertionError(f"spmd-serve {run}: rank {r['rank']}'s {c['what']} ran {got} over model, "
+                                         f"want {want}")
         digests = [[c["digest"] for c in rec["calls"]] for rec in recs]
         if any(d != digests[0] for d in digests):
             raise AssertionError(f"spmd-serve {run}: the ranks' logits differ")
+        _spmd_gate_routes(f"spmd-serve {run}", recs)
         launches += sum(rec["k1"] for rec in recs)
-        log(f"  {run}: every rank's logits equal ({len(digests[0])} calls' digests), finite; no rank gathered a dense "
-            f"leaf; K1 {[rec['k1'] for rec in recs]}")
+        log(f"  {run}: every rank's logits equal ({len(digests[0])} calls' digests), finite; the collectives over "
+            f"model as the products run them; gathered over model only {recs[0]['gathered'] or 'nothing'}; each "
+            f"column routed alike ({len(recs[0]['routes'])} MoE calls); K1 {[rec['k1'] for rec in recs]}, K2 0")
     # the check's logits against the one process's
     calls = per_rank[0]["check"]["calls"]
-    wants = [inputs["prefill"]] * SPMD_SERVE_CHECK["prefills"] + inputs["decode_b4"] + inputs["decode_b1"]
+    wants = [inputs["prefill"]] * check["prefills"] + inputs["decode_b4"] + inputs.get("decode_b1", [])
     worst = 0.0
     for c, want in zip(calls, wants, strict=True):
-        rel = float((c["logits"] - want).abs().max() / want.abs().max())
-        agree = float((c["logits"].argmax(-1) == want.argmax(-1)).float().mean())
+        got = torch.from_numpy(c["logits"])
+        rel = float((got - want).abs().max() / want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
         log(f"  {c['what']}: logits vs one process's: largest |diff| / largest |logit| {rel:.3e} (<= "
             f"{SPMD_SERVE_TOL:g}), greedy tokens equal {agree:.3f}")
         worst = max(worst, rel)
     if worst > SPMD_SERVE_TOL:
-        raise AssertionError(f"spmd-serve: the ranks' logits differ from one process's by {worst:.3e}")
-    if four:
-        f = SPMD_SERVE_FOUR
-        log(f"spmd-serve deployment ({cfg.num_layers} layers, {per_rank[0]['transport']}): prefill b {f['batch']} x T "
-            f"{f['seq']}, decode B {f['decode_batch']} at kv_len {f['kv_len']} from index {f['start']}:")
+        raise AssertionError(f"spmd-serve {arch}: the ranks' logits differ from one process's by {worst:.3e}")
+    if full:
+        f = full
+        log(f"spmd-serve {arch} deployment ({fcfg.num_layers} layers, {per_rank[0]['transport']}): prefill b "
+            f"{f['batch']} x T {f['seq']}, decode B {f['decode_batch']} at kv_len {f['kv_len']} from index "
+            f"{f['start']}:")
         _spmd_serve_report("full", per_rank, {"prefill": f["batch"] * f["seq"], f"decode b{f['decode_batch']}":
                                                f["decode_batch"]})
-    log(f"flash launches on the spmd-serve path: {launches}")
+    log(f"flash launches on the spmd-serve path ({arch}): {launches}")
     return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--only", default=",".join(PHASES), help="comma-separated phases to run")
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (or spmd-jamba, spmd-serve-jamba: those on jamba alone)")
     ap.add_argument("--spmd-control", action="store_true",
                     help="the spmd phase (one card) also runs tp_fsdp in bf16, which its digest gate must refuse")
     args = ap.parse_args(argv)
     only = args.only.split(",")
-    unknown = set(only) - set(PHASES)
+    unknown = set(only) - set(PHASES) - set(JAMBA_ALONE)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
+    alone = {JAMBA_ALONE[n] for n in only if n in JAMBA_ALONE} - set(only)
     device = phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     kernels, pipeline_first_loss, adaptive_first_loss = {}, None, None
     for name in PHASES[1:]:
-        if name not in only:
+        if name not in only and name not in alone:
             continue
+        archs = (SPMD_JAMBA,) if name in alone else SPMD_ARCHS
         t = time.perf_counter()
         log(f"== phase {name}")
         if name == "build":
@@ -4098,13 +4519,16 @@ def main(argv=None) -> int:
             if kernels:
                 kernels["flash"]["per_path"]["fabric-tcp"]["launches"] = launches
         elif name == "spmd":
-            launches = phase_spmd(args.spmd_control)
+            launches = phase_spmd(args.spmd_control, archs)
             if kernels:
-                kernels["flash"]["per_path"]["spmd"]["launches"] = launches
+                for arch, path in ((SPMD_ARCH, "spmd"), (SPMD_JAMBA, "spmd-jamba")):
+                    kernels["flash"]["per_path"][path]["launches"] = launches.get(arch, {}).get("flash")
+                kernels["ssd"]["per_path"]["spmd-jamba"]["launches"] = launches.get(SPMD_JAMBA, {}).get("ssd")
         elif name == "spmd-serve":
-            launches = phase_spmd_serve()
+            launches = phase_spmd_serve(archs)
             if kernels:
-                kernels["flash"]["per_path"]["spmd-serve"]["launches"] = launches
+                for arch, path in ((SPMD_ARCH, "spmd-serve"), (SPMD_JAMBA, "spmd-serve-jamba")):
+                    kernels["flash"]["per_path"][path]["launches"] = launches.get(arch)
         log(f"== phase {name} done in {time.perf_counter() - t:.1f} s")
         # what a phase built may hold itself alive (a training runtime and its
         # step cache's factory hold each other): free it before the next

@@ -9,7 +9,8 @@ each case's metrics after every step and its final state gathered to full
 in ``repro``'s flat, stacked numpy layout (the bridge's keys, under
 ``params/``, ``opt_state/m/``, ``opt_state/v/`` or ``opt_state/v_row/``,
 ``opt_state/v_col/``), with every rank's K1 launches and local shard
-shapes.  :func:`shard_round_trips` holds the shard helpers to their
+shapes, the leaves its use gathers over "model", its collective counts and
+each MoE call's routing.  :func:`shard_round_trips` holds the shard helpers to their
 definition.
 
 A case is a dict: ``cfg``, ``strategy``, ``M``, ``steps``, ``batch`` (numpy
@@ -24,10 +25,12 @@ result also carries every rank's matmul FLOPs in its first step
 is a dict of ``cfg``, ``params`` (``repro``'s, as above), ``prompt`` [B, T]
 tokens, ``cache`` (``repro``'s flat decode cache after its
 ``prefill_with_cache`` of the prompt), ``kv_len`` and ``decode`` [steps,
-B, 1] tokens, stepped from index T.  Rank 0 returns the prefill's and each
-step's logits and the cache gathered after the steps (the port's flat
-layout); every rank returns its counts of collectives per call and the
-leaves it gathered over "model".
+B, 1] tokens, stepped from index T, and optionally ``prefill_cache`` (the
+prefill run once more, filling a fresh cache, returned gathered).  Rank 0
+returns the prefill's and each step's logits and the cache gathered after
+the steps (the port's flat layout); every rank returns its counts of
+collectives per call, the leaves it gathered over "model" and each MoE
+call's routing (``idx``, ``keep``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from repro_torch.optim import AdamWState, constant_schedule, make_optimizer
 from repro_torch.pipeline import ranks
 from repro_torch.tree import flatten
 
-__all__ = ["spmd_cases", "spmd_serve_cases", "repro_state", "shard_round_trips"]
+__all__ = ["spmd_cases", "spmd_serve_cases", "spmd_mixed_cases", "repro_state", "shard_round_trips"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -89,6 +92,8 @@ def _one(group, case):
     state = step.shard_state(params) if params is not None else step.init_state(case["seed"])
     want = {k: local_shape(t.shape, step.specs[k], mesh) for k, t in flatten(state_specs.params).items()}
     got = {k: tuple(t.shape) for k, t in flatten(state.params).items()}
+    if step.tp is not None:
+        step.tp.keep_routes = True
     n0 = flash_ops.launches
     metrics, flops = [], None
     for i in range(case["steps"]):
@@ -103,9 +108,20 @@ def _one(group, case):
     full = step.gather_state(state)
     return {
         "metrics": metrics, "launches": launches, "shapes_agree": got == want, "row_axes": step.row_axes,
-        "flops": flops,
+        "flops": flops, "gathered": _gathered_over_model(step), "routes": _routes(step.tp),
+        "counts": dict(step.tp.counts) if step.tp is not None else {},
         "state": repro_state(full, cfg) if group.rank == 0 else None,
     }
+
+
+def _gathered_over_model(step) -> list:
+    """The leaf paths whose use gathers them over "model"."""
+    return sorted(k for k, spec in step._gather.items() if "model" in {a for e in spec for a in spec_axes(e)})
+
+
+def _routes(tp) -> list:
+    """Each MoE call's routing (``idx``, ``keep``) as numpy, in call order."""
+    return [] if tp is None else [(i.cpu().numpy(), k.cpu().numpy()) for i, k in tp.routes]
 
 
 def spmd_cases(group, cases: list) -> list:
@@ -119,11 +135,12 @@ def _serve_one(group, case):
     prompt = torch.from_numpy(case["prompt"])
     decode = [torch.from_numpy(t) for t in case["decode"]]
     B, T = prompt.shape
-    prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt})
+    prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt}, kv_len=case["kv_len"])
     step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": decode[0]}, case["kv_len"])
     params = prefill.shard_params(bridge.params_from_repro(case["params"], prefill.cfg, device=group.device))
     cache = step.shard_cache(bridge.cache_from_repro(case["cache"], cfg, device=group.device))
     tp = step.tp
+    prefill.tp.keep_routes = tp.keep_routes = True
     n0 = flash_ops.launches
     logits = [_np(prefill(params, {"tokens": prompt}))]
     counts = [dict(prefill.tp.counts)]
@@ -133,18 +150,30 @@ def _serve_one(group, case):
         logits.append(_np(step(params, cache, T + i, {"tokens": tokens})[0]))
         counts.append(dict(tp.counts))
     full = flatten(step.gather_cache(cache))
-    return {
+    out = {
         "logits": logits if group.rank == 0 else None,
         "cache": {k: _np(v) for k, v in full.items()} if group.rank == 0 else None,
         "counts": counts, "k1": k1, "row_axes": step.row_axes,
         "gathered": sorted(prefill.tp.gathered | tp.gathered),
         "cache_shapes": {k: tuple(v.shape) for k, v in flatten(cache).items()},
+        "routes": _routes(prefill.tp) + _routes(tp),
     }
+    if case.get("prefill_cache"):  # the prefill again, filling a fresh cache
+        filled = prefill.init_cache()
+        prefill(params, {"tokens": prompt}, filled)
+        out["prefill_cache"] = {k: _np(v) for k, v in flatten(prefill.gather_cache(filled)).items()}
+    return out
 
 
 def spmd_serve_cases(group, cases: list) -> list:
     """Every serving case on this rank, in order (the module docstring)."""
     return [_serve_one(group, case) for case in cases]
+
+
+def spmd_mixed_cases(group, train: list, serve: list) -> tuple[list, list]:
+    """:func:`spmd_cases` of ``train``, then :func:`spmd_serve_cases` of
+    ``serve``, in one spawn of the ranks."""
+    return spmd_cases(group, train), spmd_serve_cases(group, serve)
 
 
 def shard_round_trips(group, cases: list, piece_bytes: int | None = None) -> list:

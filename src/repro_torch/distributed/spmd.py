@@ -33,12 +33,20 @@ and the step says where every collective goes:
   (:mod:`repro_torch.distributed.tensor_parallel`).  A leaf is gathered over
   its data axes only (the FSDP half) and the products run on its "model"
   shard: column and row products with one all-reduce over "model" per
-  attention and MLP block, the vocab-split embedding and logits.  The
-  backward reduce-scatters each gradient over the data axes only, averaged
-  over the row groups.  The leaves no product follows (the MoE layer, the
-  Mamba2 layer, an attention block whose heads do not split whole) are
-  gathered over "model" too, as ``zero3`` gathers every leaf.  The ranks
-  along "model" share their rows' work instead of repeating it.  With
+  attention, MLP and MoE block, the vocab-split embedding and logits, the
+  MoE layer expert-parallel (each rank its E/tp experts, the banks gathered
+  over "data" only) and Mamba2 by heads (``in_proj``'s output all-gathered,
+  the conv, the SSD through K2 and the state on the rank's heads, one
+  all-reduce for the gated norm and one for ``out_proj``).  The backward
+  reduce-scatters each gradient over the data axes only, averaged over the
+  row groups; a leaf each rank uses in part (the router, ``conv_w`` and
+  Mamba2's 1-D leaves, ``wk`` and ``wv`` of a split head) is summed over
+  "model" too.  Only the router, ``conv_w`` and the leaves of a layer whose
+  heads or experts do not split whole over "model" (an attention block
+  whose heads do not, a Mamba2 layer with ``H % tp != 0``, an MoE layer
+  with ``E % tp != 0``) are gathered over "model", as ``zero3`` gathers
+  every leaf.  The ranks along "model" share their rows' work instead of
+  repeating it.  With
   ``remat_blocks`` (always under ``zero3``) each layer, its gather
   included, runs again in the backward; ``remat`` recomputes the whole
   loss.  With ``gather_params_once`` (``tp_fsdp``) every leaf is gathered
@@ -46,11 +54,14 @@ and the step says where every collective goes:
   ``repro``'s stacked layout cast to ``cfg.dtype`` first, as ``repro`` casts
   them; the gradients still reduce-scatter at each use.  Every rank runs K1
   on its own rows (under ``tp_fsdp`` its own heads) in each attention layer,
-  and K2 in each Mamba2 layer.
+  and K2 (its own heads) in each Mamba2 layer.
 * **MoE.**  Under the anchor the MoE layers route each row as its own group
   (``moe_apply_grouped``), the expert counts summed over the ranks of the
   micro-batch's rows, so the load-balance term is the micro-batch's
-  (:mod:`repro_torch.models.moe`).
+  (:mod:`repro_torch.models.moe`).  Under ``tp_fsdp`` every rank of a
+  column routes alike and computes the same load-balance and router z
+  terms; each carries 1/tp of their gradient, so the router's gradient,
+  summed over "model", counts them once.
 * **Loss.**  Each rank's loss is its share (the cross-entropy and router
   z-loss over its rows, the load-balance share): the mean over the ranks
   is the micro-batch's loss, and so is the mean of the gradients.
@@ -63,14 +74,20 @@ and the step says where every collective goes:
 **Serving** (:func:`make_spmd_prefill`, :func:`make_spmd_serve_step`): the
 weights are stationary, each rank holding its shard of
 ``param_shardings(..., fsdp=False)`` (drawn by ``init_params``, the
-serving cast's, or cut from a full tree); the prefill is ``prefill_fn`` and
-the decode ``decode_fn`` through the tensor-parallel products, K1 on each
-rank's heads in every attention layer of the prefill; the decode cache is
-each rank's shard under ``cache_shardings`` (the batch over the data axes,
-the KV sequence over "model"), updated in place as ``repro`` donates it.
-The rows follow :func:`act_anchor_for`: over the data axes when the batch
-divides them, else (B = 1) every rank takes them all; the logits are
-gathered over the row axes, so each rank returns ``repro``'s whole output.
+serving cast's, or cut from a full tree); the prefill is
+``prefill_with_cache``'s path (``prefill_fn`` for the encoder-decoder and
+the VLM) and the decode ``decode_fn``, both through the tensor-parallel
+products: K1 on each rank's heads in every attention layer of the prefill,
+the MoE layer on the rank's experts (its banks gathered over the data axes,
+which split their d dim even without FSDP), Mamba2 on the rank's heads
+(the prefill stepping the recurrence token by token, so K2 is not on the
+serving path).  The decode cache is each rank's shard under
+``cache_shardings`` (the batch over the data axes, the KV sequence over
+"model", the SSM state's heads over "model"), updated in place as ``repro``
+donates it; the prefill fills one when given it (``kv_len``).  The rows
+follow :func:`act_anchor_for`: over the data axes when the batch divides
+them, else (B = 1) every rank takes them all; the logits are gathered over
+the row axes, so each rank returns ``repro``'s whole output.
 
 :func:`state_specs_for` traces the init under ``FakeTensorMode``: a seeded
 ``torch.Generator`` does not draw on ``meta``, and the fake mode runs the
@@ -247,14 +264,16 @@ def _draw_shards(cfg: ModelConfig, specs: dict, mesh, device, seed: int, serving
 
     def finish(part):
         paths = iter(next(calls))
-        if serving:
-            part = api.cast_for_serving(part, cfg)
+        # the serving cast's dtype of each leaf, applied to its shard alone: the
+        # peak is the drawn part (one fp32 expert bank) above the shards
+        meta = tree_map(lambda t: torch.empty((), dtype=t.dtype, device="meta"), part)
+        dtypes = iter(t.dtype for t in flatten(api.cast_for_serving(meta, cfg) if serving else meta).values())
 
         def one(t):
-            path = next(paths)
+            path, dtype = next(paths), next(dtypes)
             if id(t) in cut:
                 return t
-            s = local_shard(t, specs[path], mesh).clone()
+            s = local_shard(t, specs[path], mesh).to(dtype, copy=True)
             cut.add(id(s))
             return s
 
@@ -578,12 +597,13 @@ def make_spmd_train_step(
 class _Serving:
     """What the sharded prefill and decode share: the anchored config, the
     stationary weights' specs (``param_pspecs(..., fsdp=False)``) and each
-    leaf's use, the rank's rows, and the ``use`` hook that hands the model
-    the rank's shards (gathering only the leaves no product follows)."""
+    leaf's use, the rank's rows, the ``use`` hook that hands the model the
+    rank's shards (gathering only the leaves no product follows), and with
+    ``kv_len`` the layout of the rank's shard of the decode cache."""
 
     def __init__(self, cfg, mesh, batch_size: int, device, kv_len: int | None = None):
         self.cfg = act_anchor_for(cfg, mesh, batch_size)
-        self.mesh, self.device = mesh, torch.device(device)
+        self.mesh, self.device, self.kv_len = mesh, torch.device(device), kv_len
         anchor = self.cfg.act_sharding
         self.row_axes = spec_axes(anchor[0]) if anchor else ()
         self.tp = TensorParallel(mesh, kv_len)
@@ -592,6 +612,24 @@ class _Serving:
         self.uses = {k: leaf_use(k, spec, self.cfg, self.tp.size, self.tp.rank) for k, spec in self.specs.items()}
         self._gather = {k: gather_spec(spec, self.uses[k], data=True) for k, spec in self.specs.items()}
         self._path_of: dict = {}
+        if kv_len is not None:
+            self.cache_specs = api.init_cache(self.cfg, batch_size, kv_len, device="meta")
+            self.cache_pspecs = flatten(map_with_path(lambda _, s: s.spec, cache_shardings(self.cache_specs, mesh)))
+
+    def init_cache(self):
+        """The rank's shard of an empty cache."""
+        return map_with_path(
+            lambda k, t: torch.zeros(local_shape(t.shape, self.cache_pspecs[k], self.mesh), dtype=t.dtype,
+                                     device=self.device), self.cache_specs)
+
+    def shard_cache(self, cache):
+        """The rank's shard of a full cache (``api.init_cache``'s layout)."""
+        return map_with_path(lambda k, t: local_shard(t.to(self.device), self.cache_pspecs[k], self.mesh).clone(),
+                             cache)
+
+    def gather_cache(self, cache):
+        """The full cache on every rank from each rank's shard."""
+        return map_with_path(lambda k, t: gather(t, self.cache_pspecs[k], self.mesh), cache)
 
     def init_params(self, seed: int = 0):
         """The rank's shards of ``api.init_serving_params(cfg, seed)``."""
@@ -637,15 +675,27 @@ class _Serving:
 
 
 class SpmdPrefill(_Serving):
-    """One rank's sharded prefill: ``prefill(params, batch) -> logits [B, 1,
-    V]`` of the whole global ``batch`` (every rank passes the same one and
-    takes its rows), ``params`` the rank's shards.  Build it with
+    """One rank's sharded prefill: ``prefill(params, batch, cache=None) ->
+    logits [B, 1, V]`` of the whole global ``batch`` (every rank passes the
+    same one and takes its rows), ``params`` the rank's shards.  A text
+    family runs ``prefill_with_cache``'s path (Mamba2's recurrence on the
+    rank's heads), filling ``cache`` in place when one is given (the rank's
+    shard of a fresh cache under ``kv_len``, :meth:`init_cache`); the
+    encoder-decoder and the VLM run ``prefill_fn``, as ``repro``'s does
+    (neither has ``prefill_with_cache``).  Build it with
     :func:`make_spmd_prefill`."""
 
-    def __call__(self, params, batch: Mapping[str, torch.Tensor]):
+    def __call__(self, params, batch: Mapping[str, torch.Tensor], cache=None):
         rows = self.local_rows(batch)
+        if self.cfg.family in ("encdec", "vlm"):
+            if cache is not None:
+                raise ValueError(f"family {self.cfg.family!r} has no prefill_with_cache")
+            return self._run(params, lambda: self._all_rows(
+                api.prefill_fn(params, self.cfg, rows, use=self._use, tp=self.tp)))
+        if cache is not None and self.kv_len is None:
+            raise ValueError("a cache needs make_spmd_prefill(..., kv_len=...)")
         return self._run(params, lambda: self._all_rows(
-            api.prefill_fn(params, self.cfg, rows, use=self._use, tp=self.tp)))
+            api.prefill_with_cache(params, self.cfg, cache, rows, use=self._use, tp=self.tp)[0]))
 
 
 class SpmdServeStep(_Serving):
@@ -654,27 +704,6 @@ class SpmdServeStep(_Serving):
     ``cache_shardings`` (updated in place), ``index`` one position or a [B]
     vector of the global batch's.  Build it with
     :func:`make_spmd_serve_step`."""
-
-    def __init__(self, cfg, mesh, batch_size: int, kv_len: int, device):
-        super().__init__(cfg, mesh, batch_size, device, kv_len)
-        self.kv_len = kv_len
-        self.cache_specs = api.init_cache(self.cfg, batch_size, kv_len, device="meta")
-        self.cache_pspecs = flatten(map_with_path(lambda _, s: s.spec, cache_shardings(self.cache_specs, mesh)))
-
-    def init_cache(self):
-        """The rank's shard of an empty cache."""
-        return map_with_path(
-            lambda k, t: torch.zeros(local_shape(t.shape, self.cache_pspecs[k], self.mesh), dtype=t.dtype,
-                                     device=self.device), self.cache_specs)
-
-    def shard_cache(self, cache):
-        """The rank's shard of a full cache (``api.init_cache``'s layout)."""
-        return map_with_path(lambda k, t: local_shard(t.to(self.device), self.cache_pspecs[k], self.mesh).clone(),
-                             cache)
-
-    def gather_cache(self, cache):
-        """The full cache on every rank from each rank's shard."""
-        return map_with_path(lambda k, t: gather(t, self.cache_pspecs[k], self.mesh), cache)
 
     def __call__(self, params, cache, index, batch: Mapping[str, torch.Tensor]):
         rows = self.local_rows(batch)
@@ -695,14 +724,15 @@ def _device(mesh, device):
     return mesh.group.device if mesh.group is not None else resolve_device(None)
 
 
-def make_spmd_prefill(cfg: ModelConfig, mesh, batch_specs: Mapping, device=None):
+def make_spmd_prefill(cfg: ModelConfig, mesh, batch_specs: Mapping, device=None, kv_len: int | None = None):
     """Returns ``(prefill, (param_specs, batch_specs))`` as ``repro``'s does:
     ``prefill`` an :class:`SpmdPrefill` for the rank at ``mesh``'s
     coordinate (the module docstring), ``param_specs`` the full parameter
     tree's meta tensors.  ``batch_specs`` maps batch keys to anything with
-    a ``shape`` (the global batch)."""
+    a ``shape`` (the global batch); ``kv_len`` lays out the cache the
+    prefill may fill (as :func:`make_spmd_serve_step`'s at that length)."""
     batch_size = next(v.shape[0] for k, v in batch_specs.items() if k != "mrope_positions")
-    step = SpmdPrefill(cfg, mesh, batch_size, _device(mesh, device))
+    step = SpmdPrefill(cfg, mesh, batch_size, _device(mesh, device), kv_len)
     return step, (step.param_specs, dict(batch_specs))
 
 
@@ -712,6 +742,6 @@ def make_spmd_serve_step(cfg: ModelConfig, mesh, batch_specs: Mapping, kv_len: i
     against a ``kv_len`` cache, the module docstring), the specs as meta
     tensors of the full trees."""
     batch_size = next(iter(batch_specs.values())).shape[0]
-    step = SpmdServeStep(cfg, mesh, batch_size, kv_len, _device(mesh, device))
+    step = SpmdServeStep(cfg, mesh, batch_size, _device(mesh, device), kv_len)
     index_spec = torch.empty((), dtype=torch.int32, device="meta")
     return step, (step.param_specs, step.cache_specs, index_spec, dict(batch_specs))

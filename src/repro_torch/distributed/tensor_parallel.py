@@ -11,12 +11,13 @@ path in the port's layout (``repro``'s rules, ``sharding.py``'s
 ``_COL_SPLIT``, ``_ROW_SPLIT`` and ``_EMBED``), and the way it is used:
 
 * **Column products**: ``attn/wq``, ``attn/wk``, ``attn/wv``, ``mlp/gate``,
-  ``mlp/up`` and the cross attention's ``xattn/wq``, ``wk``, ``wv``, their
+  ``mlp/up`` (and a shared expert's ``moe/shared/gate``, ``up``) and the
+  cross attention's ``xattn/wq``, ``wk``, ``wv``, their
   output features over "model" (a bias split likewise).  The rank computes
   its own query heads and KV groups, or its slice of the MLP's inner width,
   on the whole hidden: :meth:`TensorParallel.enter` before them is the
   identity forward and sums the input's gradient over "model" backward.
-* **Row products**: ``attn/wo``, ``mlp/down``, ``xattn/wo``, their input
+* **Row products**: ``attn/wo``, ``mlp/down`` (``moe/shared/down``), ``xattn/wo``, their input
   features over "model".  The rank's partial sum goes through
   :meth:`TensorParallel.exit`, an all-reduce over "model" forward and the
   identity backward: one all-reduce per attention block and one per MLP
@@ -36,13 +37,45 @@ path in the port's layout (``repro``'s rules, ``sharding.py``'s
   split whole either, the block's four leaves are gathered and every rank
   computes every head (``"gather"``).  No product runs on a split head
   (:func:`head_split`).
-* **Leaves gathered at use** (``_Gather`` in the train step, the serving
-  ``use``): the MoE layer (its expert banks, whose d dim is over the data
-  axes even without FSDP, the router and its shared expert) and the Mamba2
-  layer (``in_proj`` and ``conv_w`` join z, x, B, C and dt in their columns
-  and do not split by head; ``out_proj`` with them).  Every rank along
-  "model" computes them in full, on the same input, so their gradient is the
-  same there and each rank keeps its own chunk of it.
+* **Expert parallelism** (:meth:`TensorParallel.moe`): an expert bank's E
+  dim is over "model" (its d dim over the data axes, even without FSDP),
+  so the rank computes its E/tp experts, the bank gathered over the data
+  axes only.  Every rank along "model" routes all of its row group's tokens
+  over all E experts (``moe.route``: C and ``keep`` are the whole
+  layer's), keeps the entries routed to its own experts, and combines a
+  partial [G, S, d]; the shared expert's row-product partial is added to it
+  before the block's one all-reduce over "model" (``exit``), the input
+  through ``enter`` first.  ``moe/router/w`` (d x E) is the one MoE leaf
+  gathered over "model"; each rank's combine uses only its own experts'
+  gates, so its gradient is summed over "model" (``"sum"``), and the
+  load-balance and router z terms, which every rank of a column computes
+  alike, carry 1/tp of their gradient there (:class:`_Share`) so that the
+  sum counts them once.  Where E % tp != 0 the layer is gathered whole and
+  every rank computes it (``"replicated"``).
+* **Mamba2 by heads** (:meth:`TensorParallel.mamba_train`,
+  :meth:`~TensorParallel.mamba_prefill`, :meth:`~TensorParallel.ssm_decode`):
+  the rank owns heads ``[r H/tp, (r+1) H/tp)`` (:func:`ssm_heads`), its
+  shard of the SSM state and those heads' ``d_in/tp`` rows of ``out_proj``.
+  ``in_proj`` is a column product on the rank's contiguous shard of the
+  ``[z | x | B | C | dt]`` columns, which is not aligned to heads, so its
+  output is all-gathered over "model" (one all-gather; its backward
+  reduce-scatters the gradient) and the rank takes its heads' z, x and dt
+  columns and the whole B and C.  ``conv_w`` (K x conv_dim) is gathered over
+  "model" and the rank uses its x channels and the B and C channels; the
+  causal conv, ``softplus(dt)``, A, D and the SSD (K2 in training) run on
+  its heads.  The gated rmsnorm needs the whole ``d_in``: one all-reduce of
+  each row's fp32 sum of squares over "model" completes it (its backward
+  is an all-reduce too: each rank's sum feeds its own heads).
+  ``out_proj`` is a row product (``exit``).  ``conv_w``, ``conv_b``,
+  ``dt_bias``, ``A_log``, ``D`` and ``norm_scale`` are used in part by each
+  rank, so their gradients are summed over "model" (``"sum"``).  Where
+  ``H % tp != 0`` (or ``in_proj``'s columns do not split) the layer's leaves
+  are gathered over "model" and every rank computes every head, as
+  :func:`head_split` does for attention heads.  The head-sliced forms
+  themselves are ``models/mamba.py``'s (``heads`` and this class's hooks:
+  :meth:`~TensorParallel.gather_cols`, :meth:`~TensorParallel.reduce_both`,
+  :meth:`~TensorParallel.decode_row`, :meth:`~TensorParallel.write_window`,
+  ``enter``, ``exit``); here only the collectives.
 * **1-D leaves the rules replicate** (the norms, a row product's bias):
   used as held, no collective.
 
@@ -56,14 +89,23 @@ and each rank merges its own heads' by their log-sum-exps
 (:func:`merge_partials`) for ``wo``: two all-gathers an attention layer.  A
 cache split by KV heads instead (the length does not divide) holds the
 rank's own groups, and the rank decodes its heads as one process does
-(``attention.attn_decode``).  Mamba2's state (heads over "model") and conv
-window (channels over "model") are gathered at use and written back to the
-rank's shard (:meth:`TensorParallel.ssm_decode`).
+(``attention.attn_decode``).  Mamba2's state stays split by heads: a decode
+step all-gathers the rank's ``in_proj`` output row with its shard of the
+conv window (channels over "model") in one buffer, steps its own heads'
+state, and writes its shard of the window back.  The sharded prefill
+(``mamba.mamba_prefill_heads``) runs ``in_proj``, the conv, the norm
+and ``out_proj`` over the whole prompt at once (three collectives a layer)
+and steps the recurrence token by token on the rank's heads, filling its
+shard of a fresh cache; its attention (:meth:`TensorParallel.attn_prefill`)
+writes the rank's shard of the KV cache.
 
 :attr:`TensorParallel.counts` counts the collectives the products run
-(``all_reduce``, ``all_gather`` and their bytes) and
-:attr:`TensorParallel.gathered` the leaf paths a ``use`` gathered over
-"model"; the sharded serving logs both.
+(``all_reduce``, ``all_gather``, ``reduce_scatter`` and their bytes) and
+:attr:`TensorParallel.gathered` the leaf paths a serving ``use`` gathered
+over "model" (the router, ``conv_w``, and the cases above that do not
+split); :attr:`TensorParallel.routes` keeps each MoE call's ``idx`` and
+``keep`` while ``keep_routes`` is set (every rank of a column must route
+alike).
 """
 
 from __future__ import annotations
@@ -75,15 +117,19 @@ import torch
 
 from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.distributed.sharding import spec_axes
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, encoder_config
-from repro_torch.models.layers import dense, embed, unembed
+from repro_torch.models.layers import dense, embed, mlp, unembed
 
 __all__ = [
     "MODEL",
     "HeadSplit",
     "head_split",
+    "ssm_heads",
+    "experts_of",
     "LeafUse",
     "leaf_use",
     "gather_spec",
@@ -146,6 +192,25 @@ _LOCAL = LeafUse()
 _REPLICATED = LeafUse(model=True, grad="replicated")
 
 
+def ssm_heads(cfg: ModelConfig, tp: int, rank: int) -> tuple[int, int] | None:
+    """(first, count) of the rank's Mamba2 heads at "model" size ``tp``, or
+    None where the layer is gathered: one rank, ``H % tp != 0``, or
+    ``in_proj``'s columns that do not split over "model"."""
+    d_in, H, _, N, G = mamba_mod._dims(cfg)
+    if tp > 1 and H % tp == 0 and (2 * d_in + 2 * G * N + H) % tp == 0:
+        return rank * (H // tp), H // tp
+    return None
+
+
+def experts_of(cfg: ModelConfig, tp: int, rank: int) -> tuple[int, int] | None:
+    """(first, count) of the rank's experts at "model" size ``tp``, or None
+    where the MoE layer is gathered (one rank, or ``E % tp != 0``)."""
+    E = cfg.num_experts
+    if tp > 1 and E % tp == 0:
+        return rank * (E // tp), E // tp
+    return None
+
+
 def leaf_use(path: str, spec, cfg: ModelConfig, tp: int, rank: int) -> LeafUse:
     """The :class:`LeafUse` of the leaf at ``path`` whose spec is ``spec``
     (the module docstring's classes); ``cfg`` is the model's (an encoder
@@ -153,8 +218,16 @@ def leaf_use(path: str, spec, cfg: ModelConfig, tp: int, rank: int) -> LeafUse:
     parts = path.split("/")
     named = MODEL in {a for e in spec for a in spec_axes(e)}
     whole = _REPLICATED if named else _LOCAL
-    if "moe" in parts or "mamba" in parts:
-        return whole
+    if "moe" in parts:
+        if experts_of(cfg, tp, rank) is None:
+            return whole
+        return LeafUse(model=named, grad="sum") if "router" in parts else _LOCAL
+    if "mamba" in parts:
+        if ssm_heads(cfg, tp, rank) is None:
+            return whole
+        if parts[-1] in ("in_proj", "out_proj"):
+            return _LOCAL
+        return LeafUse(model=named, grad="sum")  # conv_w gathered; the 1-D leaves sliced
     for block in ("attn", "xattn"):
         if block in parts:
             s = head_split(encoder_config(cfg) if parts[0] == "encoder" else cfg, tp, rank)
@@ -234,6 +307,49 @@ class _GatherVocab(torch.autograd.Function):
         return g.narrow(-1, ctx.tp.rank * ctx.n, ctx.n).contiguous(), None
 
 
+class _GatherCols(torch.autograd.Function):
+    """The ranks' column shards of a product concatenated forward; backward,
+    the rank's shard of the sum of every rank's gradient (each rank uses
+    other columns of the whole): a reduce-scatter over "model"."""
+
+    @staticmethod
+    def forward(ctx, z, tp):
+        ctx.tp = tp
+        return tp.all_gather(z, dim=z.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce_scatter(g, g.ndim - 1), None
+
+
+class _ReduceBoth(torch.autograd.Function):
+    """All-reduce over "model" forward and backward: the sum feeds another
+    part of the work on each rank (the gated norm's sum of squares)."""
+
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return tp.all_reduce(t.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _Share(torch.autograd.Function):
+    """Identity forward; 1/tp of the gradient backward: a term every rank of
+    a column computes alike, whose gradient is summed over "model"."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class TensorParallel:
     """One rank's tensor-parallel products over "model" on ``mesh`` (a
     :func:`~repro_torch.launch.mesh.make_local_mesh` with its rank group;
@@ -247,6 +363,7 @@ class TensorParallel:
         self.rank = mesh.coord(MODEL) if MODEL in mesh.axis_names else 0
         self.counts: collections.Counter = collections.Counter()
         self.gathered: set = set()
+        self.keep_routes, self.routes = False, []
         self._heads: dict = {}
 
     # -- collectives ---------------------------------------------------------
@@ -266,6 +383,14 @@ class TensorParallel:
         self.counts["all_gather"] += 1
         self.counts["all_gather_bytes"] += t.numel() * t.element_size() * self.size
         return self.mesh.group.all_gather_over(t, (MODEL,), dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's chunk along ``dim`` of the ranks' ``t`` summed over "model"."""
+        if self.size == 1:
+            return t
+        self.counts["reduce_scatter"] += 1
+        self.counts["reduce_scatter_bytes"] += t.numel() * t.element_size()
+        return self.mesh.group.reduce_scatter_over(t, (MODEL,), dim=dim)
 
     def enter(self, x):
         return _Enter.apply(x, self) if self.size > 1 else x
@@ -381,15 +506,137 @@ class TensorParallel:
             return merge_partials(parts[..., :-1], parts[..., -1]).to(out.dtype)
         return out.narrow(2, *heads)
 
+    def attn_prefill(self, p, x, cache, cfg: ModelConfig, window: int | None = None):
+        """The prompt's causal attention x [B, T, d] (from position 0) on the
+        rank's heads through K1; with ``cache`` (the rank's shard of the
+        layer's KV cache, under ``kv_len``) its k and v written where decode
+        reads them: every head's, all-gathered over "model" in one buffer,
+        where the shard holds every head (the sequence split, or neither),
+        the rank's own where the cache splits by KV heads."""
+        s = self.heads(cfg)
+        c, enter, exit_ = self.attention(cfg)
+        q, k, v = attn._project_qkv(p, enter(x), c, torch.arange(x.shape[1], device=x.device)[None, :])
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        y = exit_(dense(p["wo"], attn._merge_heads(out), cfg))
+        if cache is None:
+            return y
+        ck, cv = cache["k"], cache["v"]
+        L = min(self.kv_len, window) if window else self.kv_len
+        Ll, Kc = ck.shape[1], ck.shape[2]
+        lo = 0
+        if Kc != cfg.num_kv_heads:
+            if (Kc, Ll) != (s.kv[1], L):
+                raise ValueError(f"a cache of {Kc} KV heads does not hold this rank's {s.kv}")
+        else:
+            _, k, v = self._all_heads(s, cfg, None, k, v)
+            lo = self.rank * Ll if Ll < L else 0
+        T = x.shape[1]
+        t = torch.arange(max(T - L, 0), T, device=x.device)  # the tokens a ring buffer keeps
+        slot = t % L
+        mine = (slot >= lo) & (slot < lo + Ll)
+        ck[:, slot[mine] - lo] = k[:, t[mine]].to(ck.dtype)
+        cv[:, slot[mine] - lo] = v[:, t[mine]].to(cv.dtype)
+        return y
+
+    # -- expert-parallel MoE -----------------------------------------------------------
+
+    def moe(self, p, h, cfg: ModelConfig, grouped: bool, row_sum=None):
+        """The MoE FFN of the normed hidden ``h`` [B, T, d] -> (y [B, T, d],
+        aux): each batch row routed as its own group with ``grouped``
+        (``row_sum`` then sums the expert counts over the rows' ranks), else
+        the B * T tokens as one; on the rank's experts (the module
+        docstring), or every expert where they do not split."""
+        B, T, d = h.shape
+        x = h if grouped else h.reshape(1, B * T, d)
+        rs = row_sum if grouped else None
+        ex = experts_of(cfg, self.size, self.rank)
+        if ex is None:
+            y, aux = moe_mod._moe(p, x, cfg, None, rs, on_route=self._route)
+            return y.reshape(B, T, d), aux
+        shared = p.get("shared")
+        split = shared is not None and shared["up"]["w"].shape[-1] < cfg.expert_ff * cfg.n_shared_experts
+        y, aux = moe_mod._moe(p, self.enter(x), cfg, None, rs, experts=ex, shared=split, on_route=self._route)
+        y = self.exit(y)
+        if shared is not None and not split:  # whole on every rank: after the sum, on the input as held
+            y = y + mlp(shared, x, cfg)
+        for k in ("load_balance", "router_z"):
+            aux[k] = _Share.apply(aux[k], self.size)
+        return y.reshape(B, T, d), aux
+
+    def _route(self, r):
+        if self.keep_routes:
+            self.routes.append((r["idx"].detach().clone(), r["keep"].detach().clone()))
+
+    # -- Mamba2 by heads ---------------------------------------------------------------
+    # the hooks of models/mamba.py's head-sliced forms, then the layer's entry points
+
+    def gather_cols(self, t):
+        """``in_proj``'s column shards joined over "model"; backward, the
+        rank's shard of the summed gradient (a reduce-scatter)."""
+        return _GatherCols.apply(t, self)
+
+    def reduce_both(self, t):
+        """The gated norm's sum of squares summed over "model", forward and
+        backward."""
+        return _ReduceBoth.apply(t, self)
+
+    def decode_row(self, part, window, conv_dim: int):
+        """A decode step's whole ``in_proj`` row [B, proj] and conv window
+        [B, K - 1, conv_dim] from the rank's column shard ``part`` and its
+        shard of the window (channels over "model", or whole): one
+        all-gather over "model" of both."""
+        B = part.shape[0]
+        K1, width = window.shape[1:]
+        split = width < conv_dim
+        both = self.all_gather(torch.cat([part, window.reshape(B, -1)] if split else [part], dim=-1)[None], 0)
+        full = both[..., : part.shape[-1]].permute(1, 0, 2).reshape(B, -1)
+        if split:
+            window = both[..., part.shape[-1]:].reshape(self.size, B, K1, width).permute(1, 2, 0, 3)
+            window = window.reshape(B, K1, self.size * width)
+        return full, window
+
+    def write_window(self, cache, window):
+        """The rank's shard (channels over "model") of the whole conv window
+        [B, K - 1, conv_dim] written to its cache."""
+        t = cache["conv"]
+        t.copy_(window.narrow(2, self.rank * t.shape[2], t.shape[2]) if t.shape[2] < window.shape[2] else window)
+
+    def mamba_train(self, p, x, cfg: ModelConfig):
+        """Mamba2's training forward x [B, T, d] -> [B, T, d] on the rank's
+        heads, the chunked SSD through K2 (the module docstring)."""
+        heads = ssm_heads(cfg, self.size, self.rank)
+        return mamba_mod.mamba_train(p, x, cfg, heads, self if heads else None)
+
+    def mamba_prefill(self, p, x, cache, cfg: ModelConfig):
+        """Mamba2 over the prompt x [B, T, d] (from position 0) -> [B, T, d]
+        on the rank's heads (``mamba.mamba_prefill_heads``), with ``cache``
+        (the rank's shard of the layer's SSM cache) filled."""
+        heads = ssm_heads(cfg, self.size, self.rank)
+        if heads is None:
+            if cache is None:  # a fresh state of every head
+                return mamba_mod.mamba_prefill(p, x, mamba_mod.init_ssm_cache(cfg, x.shape[0], x.device), cfg)[0]
+            return self._gathered_ssm(cache, cfg, lambda full: mamba_mod.mamba_prefill(p, x, full, cfg)[0])
+        return mamba_mod.mamba_prefill_heads(p, x, cache, cfg, heads, self)
+
     def ssm_decode(self, p, x, cache, cfg: ModelConfig):
-        """Mamba2's one-token step on the state and conv window gathered
-        over "model", the rank's shard of each written back."""
+        """Mamba2's one-token step x [B, 1, d] on the rank's heads of the
+        state (updated in place; :meth:`decode_row`, :meth:`write_window`).
+        Where the heads do not split, the state and window are gathered (the
+        module docstring)."""
+        heads = ssm_heads(cfg, self.size, self.rank)
+        if heads is None:
+            return self._gathered_ssm(cache, cfg, lambda full: mamba_mod.mamba_decode(p, x, full, cfg)[0])
+        return mamba_mod.mamba_decode(p, x, cache, cfg, heads, self)[0]
+
+    def _gathered_ssm(self, cache, cfg: ModelConfig, fn):
+        """``fn`` of the SSM state and conv window gathered over "model"; the
+        rank's shard of each written back."""
         d_in, H, _, N, G = mamba_mod._dims(cfg)
         full = {}
         for name, dim, n in (("state", 1, H), ("conv", 2, d_in + 2 * G * N)):
             t = cache[name]
             full[name] = self.all_gather(t, dim) if t.shape[dim] < n else t
-        y, _ = mamba_mod.mamba_decode(p, x, full, cfg)
+        y = fn(full)
         for name, dim in (("state", 1), ("conv", 2)):
             t = cache[name]
             if full[name] is not t:

@@ -149,14 +149,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
 
 def prefill_with_cache(
     params, cfg: ModelConfig, cache, batch: Mapping[str, torch.Tensor],
-    *, plain_attention: bool = False,
+    *, plain_attention: bool = False, **hooks,
 ):
     """Fused prefill that also fills the decode cache in one pass (text
     families only: encdec threads encoder memory explicitly and vlm M-RoPE
-    positions, and neither is a serving path in the reference)."""
+    positions, and neither is a serving path in the reference).  ``hooks``
+    are the sharded prefill's ``use`` and ``tp``."""
     check_servable(cfg, "prefill_with_cache")
     return tf.prefill_with_cache(
-        params, cfg, cache, batch["tokens"], plain_attention=plain_attention
+        params, cfg, cache, batch["tokens"], plain_attention=plain_attention, **hooks
     )
 
 

@@ -38,6 +38,14 @@ whole micro-batch's; it carries no gradient) and each rank's term is
 gradient, is the whole micro-batch's term, as the mean of the router z-loss
 and of the cross-entropy over equal row counts are.
 
+**Experts split over ranks.**  ``_moe(..., experts=(first, count))`` is one
+rank's part of an expert-parallel layer
+(:meth:`repro_torch.distributed.tensor_parallel.TensorParallel.moe`): every
+entry is routed over all E experts, so the capacity and the drops are the
+whole layer's, and only the kept entries routed to the rank's experts are
+packed, computed and combined; the ranks' partial outputs sum to the
+whole.
+
 The router logits are computed in fp32 from the fp32 router weight (the
 serving cast leaves ``router/w`` in ``param_dtype``); the expert banks are
 used in ``cfg.dtype``.
@@ -131,32 +139,44 @@ def route(p, x, cfg: ModelConfig, capacity_factor: float | None = None) -> dict:
     return {"logits": logits, "w": w, "idx": idx, "probs": probs, "rank": rank, "keep": rank < C, "C": C}
 
 
-def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None, row_sum=None):
-    """x [G, S, d] -> (y [G, S, d] in cfg.dtype, aux), each group routed on its own."""
+def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None, row_sum=None, experts=None, shared: bool = True,
+         on_route=None):
+    """x [G, S, d] -> (y [G, S, d] in cfg.dtype, aux), each group routed on its own.
+
+    ``experts`` (first, count) computes one rank's part of an
+    expert-parallel layer: the banks hold those experts only, every entry
+    is routed over all E (so C and ``keep`` are the whole layer's) and only
+    the kept entries routed to them are dispatched and combined; ``shared``
+    adds the shared expert (as ``p["shared"]`` holds it); ``on_route`` is
+    called with the routing (``route``'s dict)."""
     G, S, d = x.shape
     E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, cfg.dtype
     r = route(p, x, cfg, capacity_factor)
+    if on_route is not None:
+        on_route(r)
     C, keep, rank = r["C"], r["keep"], r["rank"]
-    flat_e = r["idx"].reshape(G, S * k)
+    first, n = experts or (0, E)
+    local = r["idx"].reshape(G, S * k) - first
+    mine = keep & (local >= 0) & (local < n) if experts else keep
 
-    # dispatch: scatter the kept entries' tokens into the [G, E, C, d] buffer
-    g_kept, n_kept = keep.nonzero(as_tuple=True)
+    # dispatch: scatter the kept entries' tokens into the [G, n, C, d] buffer
+    g_kept, n_kept = mine.nonzero(as_tuple=True)
     src = x[g_kept, n_kept // k]
-    buf = x.new_zeros((G, E, C, d)).index_put((g_kept, flat_e[g_kept, n_kept], rank[g_kept, n_kept]), src)
+    buf = x.new_zeros((G, n, C, d)).index_put((g_kept, local[g_kept, n_kept], rank[g_kept, n_kept]), src)
 
-    # the expert SwiGLUs, batched over E; the G groups' rows share each product
+    # the expert SwiGLUs, batched over the experts; the G groups' rows share each product
     ex = p["experts"]
-    rows = buf.to(dt).transpose(0, 1).reshape(E, G * C, d)
+    rows = buf.to(dt).transpose(0, 1).reshape(n, G * C, d)
     h = F.silu(torch.bmm(rows, ex["gate"].to(dt))) * torch.bmm(rows, ex["up"].to(dt))
-    out = torch.bmm(h, ex["down"].to(dt)).reshape(E, G, C, d).transpose(0, 1)  # [G, E, C, d]
+    out = torch.bmm(h, ex["down"].to(dt)).reshape(n, G, C, d).transpose(0, 1)  # [G, n, C, d]
 
-    # combine: each token's k outputs, weighted (dropped entries weigh 0)
-    gathered = out[torch.arange(G, device=x.device)[:, None], flat_e, rank.clamp(max=C - 1)]  # [G, S*k, d]
-    gathered = torch.where(keep[..., None], gathered, 0.0)
-    weight = torch.where(keep, r["w"].reshape(G, S * k), 0.0).to(dt)
+    # combine: each token's k outputs, weighted (dropped entries, and another rank's, weigh 0)
+    gathered = out[torch.arange(G, device=x.device)[:, None], local.clamp(0, n - 1), rank.clamp(max=C - 1)]
+    gathered = torch.where(mine[..., None], gathered, 0.0)
+    weight = torch.where(mine, r["w"].reshape(G, S * k), 0.0).to(dt)
     y = (gathered * weight[..., None]).reshape(G, S, k, d).sum(dim=2)
 
-    if cfg.n_shared_experts:
+    if cfg.n_shared_experts and shared:
         y = y + mlp(p["shared"], x, cfg)
 
     aux = {

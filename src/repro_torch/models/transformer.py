@@ -48,10 +48,11 @@ MoE layers route each batch row as its own group, as the reference's do.
 The reference's ``constrain_hidden`` anchor at each block boundary has no
 counterpart: each rank's rows are its own.  ``tp`` (a
 :class:`repro_torch.distributed.tensor_parallel.TensorParallel`) runs the
-attention and dense MLP blocks, the embedding and the logits on the rank's
-shards over "model" (the training forwards, the prefill and
-:func:`decode_step`, whose ``use`` then hands over the rank's stationary
-shards); without it the model is the one-process one.
+attention, dense MLP and MoE blocks (the MoE on the rank's experts), the
+Mamba2 layers (on the rank's heads), the embedding and the logits on the
+rank's shards over "model" (the training forwards, :func:`prefill_with_cache`
+and :func:`decode_step`, whose ``use`` then hands over the rank's
+stationary shards); without it the model is the one-process one.
 """
 
 from __future__ import annotations
@@ -173,8 +174,10 @@ def reference_layout(cfg: ModelConfig, params) -> list:
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=None, cross: bool = False):
-    """One layer's parameters; ``finish`` maps each expert bank of an MoE
-    layer as soon as it is drawn (:func:`moe_mod.moe_init`); ``cross`` adds
+    """One layer's parameters; ``finish`` maps an MoE layer's mixer (its
+    norm and attention or Mamba2 leaves) before the experts are drawn, and
+    each expert bank as soon as it is drawn (:func:`moe_mod.moe_init`), so
+    that a cast holds one bank at a time in ``param_dtype``; ``cross`` adds
     a cross attention and its norm (an encoder-decoder's decoder layer)."""
     p: dict[str, Any] = {"ln1": norm_init(cfg.d_model, cfg, gen.device)}
     if spec.kind == "attn":
@@ -185,6 +188,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, finish=N
         p["ln_x"] = norm_init(cfg.d_model, cfg, gen.device)
         p["xattn"] = attn.cross_attn_init(gen, cfg)
     if spec.moe:
+        if finish is not None:  # the mixer mapped before the expert banks are drawn
+            p = finish(p)
         p["ln2"] = norm_init(cfg.d_model, cfg, gen.device)
         p["moe"] = moe_mod.moe_init(gen, cfg, finish)
     elif cfg.d_ff > 0:
@@ -208,7 +213,10 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, per_row_moe: bool = False, row
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
         h = norm_apply(p["ln2"], x, cfg)
-        if per_row_moe or cfg.act_sharding is not None:
+        grouped = per_row_moe or cfg.act_sharding is not None
+        if tp is not None:
+            y, aux = tp.moe(p["moe"], h, cfg, grouped, row_sum)
+        elif grouped:
             y, aux = moe_mod.moe_apply_grouped(p["moe"], h, cfg, row_sum=row_sum)
         else:
             B, T, d = h.shape
@@ -238,6 +246,8 @@ def apply_layer_train(
             p["attn"], enter(h), c, window=spec.window, causal=causal, positions=positions,
             mrope_positions=mrope_positions, plain_attention=plain_attention,
         ))
+    elif tp is not None:
+        h = tp.mamba_train(p["mamba"], h, cfg)
     else:
         h = mamba_mod.mamba_train(p["mamba"], h, cfg)
     x = x + h
@@ -278,9 +288,17 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int
     return {"ssm": mamba_mod.init_ssm_cache(cfg, batch, device=device)}
 
 
-def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False):
-    """Full-sequence layer forward that also fills the layer's decode cache."""
-    if spec.kind == "attn":
+def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain_attention: bool = False, tp=None):
+    """Full-sequence layer forward that also fills the layer's decode cache;
+    under ``tp`` (the sharded prefill) on the rank's shards of the weights
+    and of the cache (``cache`` None: no cache written)."""
+    if tp is not None:
+        h = norm_apply(p["ln1"], x, cfg)
+        if spec.kind == "attn":
+            h = tp.attn_prefill(p["attn"], h, None if cache is None else cache["kv"], cfg, spec.window)
+        else:
+            h = tp.mamba_prefill(p["mamba"], h, None if cache is None else cache["ssm"], cfg)
+    elif spec.kind == "attn":
         h = norm_apply(p["ln1"], x, cfg)
         h, _ = attn.attn_prefill(
             p["attn"], h, cache["kv"], cfg, window=spec.window, plain_attention=plain_attention
@@ -292,7 +310,7 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *, plain
         h = torch.cat([norm_apply(p["ln1"], x[:, t : t + 1], cfg) for t in range(x.shape[1])], dim=1)
         h, _ = mamba_mod.mamba_prefill(p["mamba"], h, cache["ssm"], cfg)
     x = x + h
-    delta, _ = _ffn(p, x, cfg, spec)
+    delta, _ = _ffn(p, x, cfg, spec, tp=tp)
     return x + delta, cache
 
 
@@ -400,16 +418,19 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     }
 
 
-def prefill_with_cache(params, cfg: ModelConfig, cache, tokens, *, plain_attention: bool = False):
+def prefill_with_cache(params, cfg: ModelConfig, cache, tokens, *, plain_attention: bool = False, use=None, tp=None):
     """Fused serving prefill: one forward pass over the whole prompt fills
     every layer's decode cache (in place) and returns the last position's
     logits.  tokens [B, T].  Returns (logits [B, 1, V], cache); the next
-    :func:`decode_step` runs at ``index = T``."""
-    x = embed(params["embed"], tokens, cfg)
-    for p, spec, c in zip(params["layers"], layer_specs(cfg), cache["layers"]):
-        x, _ = apply_layer_prefill(p, x, c, cfg, spec, plain_attention=plain_attention)
-    x = norm_apply(params["final_norm"], x[:, -1:, :], cfg)
-    return unembed(params["embed"], x, cfg), cache
+    :func:`decode_step` runs at ``index = T``.  ``use`` and ``tp`` are the
+    sharded prefill's (module docstring), under which ``cache`` may be None
+    (no cache written)."""
+    use = use or _whole
+    x = _hidden_from_inputs(params, cfg, tokens, None, use, tp)
+    caches = cache["layers"] if cache is not None else [None] * len(params["layers"])
+    for p, spec, c in zip(params["layers"], layer_specs(cfg), caches):
+        x, _ = apply_layer_prefill(use(p), x, c, cfg, spec, plain_attention=plain_attention, tp=tp)
+    return _logits(params, cfg, x[:, -1:, :], use, tp), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, index, tokens, *, per_row_moe: bool = False, use=None, tp=None):

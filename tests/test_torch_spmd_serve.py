@@ -4,7 +4,8 @@ products they run (``repro_torch.distributed.tensor_parallel``) against
 ``repro``.
 
 Four gloo ranks on the CPU, spawned once for the module through
-``ranks.spawn(..., axes={"data": 2, "model": 2})``, run every case; beside
+``ranks.spawn(..., axes={"data": 2, "model": 2})``, run every case (the
+``PREFILL_CACHE`` cases also prefill into a fresh cache of their own); beside
 them, ``repro``'s ``make_spmd_prefill`` and ``make_spmd_serve_step`` run the
 same cases in a subprocess on a (2, 2) CPU mesh of four host devices, its
 axes typed ``Auto`` and each call under ``jax.set_mesh``, as
@@ -20,10 +21,10 @@ Cases: qwen1.5-4b smoke (MHA, QKV bias); qwen2.5-14b smoke (GQA 8 over 2);
 gemma3-12b smoke with a 94-token prompt and ``kv_len`` 128, so that the
 64-slot ring buffer of its windowed layer, split 32 a rank over "model",
 has wrapped and its decode slots 30, 31, 32 cross from the first rank's
-range to the second's; jamba smoke at capacity factor E (Mamba2's state and
-conv window over "model", gathered at use; the MoE layer gathered; ``repro``'s
-grouped dispatch loses a kept token where one is dropped, ROADMAP.md queue
-3); qwen2.5-14b at B 1 (the rows not split: the ranks along "data" repeat
+range to the second's; jamba smoke at capacity factor E (Mamba2 by heads
+over "model", its state split by heads; the MoE layer expert-parallel, two
+experts a rank; ``repro``'s grouped dispatch loses a kept token where one is
+dropped, ROADMAP.md queue 3); qwen2.5-14b at B 1 (the rows not split: the ranks along "data" repeat
 them); qwen2.5-14b at ``kv_len`` 49, which "model" does not divide, so
 ``cache_shardings`` splits the KV heads instead of the sequence; and
 qwen2.5-14b on a (1, 4) mesh (a second spawn, and ``repro`` on a (1, 4)
@@ -96,6 +97,10 @@ CASES = [
 ]
 #: cases on another ("data", "model") mesh than (2, 2): K = 2 KV heads at tp 4
 MESH = {"qwen2.5-tp4": (1, 4), "qwen2.5-tp4-kv-whole": (1, 4)}
+#: cases whose ranks also run the prefill into a fresh cache of their own:
+#: a windowed layer's ring buffer that wraps on a sequence split, and a
+#: cache split by KV heads
+PREFILL_CACHE = ("gemma3-ring", "qwen2.5-kv-heads")
 IDS = [c[0] for c in CASES]
 BY_ID = {c[0]: c for c in CASES}
 
@@ -226,7 +231,8 @@ def world(repro_serving):
     for cid, arch, B, T, kv_len, changes in CASES:
         params, prompt, decode, cache = _inputs(cid)
         per_mesh.setdefault(MESH.get(cid, (2, 2)), []).append((cid, dict(
-            cfg=_cfgs(arch, changes)[1], params=params, prompt=prompt, decode=decode, kv_len=kv_len, cache=cache)))
+            cfg=_cfgs(arch, changes)[1], params=params, prompt=prompt, decode=decode, kv_len=kv_len, cache=cache,
+            prefill_cache=cid in PREFILL_CACHE)))
     out = {}
     for (data, model), items in per_mesh.items():
         per_rank = ranks.spawn(rank_checks.spmd_serve_cases, 4, args=([c for _, c in items],), device="cpu",
@@ -258,10 +264,33 @@ def test_prefill_and_decode_match_repro(world, repro_serving, cid):
         _close(r0["cache"][k], v, name=k)
 
 
+@pytest.mark.parametrize("cid", PREFILL_CACHE)
+def test_the_prefill_fills_its_cache_as_repro_prefill_with_cache_does(world, cid):
+    """The cache the sharded prefill fills, gathered, equals ``repro``'s
+    ``prefill_with_cache`` of the same prompt: gemma3's windowed layer keeps
+    the last 64 of the 94 tokens in its ring buffer, split 32 slots a rank
+    (each rank's slots shifted to its range), and qwen2.5 at ``kv_len`` 49
+    writes each rank's own KV heads."""
+    got = world[cid][0]["prefill_cache"]
+    cfg = _cfgs(*BY_ID[cid][1::4])[1]
+    want = {k: v.numpy() for k, v in flatten(bridge.cache_from_repro(_inputs(cid)[3], cfg, device="cpu")).items()}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        _close(got[k], v, name=k)
+
+
 def _blocks(cfg) -> int:
-    """The attention and dense-MLP blocks of ``cfg``: one all-reduce each."""
+    """The attention, dense-MLP and MoE blocks of ``cfg``: one all-reduce
+    each (an MoE block's the routed and shared partials' one sum)."""
     specs = layer_specs(cfg)
-    return sum(s.kind == "attn" for s in specs) + sum(not s.moe and cfg.d_ff > 0 for s in specs)
+    return sum(s.kind == "attn" for s in specs) + sum(s.moe or cfg.d_ff > 0 for s in specs)
+
+
+def _mambas(cfg) -> int:
+    """The Mamba2 layers of ``cfg``: each call runs one all-gather (the
+    in_proj output, with a decode step's conv window) and two all-reduces
+    (the gated norm's sum of squares, out_proj's row product) in each."""
+    return sum(s.kind == "mamba" for s in layer_specs(cfg))
 
 
 def _decode_gathers(cfg, kv_len: int, tp: int) -> int:
@@ -270,11 +299,13 @@ def _decode_gathers(cfg, kv_len: int, tp: int) -> int:
     token's q, k and v in one buffer, then the partials and their
     log-sum-exps), none where its KV heads split, one where neither does
     (the new k and v of every head, written to every rank's whole cache);
-    two a Mamba2 layer (its state and conv window)."""
-    n = 0
+    one a Mamba2 layer (its in_proj output row and conv window)."""
+    n = _mambas(cfg)
     for s in layer_specs(cfg):
         L = min(kv_len, s.window) if s.window else kv_len
-        if s.kind == "mamba" or L % tp == 0:
+        if s.kind == "mamba":
+            continue
+        if L % tp == 0:
             n += 2
         elif cfg.num_kv_heads % tp:
             n += 1
@@ -284,12 +315,14 @@ def _decode_gathers(cfg, kv_len: int, tp: int) -> int:
 @pytest.mark.parametrize("cid", IDS)
 def test_no_rank_gathers_a_dense_leaf(world, cid):
     """No rank gathers an attention or MLP leaf, the embedding or the head
-    over "model" during a call (only the Mamba2 and MoE leaves), but for
-    ``wk`` and ``wv`` where a rank's shard of them is part of a head (the tp
-    4 cases); every call runs one all-reduce per attention and dense-MLP
-    block and one for the embedding, and one all-gather for the logits; a
-    decode step the all-gathers of :func:`_decode_gathers`; every rank
-    agrees on the counts, and the CPU launched no K1."""
+    over "model" during a call, but for ``wk`` and ``wv`` where a rank's
+    shard of them is part of a head (the tp 4 cases); of the MoE and Mamba2
+    layers only the router and ``conv_w`` (no expert bank, shared-expert
+    leaf, ``in_proj``, ``out_proj`` or SSM state); every call runs one
+    all-reduce per attention, dense-MLP and MoE block, one for the embedding
+    and two per Mamba2 layer, and one all-gather for the logits and one per
+    Mamba2 layer; a decode step the all-gathers of :func:`_decode_gathers`;
+    every rank agrees on the counts, and the CPU launched no K1."""
     cfg = _cfgs(*BY_ID[cid][1::4])[1]
     kv_len = BY_ID[cid][4]
     tp = MESH.get(cid, (2, 2))[1]
@@ -300,13 +333,15 @@ def test_no_rank_gathers_a_dense_leaf(world, cid):
             assert dense_leaves and {p.split("/")[3] for p in dense_leaves} == {"wk", "wv"}, dense_leaves
         else:
             assert not dense_leaves, dense_leaves
-        assert all(c["all_reduce"] == 1 + _blocks(cfg) for c in r["counts"])
-        assert r["counts"][0]["all_gather"] == 1
+        others = {"/".join(p.split("/")[2:]) for p in r["gathered"] if p not in dense_leaves}
+        assert others <= {"moe/router/w", "mamba/conv_w"}, others
+        assert all(c["all_reduce"] == 1 + _blocks(cfg) + 2 * _mambas(cfg) for c in r["counts"])
+        assert r["counts"][0]["all_gather"] == 1 + _mambas(cfg)
         assert all(c["all_gather"] == 1 + _decode_gathers(cfg, kv_len, tp) for c in r["counts"][1:])
         assert r["k1"] == 0
     assert len({json.dumps(r["counts"], sort_keys=True) for r in per_rank}) == 1
     if cfg.family == "hybrid":
-        assert any("mamba" in p for p in per_rank[0]["gathered"])
+        assert {"/".join(p.split("/")[2:]) for p in per_rank[0]["gathered"]} == {"moe/router/w", "mamba/conv_w"}
 
 
 def test_rows_and_cache_split_as_repro_lays_them_out(world):
