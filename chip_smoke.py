@@ -51,7 +51,7 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 micro-batch through K2 and through the plain SSD agree (the
                 gradient gap under 2e-2 and under 1.5 x that of K2's sound
                 peer, the plain SSD forward in TF32; a planted fault fails)
-6. serve        GPT-2.7B at full width and depth (32 layers) served through
+6. serve        GPT-2.7B at full width cut to GPT_LAYERS = 8 served through
                 ``repro_torch.launch.serve_decode``: 16 requests over 8 slots
                 on an M=4 x b=2 grid (repro's static 1F1B baseline, admissions
                 on its simulated prices); every request completes, no NaN,
@@ -76,13 +76,14 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 the engines are dropped: torch.cuda.memory_allocated must
                 fall before any garbage collection (no reference cycle
                 keeps an engine's weights)
-6b. serve-ssm   mamba2-780m at full width and depth (48 layers) through
+6b. serve-ssm   mamba2-780m at full width cut to SERVE_SSM_LAYERS = 16 through
                 ``serve_decode`` (8 slots,
                 M=4, 8 requests, prompts 16-32, 16-32 new tokens, max_len
                 64): every request completes, no non-finite logit, K2 never
                 runs (SSM serving is the recurrence); one request's fused
                 prefill bitwise equal, logits and state, to stepping
-                mamba_decode over its prompt on the card; a traced tick
+                mamba_decode over its prompt on the card, and a traced
+                tick, both at all 48 layers
 6c. serve-dense
                 qwen1.5-4b, qwen2.5-14b, internlm2-20b and gemma3-12b at
                 full width cut to 12 layers each, one
@@ -213,7 +214,16 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 S * L/S * 4 programs * (warmup + repeats) times in the
                 wall-clock run.  Spec and wall-clock ms per program with the
                 spread of the timed runs, the warmup vectors and the
-                tuner's choice on both costs are printed
+                tuner's choice on both costs are printed.  Then
+                jamba-v0.1-52b (CALIBRATE_JAMBA: full width cut to its
+                first 8-layer period and 4 of 16 experts, one stage, b 1 x
+                T 2048) the same way, K1 in its attention layer and K2 in
+                its 7 Mamba2 layers: counts and seconds finite and
+                positive, bwd_weight_saved < bwd_weight, each program
+                counted through K1 and K2 on the card equal to its count on
+                meta (plus the plain attention a backward recomputes), K1
+                and K2 launched 4 programs * (warmup + repeats) times per
+                attention and Mamba2 layer
 11. adaptive    Ada-Grouper's plan-switch loop: GPT-2.7B at full width cut
                 to GPT_LAYERS = 8 trained through
                 ``repro_torch.launch.train_adaptive``'s
@@ -358,7 +368,14 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 and every card count, every leaf's shard on every rank
                 changed by the steps and every leaf got a gradient
                 (AdamW's m; the smallest relative change logged).
-                ``--only spmd-jamba`` runs jamba alone
+                ``--only spmd-jamba`` runs jamba alone.  Every rank's
+                group is a CollectiveRecorder: the collectives of its first
+                step (kind, axes, group size, shape, dtype, dim, in order)
+                and its argument bytes must equal those of its dry run
+                (launch/dryrun.py: the same step at its coordinate on fake
+                tensors, a DryGroup), whose peak bytes and collective
+                seconds (specs/h100-sxm.json) are logged beside the
+                measured peak and collective spans
 19. spmd-serve  repro's sharded prefill and decode step (make_spmd_prefill,
                 make_spmd_serve_step) on qwen2.5-14b at full width, four
                 ranks on the (2, 2) mesh, the weights stationary (each
@@ -391,7 +408,14 @@ Phases, in order (any failure exits non-zero, and no result line is printed):
                 prefill's recurrence too: K2 never); gates as above, and
                 each call's collectives over "model" (_tp_counts), only the
                 router and conv_w gathered over "model", each column routed
-                alike; per rank the draw's peak above its weights
+                alike; per rank the draw's peak above its weights.  Every
+                call's recorded collectives and argument bytes equal its
+                dry run's (one dry run a kind of call: the prefill, the
+                prefill filling a cache, the decode step at b 4 and b 1;
+                the four-card jamba prefill's at the prompt's first
+                dry_seq tokens, held entry for entry on a prefill of those
+                tokens and in all but the shapes on each 2048-token call),
+                the predicted peak and collective seconds logged
 
 Every rank is a fresh process whose kernel counters start at 0; it reads
 them after its run and returns them.
@@ -413,6 +437,7 @@ from __future__ import annotations
 import argparse
 from concurrent.futures import ThreadPoolExecutor
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -519,6 +544,8 @@ FLASH_CASES = [
     ("kimi-k2_train_t2048", 1, 2048, 2048, 64, 8, 112, torch.bfloat16, True, None),
     ("fp32_hd112", 1, 200, 200, 8, 1, 112, torch.float32, True, None),
     ("jamba_gqa_t512", 1, 512, 512, 32, 8, 128, torch.bfloat16, True, None),
+    # jamba's attention layer in the calibrate phase: b 1 x T 2048
+    ("jamba_gqa_t2048", 1, 2048, 2048, 32, 8, 128, torch.bfloat16, True, None),
     # the encoder-decoder and VLM archs at their train-encdec-vlm shapes:
     # seamless-m4t-medium's bidirectional encoder (128 frames), causal
     # decoder and cross attention (1024 queries over 128 frames, not
@@ -567,12 +594,13 @@ PATH_CASES = {
     "model-encdec-vlm": "seamless_cross_b4_t1024_s128", "train-encdec-vlm": "qwen2-vl_gqa6_b2_t2048",
     "spmd": "qwen2.5-14b_spmd_t2048", "spmd-serve": "qwen2.5-14b_tp_b2_t32768",
     "spmd-jamba": "jamba_tp_b2_t2048", "spmd-serve-jamba": "jamba_tp_b2_t2048",
+    "calibrate-jamba": "jamba_gqa_t2048",
 }
 #: the shapes K1 is timed at, each beside SDPA and its bound
 TIMED_FLASH = (
     "gpt2.7b_t16", "gpt2.7b_t128", "gpt2.7b_t333", "gpt2.7b_t512", "gpt2.7b_train_t1024", "gpt2.7b_train_b2_t1024",
     "gemma3-12b_local_t1536", "gemma3-12b_global_t1536", "gemma3-12b_train_t2048", "qwen2.5-14b_gqa_b2_t512",
-    "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512",
+    "fp32_hd256", "kimi-k2_gqa_t512", "kimi-k2_train_t2048", "fp32_hd112", "jamba_gqa_t512", "jamba_gqa_t2048",
     "seamless_enc_b4_t128", "seamless_dec_b4_t1024", "seamless_cross_b4_t1024_s128", "qwen2-vl_gqa6_b2_t2048",
     "qwen2.5-14b_spmd_t2048", "qwen2.5-14b_tp_b2_t32768", "jamba_tp_b2_t2048",
 )
@@ -621,8 +649,10 @@ SSD_KERNEL_CASES = [
 ]
 SSD_TIMED_CASE = "mamba2-780m_train"
 #: K2's shape on each main path: mamba2-780m's train phase, jamba's
-#: train-moe, a rank's heads in jamba's sharded step
-SSD_PATH_CASES = {"train": SSD_TIMED_CASE, "train-moe": "jamba_train", "spmd-jamba": "jamba_tp_b2_t2048"}
+#: train-moe and calibrate (one micro-batch of b 1 x T 2048), a rank's heads
+#: in jamba's sharded step
+SSD_PATH_CASES = {"train": SSD_TIMED_CASE, "train-moe": "jamba_train", "spmd-jamba": "jamba_tp_b2_t2048",
+                  "calibrate-jamba": "jamba_train"}
 #: train-model check, K2 vs plain SSD, 2 bf16 layers at full width.  The
 #: SSD outputs differ by one bf16 ulp in some elements (see SSD_REL_TOL; on
 #: the mma route in more of them); that perturbs everything downstream by a
@@ -682,12 +712,24 @@ CALIBRATE_ARGS = dict(config="GPT-2.7B", S=4, b_mb=2, seq=1024)
 CALIBRATE_METHODS = ("spec", "wallclock")
 #: calibrate check, each stage's fwd FLOPs against the closed form (relative)
 CALIBRATE_FLOPS_TOL = 1e-9
+#: the calibrate phase's hybrid: jamba-v0.1-52b at full width cut to its
+#: first 8-layer period and 4 of its 16 experts (train-moe's cut), one stage
+#: (a stage must tile the 8-layer pattern: S = 4 needs all 32 layers, ~80 GB
+#: of fp32 parameters at 4 experts), b 1 x T 2048; K1 in its attention layer,
+#: K2 in its 7 Mamba2 layers
+CALIBRATE_JAMBA = dict(arch="jamba-v0.1-52b", layers=8, experts=4, S=1, b_mb=1, seq=2048)
 #: the serve-adaptive phase: launch/serve_adaptive's comparison (repro's
 #: Fig-10 serving world, seed 0, ticks priced on specs/h100-sxm.json) with
 #: GPT-2.7B (full width, GPT_LAYERS) behind each run (its ENGINE_ARGS: 4 stages, 8
 #: slots, max_len 80; 16-token prompts, 16-48 new tokens)
 SERVE_ADAPTIVE_ARGS = dict(max_requests=24, regime="fig10", seed=0, device_spec="h100-sxm")
-#: the serve-ssm phase: mamba2-780m at full width and depth through
+#: the serve-ssm phase's depth: mamba2-780m's serving loop at 16 of its 48
+#: layers, full width; its fused-prefill check and traced tick at all 48.
+#: With serve at GPT_LAYERS this pays for the calibrate phase's jamba and
+#: the dry-run checks: every phase at full serve depth took 1062.8 s on
+#: Intel model 143 (PERF.md, section 4)
+SERVE_SSM_LAYERS = 16
+#: the serve-ssm phase: mamba2-780m at full width through
 #: serve_decode; its prompts 16-32 tokens, since SSM serving prefills a token
 #: at a time (~1.25 ms a token a layer)
 SERVE_SSM_ARGS = {
@@ -987,8 +1029,14 @@ SPMD_JAMBA_FOUR = dict(layers=8, experts=None, batch=8, seq=2048, M=2, steps=3, 
     dict(strategy="tp_fsdp", remat_blocks=True),))
 SPMD_SERVE_JAMBA_CHECK = dict(layers=2, experts=4, batch=4, seq=512, kv_len=520, steps=4, prefills=1,
                               from_prefill=True)
+#: its deployment's prefill is dry-run at the prompt's first dry_seq tokens:
+#: on fake tensors the recurrence costs ~10-16 ms of host time a token a
+#: Mamba2 layer (~15 min for 2048 tokens x 28 layers).  A prefill of those
+#: tokens on the cards (the same program) is held to that dry run entry for
+#: entry; each 2048-token call's list to it in all but the shapes (the
+#: collectives a layer issues do not depend on T: the recurrence issues none)
 SPMD_SERVE_JAMBA_FOUR = dict(layers=None, experts=None, batch=4, seq=2048, prefills=3, decode_batch=16,
-                             kv_len=32768, steps=8, start=32768 - 16)
+                             kv_len=32768, steps=8, start=32768 - 16, dry_seq=128)
 #: each arch's plans: {four cards: (spmd, spmd-serve check, spmd-serve deployment)}
 SPMD_PLANS = {
     SPMD_ARCH: {False: (SPMD_ONE, SPMD_SERVE_CHECK, None), True: (SPMD_FOUR, SPMD_SERVE_CHECK, SPMD_SERVE_FOUR)},
@@ -1798,7 +1846,7 @@ def phase_serve() -> int:
         "--max-len", "576", "--seed", "0", "--device", "cuda",
     ]
     ops.launches = 0
-    s = _serve(argv, None)  # all 32 layers
+    s = _serve(argv, GPT_LAYERS)
     launches = ops.launches
     log(f"serve GPT-2.7B ({s['num_layers']} layers, d_model {s['d_model']}): "
         f"{s['requests_completed']}/{s['requests']} requests, {s['tokens']} tokens, "
@@ -1929,7 +1977,7 @@ def phase_serve_ssm() -> None:
     for k, v in SERVE_SSM_ARGS.items():
         argv += [f"--{k}", *map(str, v if isinstance(v, tuple) else (v,))]
     ssd_ops.launches = 0
-    s = _serve(argv, None)  # all 48 layers
+    s = _serve(argv, SERVE_SSM_LAYERS)
     k2 = ssd_ops.launches
     log(f"serve-ssm {s['config']} ({s['num_layers']} layers, d_model {s['d_model']}), {s['slots']} slots on "
         f"{s['grid']}: {s['requests_completed']}/{s['requests']} requests, {s['tokens']:.0f} tokens, prefill p50 "
@@ -2627,6 +2675,87 @@ def phase_calibrate() -> int:
     want = S * len(TASK_PROGRAMS) * L * (calib.WARMUP + calib.REPEATS)
     if launches != want:
         raise AssertionError(f"K1 ran {launches} times in the wall-clock calibration, the programs imply {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gpt": launches, "jamba": _calibrate_jamba()}
+
+
+def _calibrate_jamba() -> dict:
+    """The calibrate phase's hybrid (CALIBRATE_JAMBA): priced on the spec,
+    then timed on the card through K1 and K2; its K1 and K2 launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import WorkloadProfile
+    from repro_torch.core import calibrate as calib
+    from repro_torch.core.devicespec import TASK_PROGRAMS
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun_pipeline
+    from repro_torch.models.common import layer_specs, param_count
+    from repro_torch.pipeline.stage import StagedModel
+
+    c = CALIBRATE_JAMBA
+    name, S, b, T = c["arch"], c["S"], c["b_mb"], c["seq"]
+    cfg = get_arch(name).model.replace(num_layers=c["layers"], num_experts=c["experts"])
+    staged = StagedModel.build(cfg, S)
+    n_attn = sum(sp.kind == "attn" for sp in layer_specs(cfg)) // S
+    n_ssm = cfg.num_layers // S - n_attn
+    out = os.path.join(ROOT, "build", "calibrate-jamba")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec, launches = {}, None
+    for method in CALIBRATE_METHODS:
+        ops.launches = ssd_ops.launches = 0
+        rec[method] = dryrun_pipeline.calibrate(name, S, b, T, os.path.join(out, method), method=method,
+                                                device="cuda", model=cfg)
+        if method == "wallclock":
+            launches = {"flash": ops.launches, "ssd": ssd_ops.launches}
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {m: WorkloadProfile.from_json(r["workload"]).counts for m, r in rec.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each program counted as it runs through K1 and K2 on the card
+    card = [calib.count_programs(staged, s, b, T, device="cuda") for s in range(S)]
+    torch.cuda.empty_cache()
+    hd = cfg.d_model // cfg.num_heads
+    recompute = n_attn * flash_ref.train_attention_flops(b, T, T, cfg.num_heads, hd)
+    log(f"calibrate {name} cut to {cfg.num_layers} layers and {cfg.num_experts} experts ({param_count(cfg):,} "
+        f"parameters, full width; S={S}, {n_attn} attention and {n_ssm} Mamba2 layers a stage, b={b} x T={T}): "
+        f"{seconds:.1f} s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    log("  stage program           GFLOP    HBM GB  spec ms  wall ms  wall/spec  spread %  card GFLOP")
+    for s in range(S):
+        for p in TASK_PROGRAMS:
+            cnt = counts["spec"][s][p]
+            spec_ms, wall_ms = 1e3 * rec["spec"][f"{p}_time"][s], 1e3 * rec["wallclock"][f"{p}_time"][s]
+            runs = rec["wallclock"]["repeat_seconds"][p][s]
+            spread = 100 * (max(runs) - min(runs)) / (sum(runs) / len(runs))
+            log(f"  {s:5d} {p:16s} {cnt.flops / 1e9:9.3f} {cnt.hbm_bytes / 1e9:9.3f} {spec_ms:8.3f} {wall_ms:8.3f} "
+                f"{wall_ms / spec_ms:10.2f} {spread:9.2f} {card[s][p].flops / 1e9:11.3f}")
+    log(f"  the tuner on the spec's costs: {rec['spec']['tuned']['chosen']['name']}")
+    log(f"flash and ssd launches on the calibrate path (jamba, the wall-clock run): {launches}")
+    for m in CALIBRATE_METHODS:
+        r = rec[m]
+        for s in range(S):
+            for p in TASK_PROGRAMS:
+                cnt, t = counts[m][s][p], r[f"{p}_time"][s]
+                if not all(math.isfinite(x) and x > 0 for x in (cnt.flops, cnt.hbm_bytes, t)):
+                    raise AssertionError(f"jamba {m}: stage {s} {p} has a count or time that is not finite and "
+                                         "positive")
+            if not r["bwd_weight_saved_time"][s] < r["bwd_weight_time"][s]:
+                raise AssertionError(f"jamba {m}: stage {s} bwd_weight_saved is not below bwd_weight")
+    for s in range(S):
+        for p in TASK_PROGRAMS:
+            got, cnt = card[s][p], counts["spec"][s][p]
+            extra = 0 if p == "fwd" else recompute
+            if got.flops != cnt.flops + extra or got.hbm_bytes != cnt.hbm_bytes:
+                raise AssertionError(f"jamba stage {s} {p}: {got} through K1 and K2 on the card, {cnt} on meta "
+                                     f"(+ {extra} FLOPs of recomputed attention)")
+    # each program runs the stage forward once a run (W(SR) in its untimed B)
+    runs = S * len(TASK_PROGRAMS) * (calib.WARMUP + calib.REPEATS)
+    want = {"flash": runs * n_attn, "ssd": runs * n_ssm}
+    if launches != want:
+        raise AssertionError(f"jamba's wall-clock calibration launched {launches}, the programs imply {want}")
     return launches
 
 
@@ -3512,11 +3641,14 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
     from repro_torch.distributed.spmd import make_spmd_train_step
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.dryrun import argument_bytes, dry_train
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.profiling import device_profile
     from repro_torch.optim import constant_schedule, make_optimizer
     from repro_torch.tree import flatten
 
+    group = CollectiveRecorder(group)  # every collective logged, for the dry run's list
     mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"], group)
     dev = group.device
     batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
@@ -3551,12 +3683,16 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
         group.barrier()
         group.take_seconds()
         n0, k0 = ops.launches, ssd_ops.launches
+        rec["argument_bytes"] = argument_bytes(state, batches[0])
         for i in range(plan["steps"]):
             group.barrier()
+            group.take_log()
             t = time.perf_counter()
             with group.span("step"):
                 state, m = step(state, batches[i])
             synchronize(dev)
+            if i == 0:
+                rec["collectives"] = _log_entries(group.take_log())
             rec["step_ms"].append(1e3 * (time.perf_counter() - t))
             rec["losses"].append(float(m["loss"]))
             rec["grad_norms"].append(float(m["grad_norm"]))
@@ -3593,8 +3729,48 @@ def _spmd_rank(group, cfg, plan, batches) -> list:
             if plan["digests"]:  # one card: the first step's routing itself, to set beside the reference's
                 rec["route_tensors"] = [(i.cpu().numpy(), k.cpu().numpy()) for i, k in step.tp.routes]
         del state, step
+        # the dry run of the first step at this rank's coordinate (fake
+        # tensors on the host): its collectives, arguments and peak
+        rec["dry"] = _dry_record(dry_train(run_cfg, _dry_mesh_of(group), batches[0], _spmd_optimizer(plan),
+                                           num_microbatches=plan["M"], **kw))
         out.append(rec)
     return out
+
+
+def _log_entries(log) -> list:
+    """A collective log as plain tuples (picklable, comparable)."""
+    return [tuple(dataclasses.astuple(e)) for e in log]
+
+
+def _dry_mesh_of(group):
+    from repro_torch.launch.dryrun import dry_mesh
+
+    return dry_mesh(dict(group.axes), dict(group.coords))
+
+
+def _dry_record(dry) -> dict:
+    """A dry run's collectives, argument and peak bytes, and its roofline's
+    collective seconds on specs/h100-sxm.json."""
+    from repro_torch.launch.hlo_analysis import roofline_terms
+
+    a = dry.analysis
+    return {"collectives": _log_entries(dry.log), "argument_bytes": dry.argument_bytes, "peak_bytes": dry.peak_bytes,
+            "collective_s": roofline_terms(a.flops, a.hbm_bytes, a.wire_bytes)["collective_s"],
+            "wire_bytes": a.wire_bytes, "seconds": dry.seconds}
+
+
+def _gate_dry(name: str, real: list, real_args: int, dry: dict, shapes: bool = True) -> None:
+    """The dry run's collective list and argument bytes against a rank's
+    recorded ones (without ``shapes``, each entry but its shape)."""
+    want = dry["collectives"]
+    if not shapes:
+        real, want = ([e[:3] + e[4:] for e in log] for log in (real, want))
+    if real != want:
+        first = next((i for i, (a, b) in enumerate(zip(real, want)) if a != b), min(len(real), len(want)))
+        raise AssertionError(f"{name}: {len(real)} recorded collectives, {len(want)} dry; the first "
+                             f"that differs, #{first}: {real[first:first + 1]} vs {want[first:first + 1]}")
+    if real_args != dry["argument_bytes"]:
+        raise AssertionError(f"{name}: argument bytes {real_args}, dry run {dry['argument_bytes']}")
 
 
 def _leaf_moves(before: dict, state) -> dict:
@@ -4018,6 +4194,16 @@ def _spmd_check(item: dict, per_rank: list, four: bool) -> dict:
                 f"draw's peak {r['init_peak_over_state'] / 2**30:.2f} GiB above the state); K1 {r['flash_launches']} "
                 f"(want {want_k1}), K2 {r['ssd_launches']} (want {want_k2}); shards "
                 f"{'as the rules say' if r['shapes_ok'] else 'WRONG'}")
+        for r in recs:
+            comm = sum(r["spans"][0].get(k, 0.0) for k in ("gather", "reduce_scatter", "reduce", "staging"))
+            d = r["dry"]
+            log(f"  rank {r['rank']} against its dry run ({d['seconds']:.1f} s on the host): {len(r['collectives'])} "
+                f"collectives recorded in step 0, the dry run's {len(d['collectives'])}; argument bytes "
+                f"{r['argument_bytes']:,} (dry {d['argument_bytes']:,}); peak predicted {d['peak_bytes'] / 2**30:.2f} "
+                f"GiB, max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB; collective_s predicted "
+                f"{1e3 * d['collective_s']:.2f} ms ({d['wire_bytes'] / 1e6:.1f} MB on the wire at the spec's link "
+                f"rate), measured collective spans of step 0 {1e3 * comm:.1f} ms")
+            _gate_dry(f"spmd {name} rank {r['rank']}", r["collectives"], r["argument_bytes"], d)
         if "counts" in r0:
             # per-layer remat recomputes a layer only as far as its saved
             # tensors need (non-reentrant checkpoints stop early): between none
@@ -4166,20 +4352,26 @@ def _spmd_serve_rank(group, cfg, plan, inputs, full) -> dict:
     from repro_torch.distributed.spmd import make_spmd_prefill, make_spmd_serve_step
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.dryrun import argument_bytes, dry_decode, dry_prefill
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import make_local_mesh
 
+    group = CollectiveRecorder(group)  # every collective logged, for the dry run's list
     mesh = make_local_mesh(SPMD_MESH["data"], SPMD_MESH["model"], group)
     dev = group.device
     out = {"rank": group.rank, "transport": group.transport}
 
-    def call(rec, what, fn, tp, keep_logits):
+    def call(rec, what, fn, tp, keep_logits, dry_key, args):
         tp.counts.clear()
+        group.take_log()
         logits, ms, spans = _spmd_serve_call(group, fn, dev)
         rec["calls"].append({"what": what, "ms": ms, "spans": spans, "counts": dict(tp.counts),
                              # numpy: a returned tensor is shared through a file
                              # descriptor that the rank, once it exits, closes
                              "logits": logits.float().cpu().numpy() if keep_logits else None,
-                             "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits)})
+                             "finite": bool(torch.isfinite(logits).all()), "digest": _digest(logits),
+                             "collectives": _log_entries(group.take_log()), "dry_key": dry_key,
+                             "argument_bytes": argument_bytes(*args)})
 
     def serve(cfg, plan, prompt, decodes, keep_logits):
         """The prefills, then each (tokens, cache, first index) decode run
@@ -4197,25 +4389,47 @@ def _spmd_serve_rank(group, cfg, plan, inputs, full) -> dict:
         for i in range(plan["prefills"]):
             if plan.get("from_prefill") and i == plan["prefills"] - 1:
                 filled = prefill.init_cache()
-            call(rec, "prefill", lambda: prefill(params, {"tokens": prompt}, filled), prefill.tp, keep_logits)
+            call(rec, "prefill", lambda: prefill(params, {"tokens": prompt}, filled), prefill.tp, keep_logits,
+                 ("prefill", filled is not None), (params, {"tokens": prompt}, filled))
         rec["k1"] = ops.launches - n0
         gathered, routes = set(prefill.tp.gathered), list(prefill.tp.routes)
+        short = plan.get("dry_seq")
+        if short:  # the prompt's first tokens through the same program, for the dry run
+            sp = {"tokens": prompt[:, :short].contiguous()}
+            sprefill, _ = make_spmd_prefill(cfg, mesh, sp, kv_len=plan["kv_len"])
+            held = {"calls": []}
+            call(held, f"prefill T{short}", lambda: sprefill(params, sp, None), sprefill.tp, False,
+                 ("prefill", False), (params, sp, None))
+            rec["short"] = held["calls"][0]
+            del sprefill
+        dry = {}
         for tokens, make_cache, start in decodes:
             step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": tokens[0]}, plan["kv_len"])
             step.tp.keep_routes = True
             cache = filled if make_cache is None else make_cache(step)
             for i, tok in enumerate(tokens):
                 call(rec, f"decode b{tok.shape[0]}", lambda: step(params, cache, start + i, {"tokens": tok})[0],
-                     step.tp, keep_logits)
+                     step.tp, keep_logits, ("decode", tok.shape[0]), (params, cache, {"tokens": tok}))
             gathered |= step.tp.gathered
             routes += step.tp.routes
             rec["cache_gib"] = sum(t.numel() * t.element_size() for t in _leaves(cache)) / 2**30
+            dry["decode", tokens[0].shape[0]] = (tokens[0], start)
             del cache, step
         filled = None
         rec["gathered"], rec["routes"] = sorted(gathered), _route_digest(routes)
         rec["k2"] = ssd_ops.launches - k0  # the prefill steps the recurrence; decode too
         rec["peak"] = torch.cuda.max_memory_allocated(dev)
         del params
+        # each kind of call dry-run at this rank's coordinate (fake tensors on the host)
+        rec["dry"] = {}
+        for key in dict.fromkeys(c["dry_key"] for c in rec["calls"]):
+            if key[0] == "prefill":
+                d = dry_prefill(cfg, _dry_mesh_of(group), {"tokens": prompt[:, :short] if short else prompt},
+                                kv_len=plan["kv_len"] if key[1] else None)
+            else:
+                tok, start = dry[key]
+                d = dry_decode(cfg, _dry_mesh_of(group), {"tokens": tok}, plan["kv_len"], index=start)
+            rec["dry"][key] = _dry_record(d)
         return rec
 
     dec = inputs["decode"]
@@ -4367,6 +4581,27 @@ def _spmd_serve_check(item: dict, per_rank: list, four: bool) -> int:
             if run == "full" and cfg.num_experts and rec["draw_peak_gib"] * 2**30 > bank * SPMD_DRAW_SLACK:
                 raise AssertionError(f"spmd-serve {run}: rank {r['rank']}'s draw peaked {rec['draw_peak_gib']:.2f} "
                                      f"GiB above its weights, over one fp32 expert bank ({bank / 2**30:.2f} GiB)")
+            short = plan.get("dry_seq")
+            if short:
+                _gate_dry(f"spmd-serve {run} rank {r['rank']} {rec['short']['what']}", rec["short"]["collectives"],
+                          rec["short"]["argument_bytes"], rec["dry"]["prefill", False])
+            for i, c in enumerate(rec["calls"]):
+                if c["dry_key"] in rec["dry"]:
+                    cut = short and c["dry_key"][0] == "prefill"  # held to the dry run of its first tokens
+                    _gate_dry(f"spmd-serve {run} rank {r['rank']} {c['what']} #{i}", c["collectives"],
+                              c["argument_bytes"] - (plan["batch"] * (plan["seq"] - short) * 8 if cut else 0),
+                              rec["dry"][c["dry_key"]], shapes=not cut)
+            for key, d in rec["dry"].items():
+                spans = [c["spans"] for c in rec["calls"] if c["dry_key"] == key][-1]
+                comm = sum(spans.get(k, 0.0) for k in ("gather", "reduce_scatter", "reduce", "staging"))
+                at = f" at T {short} (each T {plan['seq']} call's but for shapes)" if short and key[0] == "prefill" else ""
+                log(f"  {run} rank {r['rank']} {key[0]}{' b%d' % key[1] if key[0] == 'decode' else ''}"
+                    f"{' (filling a cache)' if key == ('prefill', True) else ''}: the dry run's "
+                    f"{len(d['collectives'])} collectives equal the recorded ones{at} ({d['seconds']:.1f} s on the "
+                    f"host); argument bytes {d['argument_bytes']:,}; collective_s predicted "
+                    f"{1e3 * d['collective_s']:.3f} ms, measured spans of the last call {1e3 * comm:.1f} ms; peak "
+                    f"predicted {d['peak_bytes'] / 2**30:.2f} GiB")
+            log(f"  {run} rank {r['rank']}: max_memory_allocated {rec['peak'] / 2**30:.2f} GiB over the run")
             for i, c in enumerate(rec["calls"]):
                 what = "decode" if c["what"].startswith("decode") else "prefill"
                 filled = what == "prefill" and plan.get("from_prefill") and i == plan["prefills"] - 1
@@ -4493,7 +4728,9 @@ def main(argv=None) -> int:
         elif name == "calibrate":
             launches = phase_calibrate()
             if kernels:
-                kernels["flash"]["per_path"]["calibrate"]["launches"] = launches
+                kernels["flash"]["per_path"]["calibrate"]["launches"] = launches["gpt"]
+                kernels["flash"]["per_path"]["calibrate-jamba"]["launches"] = launches["jamba"]["flash"]
+                kernels["ssd"]["per_path"]["calibrate-jamba"]["launches"] = launches["jamba"]["ssd"]
         elif name == "adaptive":
             launches, adaptive_first_loss = phase_adaptive()
             if kernels:

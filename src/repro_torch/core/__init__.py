@@ -8,8 +8,8 @@
 
 Device specs (``devicespec.py``) are exported here.  Calibration runs the
 engines' task bodies, so it imports torch and the pipeline: import it from
-``repro_torch.core.calibrate``.  Not copied yet: the ASCII renderer
-(``viz.py``).
+``repro_torch.core.calibrate``.  The ASCII renderer is
+``repro_torch.core.viz`` (``render_tick_table``, ``render_sim_timeline``).
 """
 
 from repro_torch.core.candidates import (

@@ -22,10 +22,11 @@ edges.  The port's pipeline engine walks that grid.
 Kept from the original: the order builders the registry uses, ``make_plan``
 (with the ``DeprecationWarning`` for the legacy family kwargs),
 ``assign_slots``, ``peak_live_activations``, ``lower_to_table``,
-``tick_table`` and the plan's ``spec`` view.  Left out, as nothing in the
-port calls them: the legacy kind-set views (``PLAN_KINDS`` and its
-siblings; the registry answers those questions), the ZB-H1 and 1F1B/GPipe
-order wrappers and the tables' statistics helpers.
+``tick_table``, ``tick_table_stats`` (the engine dry run's tick count and
+bubble) and the plan's ``spec`` view.  Left out, as nothing in the port
+calls them: the legacy kind-set views (``PLAN_KINDS`` and its siblings; the
+registry answers those questions), the ZB-H1 and 1F1B/GPipe order wrappers
+and the other tables' statistics helpers.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ __all__ = [
     "assign_slots",
     "peak_live_activations",
     "tick_table",
+    "tick_table_stats",
 ]
 
 #: per-stage BWD_WEIGHT policies of split-backward kinds (the original keeps
@@ -1017,3 +1019,14 @@ def tick_table(plan: SchedulePlan) -> np.ndarray:
     Kept for callers that predate :class:`TabularPlan` (chunk is dropped —
     only meaningful for non-interleaved plans)."""
     return plan.lower().grid[:, :, [0, 1, 3]]
+
+
+def tick_table_stats(table: np.ndarray) -> dict[str, float]:
+    """Bubble fraction & length of a tick table (unit-cost reference)."""
+    S, T, _ = table.shape
+    busy = int((table[:, :, 0] != int(Op.IDLE)).sum())
+    return {
+        "ticks": float(T),
+        "busy": float(busy),
+        "bubble_fraction": 1.0 - busy / float(S * T),
+    }

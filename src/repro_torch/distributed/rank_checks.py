@@ -19,21 +19,35 @@ arrays by key, the global batch), ``optimizer`` (``"adamw"`` or
 ``gather_params_once`` and ``remat_blocks``, and ``params`` (``repro``'s flat stacked parameters as
 numpy) or ``seed`` (drawn on the ranks by the step's ``init_state``).  Each
 result also carries every rank's matmul FLOPs in its first step
-(``torch.utils.flop_counter``).
+(``torch.utils.flop_counter``).  With ``record`` (a case key) the rank's
+group is wrapped in a :class:`~repro_torch.launch.hlo_analysis.CollectiveRecorder`
+and the result carries the collectives of the first step (``collectives``,
+each entry a tuple) and the bytes of the step's arguments
+(``argument_bytes``: the rank's state and the global batch), what
+:mod:`repro_torch.launch.dryrun` predicts for the rank.
 
 :func:`spmd_serve_cases` runs the sharded prefill and decode step: a case
 is a dict of ``cfg``, ``params`` (``repro``'s, as above), ``prompt`` [B, T]
 tokens, ``cache`` (``repro``'s flat decode cache after its
-``prefill_with_cache`` of the prompt), ``kv_len`` and ``decode`` [steps,
+``prefill_with_cache`` of the prompt; or, without ``params``, ``seed``:
+the weights drawn on the ranks and an empty cache), ``kv_len`` and ``decode`` [steps,
 B, 1] tokens, stepped from index T, and optionally ``prefill_cache`` (the
 prefill run once more, filling a fresh cache, returned gathered).  Rank 0
 returns the prefill's and each step's logits and the cache gathered after
 the steps (the port's flat layout); every rank returns its counts of
 collectives per call, the leaves it gathered over "model" and each MoE
-call's routing (``idx``, ``keep``).
+call's routing (``idx``, ``keep``); with ``record``, the recorded
+collectives of the prefill and of each step, and each call's argument bytes.
+
+:func:`dry_vs_recorded` runs both lists recorded, then each case's dry run
+(:mod:`repro_torch.launch.dryrun`) at the rank's coordinate, for the two to
+be held equal; :func:`stateless_runtime` runs a stateless spmd
+:class:`~repro_torch.runtime.executor.PlanRuntime` on the rank.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,13 +62,23 @@ from repro_torch.distributed.spmd import (
     state_specs_for,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch.dryrun import argument_bytes, dry_decode, dry_mesh, dry_prefill, dry_train
+from repro_torch.launch.hlo_analysis import CollectiveRecorder
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.transformer import reference_layout
 from repro_torch.optim import AdamWState, constant_schedule, make_optimizer
 from repro_torch.pipeline import ranks
 from repro_torch.tree import flatten
 
-__all__ = ["spmd_cases", "spmd_serve_cases", "spmd_mixed_cases", "repro_state", "shard_round_trips"]
+__all__ = [
+    "spmd_cases",
+    "spmd_serve_cases",
+    "spmd_mixed_cases",
+    "repro_state",
+    "shard_round_trips",
+    "dry_vs_recorded",
+    "stateless_runtime",
+]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -74,17 +98,30 @@ def repro_state(state, cfg) -> dict:
     return out
 
 
+def _recorded(group, case):
+    return CollectiveRecorder(group) if case.get("record") else group
+
+
+def _take_log(group) -> list | None:
+    return [tuple(dataclasses.astuple(e)) for e in group.take_log()] if isinstance(group, CollectiveRecorder) else None
+
+
+def _optimizer(case, params=None):
+    cfg, layout = case["cfg"], None
+    if case["optimizer"] == "adafactor":
+        layout = reference_layout(cfg, params if params is not None else state_specs_for(cfg, make_optimizer()).params)
+    return make_optimizer(case["optimizer"], constant_schedule(case["lr"]), layout=layout, **case.get("hyper", {}))
+
+
 def _one(group, case):
     cfg = case["cfg"]
+    group = _recorded(group, case)
     mesh = make_local_mesh(group.axes[0][1], group.axes[1][1], group)
     batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
     params = None
     if case.get("params") is not None:
         params = bridge.params_from_repro(case["params"], cfg, device=group.device)
-    layout = None
-    if case["optimizer"] == "adafactor":
-        layout = reference_layout(cfg, params if params is not None else state_specs_for(cfg, make_optimizer()).params)
-    opt = make_optimizer(case["optimizer"], constant_schedule(case["lr"]), layout=layout, **case.get("hyper", {}))
+    opt = _optimizer(case, params)
     step, (state_specs, _) = make_spmd_train_step(
         cfg, mesh, batch, opt, num_microbatches=case["M"], strategy=case["strategy"],
         gather_params_once=case.get("gather_params_once", False), remat_blocks=case.get("remat_blocks", False),
@@ -95,12 +132,15 @@ def _one(group, case):
     if step.tp is not None:
         step.tp.keep_routes = True
     n0 = flash_ops.launches
-    metrics, flops = [], None
+    metrics, flops, log = [], None, None
+    nargs = argument_bytes(state, batch)
     for i in range(case["steps"]):
         if i == 0:
+            _take_log(group)
             with FlopCounterMode(display=False) as counter:
                 state, m = step(state, batch)
             flops = counter.get_total_flops()
+            log = _take_log(group)
         else:
             state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
@@ -111,6 +151,7 @@ def _one(group, case):
         "flops": flops, "gathered": _gathered_over_model(step), "routes": _routes(step.tp),
         "counts": dict(step.tp.counts) if step.tp is not None else {},
         "state": repro_state(full, cfg) if group.rank == 0 else None,
+        "collectives": log, "argument_bytes": nargs,
     }
 
 
@@ -131,24 +172,33 @@ def spmd_cases(group, cases: list) -> list:
 
 def _serve_one(group, case):
     cfg = case["cfg"]
+    group = _recorded(group, case)
     mesh = make_local_mesh(group.axes[0][1], group.axes[1][1], group)
     prompt = torch.from_numpy(case["prompt"])
     decode = [torch.from_numpy(t) for t in case["decode"]]
     B, T = prompt.shape
     prefill, _ = make_spmd_prefill(cfg, mesh, {"tokens": prompt}, kv_len=case["kv_len"])
     step, _ = make_spmd_serve_step(cfg, mesh, {"tokens": decode[0]}, case["kv_len"])
-    params = prefill.shard_params(bridge.params_from_repro(case["params"], prefill.cfg, device=group.device))
-    cache = step.shard_cache(bridge.cache_from_repro(case["cache"], cfg, device=group.device))
+    if case.get("params") is None:  # drawn on the ranks, into an empty cache
+        params, cache = prefill.init_params(case["seed"]), step.init_cache()
+    else:
+        params = prefill.shard_params(bridge.params_from_repro(case["params"], prefill.cfg, device=group.device))
+        cache = step.shard_cache(bridge.cache_from_repro(case["cache"], cfg, device=group.device))
     tp = step.tp
     prefill.tp.keep_routes = tp.keep_routes = True
     n0 = flash_ops.launches
+    _take_log(group)
     logits = [_np(prefill(params, {"tokens": prompt}))]
     counts = [dict(prefill.tp.counts)]
+    logs = [_take_log(group)]
+    nargs = [argument_bytes(params, {"tokens": prompt})]
     k1 = flash_ops.launches - n0
     for i, tokens in enumerate(decode):
         tp.counts.clear()
+        nargs.append(argument_bytes(params, cache, {"tokens": tokens}))
         logits.append(_np(step(params, cache, T + i, {"tokens": tokens})[0]))
         counts.append(dict(tp.counts))
+        logs.append(_take_log(group))
     full = flatten(step.gather_cache(cache))
     out = {
         "logits": logits if group.rank == 0 else None,
@@ -157,6 +207,7 @@ def _serve_one(group, case):
         "gathered": sorted(prefill.tp.gathered | tp.gathered),
         "cache_shapes": {k: tuple(v.shape) for k, v in flatten(cache).items()},
         "routes": _routes(prefill.tp) + _routes(tp),
+        "collectives": logs if logs[0] is not None else None, "argument_bytes": nargs,
     }
     if case.get("prefill_cache"):  # the prefill again, filling a fresh cache
         filled = prefill.init_cache()
@@ -199,3 +250,69 @@ def shard_round_trips(group, cases: list, piece_bytes: int | None = None) -> lis
         want = local_shard(full * sum(r + 1 for r in peers), spec, mesh)
         out.append((torch.equal(back, full), bool(torch.allclose(summed, want))))
     return out
+
+
+def _entries(dry) -> list:
+    return [tuple(dataclasses.astuple(e)) for e in dry.log]
+
+
+def dry_vs_recorded(group, train: list, serve: list, runtime: dict | None = None) -> dict:
+    """:func:`spmd_mixed_cases` of ``train`` and ``serve`` with every group
+    recorded, then each case's dry run (:mod:`repro_torch.launch.dryrun`)
+    at this rank's coordinate: ``{"real": (train results, serve results),
+    "dry": (per train case, per serve case: {"collectives", "argument_bytes",
+    "peak_bytes", "flops"}; a serve case's lists hold the prefill and one
+    decode step)}``; with ``runtime`` also :func:`stateless_runtime`'s."""
+    real = spmd_mixed_cases(group, [dict(c, record=True) for c in train], [dict(c, record=True) for c in serve])
+    axes, coords = dict(group.axes), dict(group.coords)
+    dry_train_out = []
+    for c in train:
+        batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+        d = dry_train(c["cfg"], dry_mesh(axes, coords), batch, _optimizer(c), num_microbatches=c["M"],
+                      strategy=c["strategy"], gather_params_once=c.get("gather_params_once", False),
+                      remat_blocks=c.get("remat_blocks", False))
+        dry_train_out.append({"collectives": _entries(d), "argument_bytes": d.argument_bytes,
+                              "peak_bytes": d.peak_bytes, "flops": d.analysis.flops})
+    dry_serve_out = []
+    for c in serve:
+        prompt = torch.from_numpy(c["prompt"])
+        tokens = torch.from_numpy(c["decode"][0])
+        p = dry_prefill(c["cfg"], dry_mesh(axes, coords), {"tokens": prompt})
+        d = dry_decode(c["cfg"], dry_mesh(axes, coords), {"tokens": tokens}, c["kv_len"], index=prompt.shape[1])
+        dry_serve_out.append({k: [getattr(x, k) for x in (p, d)] for k in ("argument_bytes", "peak_bytes")}
+                             | {"collectives": [_entries(p), _entries(d)]})
+    out = {"real": real, "dry": (dry_train_out, dry_serve_out)}
+    if runtime is not None:
+        out["runtime"] = stateless_runtime(group, **runtime)
+    return out
+
+
+def stateless_runtime(group, cfg, global_batch: int, seq_len: int, plans: list, x) -> dict:
+    """A stateless :class:`~repro_torch.runtime.executor.PlanRuntime` on the
+    spmd backend (``optimizer=None``): every rank switches through
+    ``plans`` (lowered tables) and runs each plan's program on ``x``; the
+    program scales ``x`` by the plan's micro-batch count and sums it over
+    the stage group.  Returns each run's output and each switch's record."""
+    from repro_torch.runtime.executor import PlanRuntime
+
+    def factory(table):
+        M = float(table.plan.num_microbatches)
+        return lambda t: group.all_reduce_sum(t * M, "stage")
+
+    rt = PlanRuntime(cfg, group.S, None, global_batch, seq_len, backend="spmd", group=group, program_factory=factory)
+    outs, events = [], []
+    try:
+        try:
+            rt.run_iteration(None, None)
+        except RuntimeError as e:
+            refused = str(e)
+        for table in plans:
+            ev = rt.switch_to(table)
+            events.append({"to_plan": ev.to_plan, "from_plan": ev.from_plan, "restacked": ev.restacked,
+                           "warm": ev.warm, "v": rt.current_v, "ranks": ev.ranks,
+                           "placement": rt.placement.vstage_of.tolist()})
+            out, _ = rt.run_program(torch.as_tensor(x, dtype=torch.float32))
+            outs.append(out.numpy())
+    finally:
+        rt.cache.shutdown()
+    return {"outputs": outs, "events": events, "refused": refused, "state": rt.state}

@@ -113,6 +113,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import PartitionSpec as P
@@ -483,9 +484,13 @@ class TensorParallel:
         lo = self.rank * Ll if split else 0
         slot = index % L
         rows = torch.arange(B, device=x.device)
-        mine = (slot >= lo) & (slot < lo + Ll)
-        ck[rows[mine], slot[mine] - lo] = k[mine, 0].to(ck.dtype)
-        cv[rows[mine], slot[mine] - lo] = v[mine, 0].to(cv.dtype)
+        # every row writes at its slot clamped into the shard; a row whose
+        # slot is another rank's writes back what is there (no value is read
+        # to pick the rows, so shapes alone run it)
+        mine = ((slot >= lo) & (slot < lo + Ll))[:, None, None]
+        at = (slot - lo).clamp(0, Ll - 1)
+        ck[rows, at] = torch.where(mine, k[:, 0].to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(mine, v[:, 0].to(cv.dtype), cv[rows, at])
         valid = (lo + torch.arange(Ll, device=x.device))[None, :] < torch.clamp(index + 1, max=L)[:, None]
         mask = valid[:, None, None, None, :]
         if split:
@@ -531,11 +536,11 @@ class TensorParallel:
             _, k, v = self._all_heads(s, cfg, None, k, v)
             lo = self.rank * Ll if Ll < L else 0
         T = x.shape[1]
-        t = torch.arange(max(T - L, 0), T, device=x.device)  # the tokens a ring buffer keeps
-        slot = t % L
-        mine = (slot >= lo) & (slot < lo + Ll)
-        ck[:, slot[mine] - lo] = k[:, t[mine]].to(ck.dtype)
-        cv[:, slot[mine] - lo] = v[:, t[mine]].to(cv.dtype)
+        t = np.arange(max(T - L, 0), T)  # the tokens a ring buffer keeps
+        t = t[(t % L >= lo) & (t % L < lo + Ll)]  # those in this rank's slots
+        src, dst = (torch.as_tensor(i, device=x.device) for i in (t, t % L - lo))
+        ck[:, dst] = k[:, src].to(ck.dtype)
+        cv[:, dst] = v[:, src].to(cv.dtype)
         return y
 
     # -- expert-parallel MoE -----------------------------------------------------------

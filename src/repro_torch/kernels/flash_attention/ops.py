@@ -14,6 +14,11 @@ kernel in ``csrc/flash_fwd.cu``, built for ``sm_90a`` at first use.
   failed launch raises.
 * A CPU tensor takes the plain version in :mod:`.ref`.  Nothing falls back
   from the kernel to the plain version.
+* A fake tensor (``FakeTensorMode``: shapes alone, as the dry runs of
+  ``launch/dryrun.py`` run a program) takes the training forward's custom
+  operator: its fake implementation holds what the kernel holds (q, k, v
+  in, out out), where the plain version would hold its scores, and its
+  FLOP formula counts the plain attention's products.
 * ``launches`` counts kernel launches, so a run can show that its path went
   through the kernel.
 
@@ -52,6 +57,7 @@ import math
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
@@ -129,6 +135,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     """q [B,T,H,hd]; k, v [B,S,K,hd] -> [B,T,H,hd] in q's type; scores
     scaled by 1/sqrt(hd)."""
     _check(q, k, v, causal, window)
+    if is_fake(q):  # shapes alone (a dry run): the kernel's footprint and FLOP formula
+        return _train_forward(q, k, v, causal, window)
     if q.device.type == "cpu":
         return _ref.attention(q, k, v, causal=causal, window=window)
     return _launch(q, k, v, causal, window)

@@ -16,6 +16,11 @@ wrapper ``ops.py::ssd_chunked``) with the hand-written CUDA kernel in
   other route.  A refused or failed launch raises.
 * A CPU tensor takes the plain version, :func:`.ref.ssd_chunked`.  Nothing
   falls back from the kernel to the plain version.
+* The forward is the custom operator ``repro_torch::ssd_chunked_train``,
+  with a fake implementation (so ``meta`` and fake tensors run it, shapes
+  alone) and a FLOP formula (:func:`.ref.ssd_chunked_flops`: the products an
+  operation counter counts through the plain version), as K1's training
+  forward is: a counter cannot see into a ``ctypes`` launch.
 * ``launches`` counts kernel launches, so a run can show that its path went
   through the kernel.
 
@@ -38,6 +43,7 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import check_cp_async
@@ -149,17 +155,35 @@ def _launch(x, dt, A, Bm, Cm, chunk: int):
     return y
 
 
+@torch.library.custom_op("repro_torch::ssd_chunked_train", mutates_args=())
+def _train_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    return _launch(x, dt, A, Bm, Cm, chunk)
+
+
+@_train_forward.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    return x.new_empty(x.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunked_train)
+def _train_forward_flops(x_shape, dt_shape, A_shape, Bm_shape, Cm_shape, chunk, out_shape=None, **kwargs) -> int:
+    B, T, H, P = x_shape
+    return _ref.ssd_chunked_flops(B, T, H, P, Bm_shape[-1], chunk)
+
+
 class _SSDChunked(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU).  Backward: the
-    gradient of the plain version, recomputed from the saved inputs."""
+    """Forward: the kernel (CUDA) or the plain version (CPU), through the
+    custom operator.  Backward: the gradient of the plain version,
+    recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
-        if x.device.type == "cpu":
-            return _ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
-        return _launch(x, dt, A, Bm, Cm, chunk)
+        return _train_forward(x, dt, A, Bm, Cm, chunk)
 
     @staticmethod
     def backward(ctx, gy):
@@ -182,6 +206,6 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 64):
             raise ValueError(f"(P, N, chunk) = {(P, N, chunk)} is not one of the kernel's {SHAPES}")
         if x.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
             raise ValueError("the P axis of x and the N axis of Bm/Cm must be contiguous")
-    elif x.device.type != "cpu":
-        raise ValueError(f"ssd_chunked runs on cuda or cpu, not {x.device}")
+    elif x.device.type not in ("cpu", "meta"):
+        raise ValueError(f"ssd_chunked runs on cuda, cpu or meta, not {x.device}")
     return _SSDChunked.apply(x, dt, A, Bm, Cm, chunk)

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_reference", "ssd_chunked"]
+__all__ = ["ssd_reference", "ssd_chunked", "ssd_chunked_flops"]
 
 
 def _squeeze_group(M):
@@ -103,3 +103,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 64):
 
     y = y + torch.einsum("bcqn,bchpn->bcqhp", cc, h_in) * torch.exp(cum)[..., None]
     return y.reshape(Bsz, T, H, P).to(x.dtype)
+
+
+def ssd_chunked_flops(B: int, T: int, H: int, P: int, N: int, chunk: int) -> int:
+    """FLOPs of :func:`ssd_chunked` as an operation counter counts its four
+    products (2 per multiply-add) over the T / chunk chunks: ``C.B^T``
+    (Q x Q x N), the intra-chunk ``@ w`` (H x Q x Q x P), the chunk's state
+    injection and the carried state's read-out (H x P x N x Q each)."""
+    Q = chunk
+    return 2 * B * (T // Q) * Q * (Q * N + H * Q * P + 2 * H * P * N)

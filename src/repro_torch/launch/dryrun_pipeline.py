@@ -1,9 +1,31 @@
 """Calibration of a config's pipeline stages, and the offline tune.
 
-Port of the ``--calibrate`` half of ``repro/launch/dryrun_pipeline.py``.
+Port of ``repro/launch/dryrun_pipeline.py``: the engine dry run and the
+calibration.
+
+:func:`run` is the engine dry run: one rank (``stage``, ``replica``; the
+CLI runs rank (0, 0)) of
+:func:`~repro_torch.pipeline.engine.make_pipeline_step` on an S x D grid
+(S pipeline stages, D data replicas; ``repro``'s grid is the 16 x 16 pod,
+and D here is ``256 // S`` cut to a divisor of the micro-batch size), run
+once on shapes alone (``FakeTensorMode``, a recorded
+:class:`~repro_torch.launch.hlo_analysis.DryGroup`, as
+:mod:`repro_torch.launch.dryrun` runs the sharded steps).  Its record has
+``repro``'s keys: the tick count and the bubble at unit cost, the rank's
+FLOPs and bytes, its collectives by kind (``collective-permute`` the
+point-to-point sends its channel tables post, ``all-reduce`` the replicated
+leaves' and the loss's sums), the roofline on ``specs/h100-sxm.json``, and
+the memory (``argument_bytes``: the rank's chunks and the batch;
+``peak_bytes``: the live bytes' high-water mark).  ``repro``'s engine
+permutes on every used ring channel at every tick (a tick with nothing to
+send moves zeros); the port's engine sends only what the tables name, so
+its count is the tables' sends.
+
 :func:`calibrate` runs :mod:`repro_torch.core.calibrate` on the config's
 stage bodies (``--config``: a Table-1 GPT, or any arch id the registry
-builds, as ``repro``'s ``_config`` falls back to ``get_arch(name).model``):
+builds, as ``repro``'s ``_config`` falls back to ``get_arch(name).model``;
+the ``ssm``, ``moe`` and ``hybrid`` families count through K2's custom
+operator and the MoE layer's static dispatch):
 per-stage fwd / BWD_INPUT / BWD_WEIGHT / saved-residual
 BWD_WEIGHT seconds and activation bytes (the heterogeneous ``StageCosts``
 the scheduler stack consumes instead of ``StageCosts.uniform``), the
@@ -26,13 +48,11 @@ The record ``<config>__S<S>_calibration.json`` holds every key of
 empty lists under ``spec``) and ``workload``: the per-stage FLOP and byte counts of the four programs
 and the memory footprint, as a ``WorkloadProfile`` that
 ``devicespec.derive_stage_costs`` prices on any spec.  Counting runs on the ``meta`` device, so a full-size config
-costs nothing to count.  The engine dry-run of ``repro``'s module (lowering
-``make_pipeline_step`` on a 256-device mesh and counting its collectives)
-is ROADMAP queue 1, item 9, and so is the calibration of the MoE and
-hybrid families (counting FLOPs through the MoE dispatch on ``meta``):
-:func:`calibrate` of such a config raises ``NotImplementedError``.
+costs nothing to count.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun_pipeline [--config qwen2.5-14b --stages 16 \\
+      --microbatches 32 --k 2 --batch 256 --seq 4096] [--num-layers L]
   PYTHONPATH=src python -m repro_torch.launch.dryrun_pipeline --calibrate \\
       --config GPT-2.7B --stages 4 --batch 8 --microbatches 4 --seq 1024 \\
       [--method spec|wallclock] [--device-spec specs/h100-sxm.json] \\
@@ -43,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 
 import torch
@@ -51,13 +72,20 @@ from repro_torch.configs.base import get_arch
 from repro_torch.configs.gpt import GPT_CONFIGS
 from repro_torch.core.calibrate import METHODS, calibrate_stage_costs, resolve_spec
 from repro_torch.core.candidates import largest_admissible_warmup
-from repro_torch.core.devicespec import TASK_PROGRAMS, WorkloadProfile
+from repro_torch.core.devicespec import TASK_PROGRAMS, WorkloadProfile, dtype_key
 from repro_torch.core.kinds import ScheduleSpec
-from repro_torch.core.schedule import make_plan
+from repro_torch.core.schedule import make_plan, tick_table, tick_table_stats
 from repro_torch.device import resolve_device
+from repro_torch.launch.dryrun import dry_run
+from repro_torch.launch.hlo_analysis import CollectiveRecorder, DryGroup, roofline_terms
+from repro_torch.models.common import param_count
+from repro_torch.pipeline.engine import make_pipeline_step
 from repro_torch.pipeline.stage import StagedModel
 
-__all__ = ["calibrate", "main"]
+__all__ = ["calibrate", "run", "main", "POD_DEVICES"]
+
+#: ``repro``'s engine dry run lays S stages x 256 // S replicas over one pod
+POD_DEVICES = 256
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun_pipeline")
 
@@ -118,19 +146,16 @@ def _tune_on_spec(cal, spec, S: int, b_mb: int) -> dict:
 
 def calibrate(
     config: str, S: int, b_mb: int, seq: int, out_dir: str,
-    device_spec: str | None = None, method: str = "spec", device=None,
+    device_spec: str | None = None, method: str = "spec", device=None, model=None,
 ) -> dict:
     """Calibrated per-stage profile of the config's stage bodies, its
     per-stage memory footprint and the admitted warmup vector; under
     ``method="spec"`` also the offline tune (``record["tuned"]``).  Prints
-    the table and writes the record; returns it."""
+    the table and writes the record; returns it.  ``model`` (a
+    ``ModelConfig``) calibrates that config under the name ``config``
+    (a cut of an arch)."""
     dev = resolve_device(device)
-    cfg = _config(config)
-    if cfg.family in ("moe", "hybrid"):
-        raise NotImplementedError(
-            f"calibrating the {cfg.family} family ({config}: the FLOP count through the MoE dispatch on "
-            "the meta device) comes with ROADMAP.md queue 1, item 9"
-        )
+    cfg = model or _config(config)
     staged = StagedModel.build(cfg, S)
     spec = None
     if method == "spec":
@@ -194,26 +219,97 @@ def calibrate(
     return record
 
 
+def run(config: str, S: int, M: int, k: int, batch: int, seq: int, out_dir: str, *, D: int | None = None,
+        stage: int = 0, replica: int = 0, num_layers: int | None = None, device_spec=None) -> dict:
+    """The engine dry run (the module docstring) of rank (``stage``,
+    ``replica``) of an ``S`` x ``D`` grid: the kfkb plan of depth ``k`` over
+    ``M`` micro-batches of ``batch // M`` sequences of ``seq`` tokens, each
+    micro-batch split over the D replicas.  ``D`` defaults to ``256 // S``
+    cut to the largest divisor of the micro-batch size; ``num_layers`` cuts
+    the config's depth.  Prints a line and writes the record; returns it."""
+    cfg = _config(config)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    plan = make_plan(S, M, k)
+    staged = StagedModel.build(cfg, S * plan.num_virtual)
+    stats = tick_table_stats(tick_table(plan))
+    b_mb = batch // M
+    D = D or math.gcd(b_mb, max(POD_DEVICES // S, 1))
+    group = CollectiveRecorder(DryGroup(rank=replica * S + stage, s=stage, d=replica, S=S, D=D))
+    step = make_pipeline_step(staged, plan, group)
+    print(f"{config}: {cfg.num_layers}L over {S} stages x {D} DP, {plan.name}, ticks={stats['ticks']:.0f} "
+          f"(bubble {stats['bubble_fraction']:.1%} at unit cost); rank (s={stage}, d={replica})")
+
+    def build():
+        owned = [int(plan.placement.vstage_of[stage, c]) for c in range(plan.num_virtual)]
+        params = staged.init_stages(torch.Generator().manual_seed(0), owned)
+        tokens = torch.zeros((M, b_mb, seq), dtype=torch.long)
+        return step, (params, tokens, torch.zeros_like(tokens))
+
+    dry = dry_run(group, build)
+    ana = dry.analysis
+    terms = roofline_terms(ana.flops, ana.hbm_bytes, ana.wire_bytes, spec=device_spec, dtype=dtype_key(cfg.dtype))
+    sends = [e for e in dry.log if e.kind == "collective-permute"]
+    record = {
+        "config": config,
+        "plan": plan.name,
+        "stages": S,
+        "data": D,
+        "rank": {"stage": stage, "replica": replica},
+        "microbatches": M,
+        "k": k,
+        "batch": batch,
+        "seq": seq,
+        "num_layers": cfg.num_layers,
+        "params_total": param_count(cfg),
+        "ticks": stats["ticks"],
+        "unit_bubble_fraction": stats["bubble_fraction"],
+        "run_s": round(dry.seconds, 1),
+        "flops_per_device": ana.flops,
+        "bytes_accessed_per_device": ana.hbm_bytes,
+        "collective_wire_bytes_per_device": ana.wire_bytes,
+        "collective_counts": ana.collective_counts,
+        "collective_bytes_by_kind": ana.collective_bytes_by_kind,
+        "p2p_sends": len(sends),
+        "p2p_recvs": sum(e.kind == "recv" for e in dry.log),
+        "p2p_wire_bytes": sum(e.wire_bytes for e in sends),
+        "memory": {"argument_bytes": dry.argument_bytes, "temp_bytes": dry.peak_bytes - dry.argument_bytes,
+                   "peak_bytes": dry.peak_bytes},
+        "roofline": terms,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{config}__S{S}_M{M}_k{k}"
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    print(f"[ok] {tag}: run {dry.seconds:.0f}s  compute {terms['compute_s'] * 1e3:.0f}ms "
+          f"mem {terms['memory_s'] * 1e3:.0f}ms coll {terms['collective_s'] * 1e3:.0f}ms -> {terms['bottleneck']}  "
+          f"sends={len(sends)} peak {dry.peak_bytes / 1e9:.1f}GB")
+    return record
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", default="GPT-2.7B", help="a Table-1 GPT config or a ported arch id")
-    ap.add_argument("--stages", type=int, default=4)
-    ap.add_argument("--microbatches", type=int, default=4)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--config", default="qwen2.5-14b", help="a Table-1 GPT config or a ported arch id")
+    ap.add_argument("--stages", type=int, default=16)
+    ap.add_argument("--microbatches", type=int, default=32)
+    ap.add_argument("--k", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--num-layers", type=int, default=None, help="cut the config's depth (engine dry run)")
     ap.add_argument("--out", default=os.path.abspath(ARTIFACT_DIR))
     ap.add_argument("--calibrate", action="store_true",
-                    help="profile the config's stage bodies into heterogeneous StageCosts + per-stage MemoryModel")
+                    help="profile the config's stage bodies into heterogeneous StageCosts + per-stage MemoryModel "
+                         "instead of the engine dry run")
     ap.add_argument("--method", choices=METHODS, default="spec")
     ap.add_argument("--device-spec", default=None, metavar="SPECS_JSON",
-                    help="with --method spec: the specs/*.json part to price on (default specs/h100-sxm.json)")
+                    help="the specs/*.json part to price on (default specs/h100-sxm.json)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.calibrate:
-        ap.error("only --calibrate is ported; the engine dry-run (lowering on a 256-device mesh, "
-                 "collective counts) is ROADMAP queue 1, item 9")
-    return calibrate(args.config, args.stages, args.batch // args.microbatches, args.seq, args.out,
-                     device_spec=args.device_spec, method=args.method, device=args.device)
+    if args.calibrate:
+        return calibrate(args.config, args.stages, args.batch // args.microbatches, args.seq, args.out,
+                         device_spec=args.device_spec, method=args.method, device=args.device)
+    return run(args.config, args.stages, args.microbatches, args.k, args.batch, args.seq, args.out,
+               num_layers=args.num_layers, device_spec=args.device_spec)
 
 
 if __name__ == "__main__":

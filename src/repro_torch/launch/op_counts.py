@@ -25,8 +25,9 @@ operations the program dispatches:
   depends on the program.
 
 Counting a program built on the ``meta`` device allocates nothing and
-launches nothing.  The collective-bytes half of ``hlo_analysis``
-(``parse_collectives``, wire bytes per collective kind) is not ported.
+launches nothing.  The collective-bytes half of ``hlo_analysis`` (wire
+bytes per collective kind) is :mod:`repro_torch.launch.hlo_analysis`'s
+recorder, which logs the port's own collective calls.
 """
 
 from __future__ import annotations

@@ -110,7 +110,8 @@ def _load_balance_loss(cfg: ModelConfig, probs, idx, row_sum=None):
     probs [T, E], idx [T, k]; ``row_sum`` sums the counts over the ranks that
     hold the rest of the micro-batch (the module docstring)."""
     E = cfg.num_experts
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device).scatter_add_(0, flat, torch.ones_like(flat)).float()
     if row_sum is not None:
         counts = row_sum(counts)
     frac = counts / counts.sum().clamp(min=1.0)
@@ -159,10 +160,13 @@ def _moe(p, x, cfg: ModelConfig, capacity_factor: float | None, row_sum=None, ex
     local = r["idx"].reshape(G, S * k) - first
     mine = keep & (local >= 0) & (local < n) if experts else keep
 
-    # dispatch: scatter the kept entries' tokens into the [G, n, C, d] buffer
-    g_kept, n_kept = mine.nonzero(as_tuple=True)
-    src = x[g_kept, n_kept // k]
-    buf = x.new_zeros((G, n, C, d)).index_put((g_kept, local[g_kept, n_kept], rank[g_kept, n_kept]), src)
+    # dispatch: scatter every entry's token into a [G, n * C + 1, d] buffer,
+    # the kept ones to their (expert, rank) slots and the rest to the spare
+    # last slot, which is cut off (static shapes: no value is read)
+    slot = torch.where(mine, local * C + rank, n * C)
+    src = x.repeat_interleave(k, dim=1)  # [G, S * k, d], token-major like the entries
+    buf = x.new_zeros((G, n * C + 1, d)).scatter(1, slot[..., None].expand(G, S * k, d), src)
+    buf = buf[:, : n * C].reshape(G, n, C, d)
 
     # the expert SwiGLUs, batched over the experts; the G groups' rows share each product
     ex = p["experts"]

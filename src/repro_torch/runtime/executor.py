@@ -374,7 +374,11 @@ class PlanRuntime:
 
     ``backend="spmd"`` needs ``group``, the calling rank's
     :class:`~repro_torch.pipeline.ranks.RankGroup`; every rank builds its
-    runtime with the same arguments.  ``rank_probe`` (spmd) is called on
+    runtime with the same arguments.  With ``optimizer=None`` (stateless,
+    ``program_factory`` required) every rank calls ``switch_to`` and
+    ``run_program`` itself, as ``repro``'s stateless runtime is called: a
+    switch tracks the layout and restacks nothing, and ``run_iteration``
+    raises.  ``rank_probe`` (spmd) is called on
     every rank after each step; its dict joins the rank's record in
     :attr:`IterationResult.ranks`.
 
@@ -410,11 +414,6 @@ class PlanRuntime:
                 raise ValueError(
                     "the spmd backend needs a rank group (the RankGroup that "
                     "repro_torch.pipeline.ranks.spawn gives each rank), as repro's needs a mesh"
-                )
-            if optimizer is None:
-                raise NotImplementedError(
-                    "the stateless (serving) mode of the spmd backend is not ported yet "
-                    "(ROADMAP.md, queue 1, item 9)"
                 )
             if group.S != num_stages:
                 raise ValueError(f"{num_stages} stages, the rank group has {group.S}")
@@ -517,8 +516,10 @@ class PlanRuntime:
 
     def _lead(self, method: str, *args) -> None:
         """On global rank 0 under spmd: tell the followers to call ``method``
-        with ``args`` (what :meth:`follow` executes)."""
-        if self.group is not None and self.group.rank == 0:
+        with ``args`` (what :meth:`follow` executes).  A stateless runtime
+        leads nobody: every rank calls each method itself, with its own
+        operands."""
+        if self.group is not None and self.group.rank == 0 and self.state is not None:
             self.group.broadcast_object((method, args))
 
     def follow(self, batch_fn: Callable[[int], tuple]) -> None:
@@ -580,7 +581,10 @@ class PlanRuntime:
         # stateless runtimes track the layout but have no owned state to restack
         restacked = v_new != self.current_v and self.state is not None
         record = None
-        if self.group is not None:
+        if self.group is not None and self.state is None:
+            record = {"rank": self.group.rank}
+            self.group.barrier()
+        elif self.group is not None:
             t = time.perf_counter()
             self.state, record = restack_across_ranks(
                 self.state, self.group, self.placement, table.plan.placement, len(self.staged_for(v_new).pattern)

@@ -27,6 +27,9 @@
 import dataclasses
 import json
 import os
+import subprocess
+import sys
+import textwrap
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +47,8 @@ from repro_torch.core.calibrate import calibrate_stage_costs, count_programs, co
 from repro_torch.core.devicespec import TASK_PROGRAMS, load_device_spec, spec_root
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.launch import dryrun_pipeline
 from repro_torch.launch.op_counts import count_ops, tensor_bytes
 from repro_torch.models.common import ModelConfig
@@ -403,6 +408,35 @@ def test_k1_flop_formula_through_the_kernel_on_card():
     assert through[0] == flash_ref.train_attention_flops(B, T, T, H, hd)
 
 
+#: (B, T, H, P, N, chunk): mamba2-smoke's, jamba's (d_state 16), mamba2-780m's
+SSD_CASES = [(2, 16, 16, 32, 32, 8), (1, 32, 4, 16, 16, 16), (1, 128, 2, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,Q", SSD_CASES, ids=["mamba2-smoke", "jamba", "mamba2-780m"])
+def test_k2_flop_formula_matches_the_plain_ssd(B, T, H, P, N, Q):
+    """K2's custom operator counts what the counter counts through the plain
+    chunked SSD; under autograd its backward recomputes the plain SSD, so
+    the route through K2 counts one forward more; and it runs on ``meta``."""
+    rng = np.random.default_rng(0)
+    shapes = ((B, T, H, P), (B, T, H), (H,), (B, T, N), (B, T, N))
+    x, dt, A, Bm, Cm = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)) for sh in shapes)
+    dt, A = dt.abs() * 0.1, -A.abs()
+    ins = [t.requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+
+    def counts(fn):
+        with FlopCounterMode(display=False) as fwd:
+            fn(*ins, chunk=Q)
+        with FlopCounterMode(display=False) as both:
+            torch.autograd.grad(fn(*ins, chunk=Q), ins, torch.ones((B, T, H, P)))
+        return fwd.get_total_flops(), both.get_total_flops()
+
+    plain, through = counts(ssd_ref.ssd_chunked), counts(ssd_ops.ssd_chunked)
+    assert plain[0] == ssd_ref.ssd_chunked_flops(B, T, H, P, N, Q)
+    assert through == (plain[0], plain[1] + plain[0])
+    meta = [torch.empty(sh, device="meta") for sh in shapes]
+    assert count_ops(lambda: ssd_ops.ssd_chunked(*meta, chunk=Q)).flops == plain[0]
+
+
 def test_gpt_2_7b_forward_counts_the_closed_form():
     """Full width and depth, counted on meta: each stage's ``fwd`` is
     L_s * (2 * (4 d^2 + 2 d d_ff) * b T + 4 b H T^2 hd); the embedding is a
@@ -488,22 +522,21 @@ def test_cli_spec_on_gpt_medium(tmp_path):
     costs = derive_stage_costs(WorkloadProfile.from_json(record["workload"]), load_device_spec(
         os.path.join(spec_root(), "h100-sxm.json")))
     assert costs.fwd_time == record["fwd_time"] and costs.bwd_weight_saved_time == record["bwd_weight_saved_time"]
-    with pytest.raises(SystemExit):
-        dryrun_pipeline.main(["--config", "GPT-Medium", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # repro's "hlo" method has no counterpart (its constants are a TPU's)
+        dryrun_pipeline.main(["--calibrate", "--method", "hlo", "--config", "GPT-Medium", "--device", "cpu"])
     # the arch ids of the registry are taken since ROADMAP queue 1, item 6
     # (tests/test_torch_launch_dense.py calibrates qwen1.5-4b); the VLM
     # calibrates through tokens, as repro's stage body runs it (its smoke
-    # config's FLOPs are held to repro's by the `both` cases above), while
-    # calibrating the MoE and hybrid families raises naming ROADMAP item 9
-    # (the FLOP count through the MoE dispatch on meta)
+    # config's FLOPs are held to repro's by the `both` cases above); the
+    # ssm, moe and hybrid families calibrate too
+    # (test_ssm_moe_hybrid_calibrate_through_the_cli), and main() without
+    # --calibrate is the engine dry run (tests/test_torch_dryrun_pipeline.py)
     vlm = dryrun_pipeline.main([
         "--calibrate", "--config", "qwen2-vl-2b", "--stages", "4", "--batch", "4", "--microbatches", "4",
         "--seq", "128", "--device", "cpu", "--out", str(tmp_path),
     ])
     assert vlm["config"] == "qwen2-vl-2b" and len(vlm["fwd_time"]) == 4 and min(vlm["fwd_time"]) > 0
     assert (tmp_path / "qwen2-vl-2b__S4_calibration.json").exists()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dryrun_pipeline.main(["--calibrate", "--config", "jamba-v0.1-52b", "--device", "cpu", "--out", str(tmp_path)])
 
 
 def test_gpt_stage_costs_and_unet_match_repro():
@@ -516,3 +549,145 @@ def test_gpt_stage_costs_and_unet_match_repro():
         assert dataclasses.asdict(fn(4)) == dataclasses.asdict(jgpt.UNET_COSTS[name](4))
     with pytest.raises(TypeError):
         gpt.gpt_stage_costs(gpt.GPT_CONFIGS["GPT-Medium"], 4, 2)  # no default chip rate
+
+
+#: the ssm, moe and hybrid smoke configs: kimi without its dense prefix layer
+#: (``first_k_dense``, which neither stage partitioner takes), jamba and
+#: llama4 at 4 layers (their 2-layer pattern once a stage)
+FAMILIES = {
+    "mamba2-780m": {},
+    "jamba-v0.1-52b": {"num_layers": 4},
+    "kimi-k2-1t-a32b": {"first_k_dense": 0},
+    "llama4-maverick-400b-a17b": {"num_layers": 4},
+}
+FAMILY_B, FAMILY_T = 2, 16
+
+_FAMILY_SCRIPT = textwrap.dedent(
+    """
+    import json, sys
+    import jax, jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro.core.calibrate import calibrate_stage_costs
+    from repro.kernels.ssd_scan import ref as ssd_ref
+    from repro.launch.hlo_analysis import analyze_hlo
+    from repro.pipeline.stage import StagedModel
+    families, b, t = json.loads(sys.argv[1])
+    for arch, kw in families.items():
+        cfg = get_arch(arch).smoke.replace(dtype=jnp.float32, **kw)
+        cal = calibrate_stage_costs(StagedModel.build(cfg, 2), micro_batch_size=b, seq_len=t)
+        out = {"flops": [{p: prof[p].flops for p in prof} for prof in cal.profiles], "ssd_pullback": None}
+        if cfg.ssm_state:  # XLA's SSD backward from its residuals, at the layer's shapes
+            H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+            args = [jnp.ones(sh, jnp.float32) for sh in ((b, t, H, P), (b, t, H), (H,), (b, t, 1, N), (b, t, 1, N))]
+            y, pull = jax.vjp(lambda *a: ssd_ref.ssd_chunked(*a, chunk=cfg.ssm_chunk), *args)
+            out["ssd_pullback"] = analyze_hlo(jax.jit(lambda f, g: f(g)).lower(pull, y).compile().as_text()).flops
+        print("FAMILY" + json.dumps([arch, out]), flush=True)
+    """
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def repro_family_flops():
+    """``repro``'s per-stage program FLOPs of every family config (and, for
+    those with Mamba2 layers, XLA's SSD pullback), in one subprocess started
+    with this file's first test, so that it compiles while the tests before
+    the families' run; ``get(arch)`` waits for them."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(__file__), "..", "src"), "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.Popen([sys.executable, "-c", _FAMILY_SCRIPT, json.dumps([FAMILIES, FAMILY_B, FAMILY_T])],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    done = {}
+
+    def get(arch):
+        if not done:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+            done.update(json.loads(line[6:]) for line in out.splitlines() if line.startswith("FAMILY"))
+        return done[arch]
+
+    yield get
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _plain_ssd_grad_flops(cfg) -> int:
+    """What the port's K2 backward counts a Mamba2 layer: the plain chunked
+    SSD recomputed and differentiated in every input, at the layer's
+    shapes (B and C [b, T, 1, N], as ``models/mamba.py`` passes them)."""
+    H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    shapes = ((FAMILY_B, FAMILY_T, H, P), (FAMILY_B, FAMILY_T, H), (H,), (FAMILY_B, FAMILY_T, 1, N),
+              (FAMILY_B, FAMILY_T, 1, N))
+    ins = [torch.ones(sh, requires_grad=True) for sh in shapes]
+    with FlopCounterMode(display=False) as counter:
+        y = ssd_ref.ssd_chunked(*ins, chunk=cfg.ssm_chunk)
+        torch.autograd.grad(y, ins, torch.ones_like(y))
+    return counter.get_total_flops()
+
+
+def _last_product_in(cfg) -> int:
+    """The input width of the last product of a stage's last layer, the one
+    XLA drops as dead from ``repro``'s vjp programs on stages 0..S-2: a
+    Mamba2 layer's ``out_proj`` (d_inner), a dense MLP's down (d_ff), an MoE
+    layer's shared expert's down; an MoE layer without one keeps its combine
+    (nothing dropped)."""
+    from repro_torch.models.common import layer_specs
+
+    last = layer_specs(cfg)[cfg.num_layers // 2 - 1]
+    if last.kind == "mamba":
+        return cfg.ssm_expand * cfg.d_model
+    if not last.moe:
+        return cfg.d_ff
+    return cfg.moe_d_ff * cfg.n_shared_experts
+
+
+@pytest.fixture(scope="module", params=list(FAMILIES))
+def family(request, repro_family_flops):
+    cfg = get_arch(request.param).smoke.replace(dtype=torch.float32, **FAMILIES[request.param])
+    staged = StagedModel.build(cfg, 2)
+    counts = [count_stage(staged, s, FAMILY_B, FAMILY_T) for s in range(2)]
+    return cfg, staged, repro_family_flops(request.param), counts
+
+
+def test_ssm_moe_hybrid_flops_match_repro_but_for_named_gaps(family):
+    """Counted on ``meta`` (K2's custom operator, the MoE layer's static
+    dispatch), each stage's programs count ``repro``'s HLO FLOPs exactly in
+    the forward; the backward programs differ by two named terms, each held
+    exactly:
+
+    * on stage 0 (of 2), ``bwd_input`` and ``bwd_weight`` compute the last
+      layer's last product, which XLA drops as dead (:func:`_last_product_in`);
+    * each Mamba2 layer's SSD backward, in every backward program of every
+      stage: the port's K2 backward recomputes the plain chunked SSD and
+      differentiates it in eager PyTorch (:func:`_plain_ssd_grad_flops`),
+      where XLA differentiates its jnp SSD from the residuals its vjp saved
+      (the pullback's HLO FLOPs at the same shapes).  Where a program replays
+      the stage forward, both replay the SSD forward, counted alike."""
+    cfg, staged, want, counts = family
+    n_ssm = sum(spec.kind == "mamba" for spec in staged.pattern) * staged.reps
+    per_layer = _plain_ssd_grad_flops(cfg) - want["ssd_pullback"] if n_ssm else 0
+    for s in range(2):
+        assert counts[s]["fwd"].flops == want["flops"][s]["fwd"]
+        for p in ("bwd_input", "bwd_weight", "bwd_weight_saved"):
+            dead = 0 if s or p == "bwd_weight_saved" else 2 * FAMILY_B * FAMILY_T * _last_product_in(cfg) * cfg.d_model
+            assert counts[s][p].flops - want["flops"][s][p] == dead + n_ssm * per_layer, (s, p)
+    if n_ssm:  # the gap is the port's recompute, less than one SSD forward more a layer
+        H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        assert 0 < per_layer < ssd_ref.ssd_chunked_flops(FAMILY_B, FAMILY_T, H, cfg.ssm_head_dim, cfg.ssm_state,
+                                                         cfg.ssm_chunk)
+
+
+def test_ssm_moe_hybrid_calibrate_through_the_cli(tmp_path, family):
+    """``dryrun_pipeline.calibrate`` takes the families it refused: the
+    record's per-stage FLOPs are ``count_stage``'s."""
+    cfg, staged, _, counts = family
+    name = cfg.name
+    orig = dryrun_pipeline._config
+    dryrun_pipeline._config = lambda _: cfg
+    try:
+        rec = dryrun_pipeline.calibrate(name, 2, FAMILY_B, FAMILY_T, str(tmp_path), device="cpu")
+    finally:
+        dryrun_pipeline._config = orig
+    flops = rec["workload"]["stages"]
+    for s in range(2):
+        for p in TASK_PROGRAMS:
+            assert flops[s][p]["flops"] == counts[s][p].flops

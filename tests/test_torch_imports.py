@@ -50,6 +50,8 @@ def test_every_port_module_imports_without_jax_or_repro():
         assert f"repro_torch.{mod}" in mods, mod
     for mod in ("distributed", "distributed.sharding", "distributed.spmd", "distributed.rank_checks", "launch.mesh"):
         assert f"repro_torch.{mod}" in mods, mod
+    for mod in ("launch.dryrun", "launch.hlo_analysis", "core.viz"):
+        assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -537,11 +537,19 @@ def test_layer_homes_follow_the_virtual_stage_rule():
 
 
 def test_spmd_runtime_refuses_the_stateless_mode():
-    """``optimizer=None`` (the serving side) is not ported on the spmd backend."""
+    """``optimizer=None`` (the serving side) on the spmd backend owns no
+    state: it refuses ``run_iteration`` (training), as ``repro``'s does, and
+    a factory is required; ``tests/test_torch_dryrun.py`` runs it on four
+    ranks against the reference backend."""
     group = types.SimpleNamespace(S=2, D=1, s=0, rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        PlanRuntime(_cfgs(4)[1], 2, None, global_batch=8, seq_len=8, backend="spmd", group=group,
-                    program_factory=lambda t: None)
+    rt = PlanRuntime(_cfgs(4)[1], 2, None, global_batch=8, seq_len=8, backend="spmd", group=group,
+                     program_factory=lambda t: None)
+    assert rt.state is None and rt.group is group
+    with pytest.raises(RuntimeError, match="run_program"):
+        rt.run_iteration(None, None)
+    rt.cache.shutdown()
+    with pytest.raises(ValueError, match="program_factory"):
+        PlanRuntime(_cfgs(4)[1], 2, None, global_batch=8, seq_len=8, backend="spmd", group=group)
     with pytest.raises(ValueError, match="rank group has 2"):
         PlanRuntime(_cfgs(4)[1], 4, make_optimizer("adamw"), global_batch=8, seq_len=8, backend="spmd",
                     group=group)
